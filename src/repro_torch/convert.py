@@ -1,0 +1,69 @@
+"""Parameter conversion between the JAX package and the port.
+
+``params_from_numpy`` takes the JAX package's parameters as a nested dict of
+numpy arrays (what ``jax.device_get`` gives) and returns the port's tree of
+tensors: the same key paths, the same stacked [L, ...] layout and, unless a
+``dtype`` is given, the same dtype. ``params_to_numpy`` is its inverse.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import lm
+
+_NP_TO_TORCH = {np.dtype(np.float32): torch.float32,
+                np.dtype(np.float16): torch.float16,
+                np.dtype(np.int32): torch.int32}
+
+
+def _leaf_to_tensor(arr, device, dtype) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":   # ml_dtypes.bfloat16, as JAX hands out
+        t = torch.from_numpy(np.ascontiguousarray(arr).view(np.uint16))
+        t = t.view(torch.bfloat16)
+    elif arr.dtype in _NP_TO_TORCH:
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+    else:
+        raise TypeError(f"unsupported parameter dtype {arr.dtype}")
+    return t.to(device=device, dtype=dtype or t.dtype).contiguous()
+
+
+def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda",
+                      dtype: torch.dtype | None = None) -> dict:
+    """Nested dict of numpy arrays -> nested dict of tensors on ``device``.
+    Every key path and shape must match ``lm.param_shapes(cfg)``."""
+    dev = resolve_device(device)
+    shapes = lm.param_shapes(cfg)
+
+    def walk(t, s, path):
+        if set(t) != set(s):
+            raise KeyError(f"{path or 'params'}: keys {sorted(t)} != "
+                           f"expected {sorted(s)}")
+        out = {}
+        for k, v in t.items():
+            p = f"{path}/{k}"
+            if isinstance(s[k], dict):
+                out[k] = walk(v, s[k], p)
+                continue
+            if tuple(np.shape(v)) != tuple(s[k]):
+                raise ValueError(f"{p}: shape {tuple(np.shape(v))} != "
+                                 f"expected {tuple(s[k])}")
+            out[k] = _leaf_to_tensor(v, dev, dtype)
+        return out
+    return walk(tree, shapes, "")
+
+
+def params_to_numpy(params: dict) -> dict:
+    """Inverse of ``params_from_numpy``: tensors -> numpy arrays on the host,
+    bf16 as ``ml_dtypes.bfloat16`` (the type JAX hands out)."""
+    def leaf(t: torch.Tensor):
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            import ml_dtypes
+            return t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
+        return t.numpy()
+    return {k: (params_to_numpy(v) if isinstance(v, dict) else leaf(v))
+            for k, v in params.items()}

@@ -1,0 +1,130 @@
+"""Kernel wrappers: device dispatch, checks and launch counts.
+
+Each wrapper takes the plain PyTorch version (``ref.py``) only for tensors on
+the CPU. For CUDA tensors it checks device, dtype, shape and contiguity,
+launches the hand-written kernel, checks the launch, and adds one to its
+launch count — or raises. It never falls back to the plain version, a
+library call or the CPU. Any other device raises.
+
+``LAUNCHES`` counts kernel launches per wrapper (plain integers); a run sets
+them to 0 with ``reset_launches`` and reads them afterwards to show that the
+main path went through the kernels.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import paged_decode_attention as _pda
+from repro_torch.kernels import ref
+from repro_torch.kernels import rmsnorm as _rn
+
+LAUNCHES = {"paged_decode_attention": 0, "rmsnorm": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _on_card(name: str, first: torch.Tensor, *others: torch.Tensor) -> bool:
+    """False for CPU tensors (plain version), True for CUDA tensors (kernel);
+    raises for any other device or for tensors on different devices."""
+    dev = first.device
+    for t in others:
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on different devices "
+                             f"({dev} and {t.device})")
+    if dev.type == "cpu":
+        return False
+    if dev.type == "cuda":
+        return True
+    raise ValueError(f"{name}: tensors on {dev} are not supported "
+                     f"(cuda launches the kernel, cpu runs the plain version)")
+
+
+def _fail(name: str, msg: str):
+    raise ValueError(f"{name}: {msg}")
+
+
+def paged_decode_attention(q, k_pool, v_pool, page_tables, valid_len, hmap):
+    """q: [B, 1, H, D]; k_pool/v_pool: [num_pages, page_size, KVH, D] shared
+    pools (one layer's slice); page_tables: [B, max_pages] int32 (entries >=
+    num_pages are unallocated sentinels); valid_len: [B] int32 (>= 1 on the
+    serving path); hmap: [H] int32 q-head -> kv-head map -> [B, 1, H, D] in
+    the dtype of q. No head-expanded view of the pool is built."""
+    name = "paged_decode_attention"
+    b, one, h, d = q.shape
+    if one != 1:
+        _fail(name, f"q must be [B, 1, H, D], got {tuple(q.shape)}")
+    if not _on_card(name, q, k_pool, v_pool, page_tables, valid_len, hmap):
+        out = ref.paged_decode_attention(q.reshape(b, h, d), k_pool, v_pool,
+                                         page_tables, valid_len, hmap)
+        return out.reshape(b, 1, h, d)
+    # messages are formatted only on failure: this runs on every decode step
+    num_pages, ps, kvh, dk = k_pool.shape
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        _fail(name, f"q must be float32 or bfloat16, got {q.dtype}")
+    if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
+        _fail(name, f"pools must share the dtype of q ({q.dtype}), got "
+              f"{k_pool.dtype}/{v_pool.dtype}")
+    if d != _pda.HEAD_DIM or dk != d:
+        _fail(name, f"the kernel takes head dim {_pda.HEAD_DIM}, got q {d} "
+              f"and pool {dk}")
+    if h > _pda.MAX_HEADS:
+        _fail(name, f"the kernel takes at most {_pda.MAX_HEADS} q heads, "
+              f"got {h}")
+    if v_pool.shape != k_pool.shape:
+        _fail(name, f"k/v pool shapes differ: {tuple(k_pool.shape)} vs "
+              f"{tuple(v_pool.shape)}")
+    if page_tables.ndim != 2 or page_tables.shape[0] != b:
+        _fail(name, f"page_tables must be [B={b}, max_pages], got "
+              f"{tuple(page_tables.shape)}")
+    if valid_len.shape != (b,) or hmap.shape != (h,):
+        _fail(name, f"valid_len must be [B={b}] and hmap [H={h}], got "
+              f"{tuple(valid_len.shape)} and {tuple(hmap.shape)}")
+    for label, t in (("page_tables", page_tables), ("valid_len", valid_len),
+                     ("hmap", hmap)):
+        if t.dtype != torch.int32:
+            _fail(name, f"{label} must be int32, got {t.dtype}")
+    for label, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
+                     ("page_tables", page_tables), ("valid_len", valid_len),
+                     ("hmap", hmap)):
+        if not t.is_contiguous():
+            _fail(name, f"{label} must be contiguous")
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        _fail(name, "pools must be 16-byte aligned (the kernel reads "
+              "16-byte vectors)")
+    if not (0 < b <= 65535 and kvh > 0):
+        _fail(name, f"grid ({kvh}, {b}) out of range")
+    _pda.load()   # a missing build raises here, before any allocation
+    out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
+    _pda.launch(q.view(b, h, d), k_pool, v_pool, page_tables, valid_len,
+                hmap, out)
+    LAUNCHES[name] += 1
+    return out.view(b, 1, h, d)
+
+
+def rmsnorm(x, scale, eps=1e-5):
+    """x: [..., D]; scale: [D] -> RMSNorm over the trailing dim, f32
+    statistics, output in the dtype of x."""
+    name = "rmsnorm"
+    if not _on_card(name, x, scale):
+        return ref.rmsnorm(x, scale, eps)
+    d = x.shape[-1]
+    if scale.shape != (d,):
+        _fail(name, f"scale must be [D={d}], got {tuple(scale.shape)}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        _fail(name, f"x must be float32 or bfloat16, got {x.dtype}")
+    if scale.dtype not in (torch.float32, torch.bfloat16):
+        _fail(name, f"scale must be float32 or bfloat16, got {scale.dtype}")
+    if not (x.is_contiguous() and scale.is_contiguous()):
+        _fail(name, "x and scale must be contiguous")
+    if not 0 < d <= _rn.MAX_D:
+        _fail(name, f"the kernel takes 0 < D <= {_rn.MAX_D}, got {d}")
+    _rn.load()
+    x2d = x.view(-1, d)
+    out = torch.empty_like(x2d)
+    if x2d.shape[0]:
+        _rn.launch(x2d, scale, float(eps), out)
+        LAUNCHES[name] += 1
+    return out.view(x.shape)

@@ -1,0 +1,56 @@
+"""Plain PyTorch versions of the ported kernels (the allclose targets).
+
+Ports of ``decode_attention``, ``paged_decode_attention`` and ``rmsnorm`` from
+the JAX package's ``kernels/ref.py``. ``ops.py`` takes these for tensors on
+the CPU; ``chip_smoke.py`` holds the CUDA and Triton kernels against them on
+the card.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def decode_attention(q, k, v, valid_len):
+    """q: [B, H, D]; k, v: [B, H, S, D]; valid_len: scalar or per-row [B]
+    tensor — masked single-query attention, f32 softmax."""
+    s = k.shape[2]
+    scale = q.shape[-1] ** -0.5
+    scores = torch.einsum("bhd,bhkd->bhk", q.float(), k.float()) * scale
+    vl = torch.as_tensor(valid_len, device=q.device)
+    kpos = torch.arange(s, device=q.device)
+    if vl.ndim:
+        mask = kpos[None, None, :] < vl[:, None, None]
+    else:
+        mask = (kpos < vl)[None, None, :]
+    scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhk,bhkd->bhd", probs, v.float())
+    return out.to(q.dtype)
+
+
+def paged_decode_attention(q, k_pool, v_pool, page_tables, valid_len, hmap):
+    """q: [B, H, D]; k_pool/v_pool: [num_pages, page_size, KVH, D];
+    page_tables: [B, max_pages] int (entries >= num_pages are unallocated
+    sentinels: clamped for the gather, masked by valid_len); hmap: [H] int
+    q-head -> kv-head map. Gathers the pool into the dense per-row view and
+    defers to the dense version."""
+    b = q.shape[0]
+    num_pages, ps, kvh, d = k_pool.shape
+    tbl = page_tables.long().clamp(max=num_pages - 1)
+    maxp = tbl.shape[1]
+    hm = hmap.long()
+
+    def dense(pool):  # [B, S, KVH, D] -> [B, H, S, D]
+        return pool[tbl].reshape(b, maxp * ps, kvh, d)[:, :, hm, :] \
+            .transpose(1, 2)
+
+    return decode_attention(q, dense(k_pool), dense(v_pool), valid_len)
+
+
+def rmsnorm(x, scale, eps=1e-5):
+    """x: [..., D]; scale: [D]. f32 statistics, output in the dtype of x."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)

@@ -1,0 +1,137 @@
+"""The port's kernels against the JAX package's.
+
+On the CPU the port's wrappers run their plain PyTorch versions; those are
+held against the JAX oracles (``repro.kernels.ref``) and the Pallas kernels
+in interpret mode, over the sweep of ``tests/test_kernels.py`` (page sizes
+4/8/16, scrambled tables with sentinels, mixed valid_len, f32 and bf16) at
+its tolerances. The CUDA/Triton kernels themselves are compared with the
+plain versions on the card by ``tests/test_torch_cuda.py`` and
+``chip_smoke.py``.
+"""
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import decode_attention as jdec
+from repro.kernels import ref as jref
+from repro.kernels import rmsnorm as jrms
+from repro_torch.kernels import ops, ref
+
+TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+NUMPY = {"float32": np.float32, "bfloat16": ml_dtypes.bfloat16}
+
+
+def _tol(dtype):
+    """tests/test_kernels.py::_tol."""
+    return (dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16"
+            else dict(rtol=1e-5, atol=1e-5))
+
+
+def _pair(x: np.ndarray, dtype: str):
+    """The same values as a JAX array and a torch tensor (bf16 rounded once,
+    on the numpy side, so both get identical bits)."""
+    xn = np.asarray(x, np.float32).astype(NUMPY[dtype])
+    t = torch.from_numpy(np.asarray(xn, np.float32)).to(TORCH[dtype])
+    return jnp.asarray(xn), t
+
+
+def _as_np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _paged_case(seed, b, h, kvh, d, ps, maxp, num_pages, vl, hmap, dtype):
+    """q = 3 N(0, 1) against N(0, 1) keys: scores of spread 3 give a peaked
+    softmax, so every output row stays near the size of a V row and is
+    large beside the bf16 tolerance (see ``_assert_strong``)."""
+    rng = np.random.default_rng(seed)
+    k = rng.standard_normal((num_pages, ps, kvh, d))
+    v = rng.standard_normal((num_pages, ps, kvh, d))
+    q = 3 * rng.standard_normal((b, h, d))
+    perm = rng.permutation(num_pages)
+    tbl = np.full((b, maxp), num_pages, np.int32)   # sentinel-filled
+    used = 0
+    for i in range(b):
+        n = -(-int(vl[i]) // ps)
+        tbl[i, :n] = perm[used:used + n]
+        used += n
+    ints = dict(tbl=tbl, vl=np.asarray(vl, np.int32),
+                hmap=np.asarray(hmap, np.int32))
+    return _pair(q, dtype), _pair(k, dtype), _pair(v, dtype), ints
+
+
+def _assert_strong(want, dtype):
+    """The comparison has power: every row of the expected output has an RMS
+    of at least 10 tol, so an all-zero or flat-average output would fail."""
+    w = _as_np(want)
+    rms = np.sqrt((w.reshape(w.shape[0], -1) ** 2).mean(axis=1))
+    assert (rms >= 10 * _tol(dtype)["atol"]).all(), rms
+
+
+def _run_paged(case):
+    (qj, qt), (kj, kt), (vj, vt), ints = case
+    b, h, d = qt.shape
+    tt = {n: torch.from_numpy(a) for n, a in ints.items()}
+    out = ops.paged_decode_attention(qt.view(b, 1, h, d), kt, vt, tt["tbl"],
+                                     tt["vl"], tt["hmap"]).view(b, h, d)
+    ja = [jnp.asarray(ints[n]) for n in ("tbl", "vl", "hmap")]
+    oracle = jref.paged_decode_attention(qj, kj, vj, *ja)
+    pallas = jdec.paged_decode_attention(qj, kj, vj, *ja, interpret=True)
+    return out, oracle, pallas
+
+
+@pytest.mark.parametrize("ps", [4, 8, 16])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_decode_sweep_vs_jax(ps, dtype):
+    """Scrambled page tables with sentinel entries, per-row valid_len (one
+    position, partial pages, full table) and a GQA hmap: the port's plain
+    version matches the JAX oracle and the Pallas kernel."""
+    num_pages, maxp = 20, 5
+    case = _paged_case(7, 3, 4, 2, 64, ps, maxp, num_pages,
+                       [1, 2 * ps + 1, maxp * ps], [0, 0, 1, 1], dtype)
+    out, oracle, pallas = _run_paged(case)
+    assert out.dtype == TORCH[dtype]
+    _assert_strong(oracle, dtype)
+    np.testing.assert_allclose(_as_np(out), _as_np(oracle), **_tol(dtype))
+    np.testing.assert_allclose(_as_np(out), _as_np(pallas), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_decode_qwen_heads_vs_jax(dtype):
+    """The serving slice's head layout: 16 padded q heads over 2 kv heads
+    (hmap [0]*7 + [1]*9, the padded heads clamped onto kv head 1), D=64,
+    page 16, valid_len 1 .. a full 8-page row."""
+    hmap = np.minimum(np.arange(16) // 7, 1)
+    case = _paged_case(3, 4, 16, 2, 64, 16, 8, 40, [1, 17, 64, 128], hmap,
+                       dtype)
+    out, oracle, pallas = _run_paged(case)
+    _assert_strong(oracle, dtype)
+    np.testing.assert_allclose(_as_np(out), _as_np(oracle), **_tol(dtype))
+    np.testing.assert_allclose(_as_np(out), _as_np(pallas), **_tol(dtype))
+
+
+@pytest.mark.parametrize("shape", [(16, 64), (8, 896), (24, 100)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_vs_jax(shape, dtype):
+    rng = np.random.default_rng(1)
+    xj, xt = _pair(2 * rng.standard_normal(shape), dtype)
+    sj, st = _pair(1 + 0.1 * rng.standard_normal(shape[-1]), dtype)
+    out = ops.rmsnorm(xt, st, 1e-6)
+    assert out.dtype == xt.dtype and out.shape == xt.shape
+    np.testing.assert_allclose(_as_np(out), _as_np(jref.rmsnorm(xj, sj, 1e-6)),
+                               **_tol(dtype))
+    np.testing.assert_allclose(
+        _as_np(out), _as_np(jrms.rmsnorm(xj, sj, 1e-6, interpret=True)),
+        **_tol(dtype))
+
+
+def test_cpu_path_launches_no_kernel():
+    """CPU tensors take the plain versions: no launch is counted."""
+    before = dict(ops.LAUNCHES)
+    x = torch.randn(4, 32)
+    torch.testing.assert_close(ops.rmsnorm(x, torch.ones(32)),
+                               ref.rmsnorm(x, torch.ones(32)))
+    assert ops.LAUNCHES == before

@@ -1,0 +1,163 @@
+"""Rules of the PyTorch port that no parity test would catch.
+
+- No module of ``src/repro_torch/``, and not ``chip_smoke.py``, imports
+  ``jax``, ``jaxlib`` or anything of the JAX package ``repro``.
+- Entry points run on the card by default and raise without CUDA unless the
+  caller passes ``device="cpu"``.
+- Kernel wrappers run the plain version only for CPU tensors: for a CUDA
+  tensor whose kernel cannot be built they raise, and count no launch.
+"""
+import ast
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import convert
+from repro_torch.configs import get_smoke_config
+from repro_torch.kernels import _build, ops
+from repro_torch.kernels import paged_decode_attention as pda
+from repro_torch.kernels import rmsnorm as rn
+from repro_torch.launch import serve as launch_serve
+from repro_torch.models import lm
+from repro_torch.serve import ServeConfig, ServeEngine
+
+REPO = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)
+              and isinstance(node.args[0].value, str)):
+            roots.add(node.args[0].value.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_port_imports_nothing_of_jax(path):
+    assert path.exists(), path
+    bad = _imported_roots(path) & set(FORBIDDEN)
+    assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
+
+
+def test_import_scan_sees_forbidden_imports(tmp_path):
+    f = tmp_path / "m.py"
+    f.write_text("import jax.numpy as jnp\nfrom repro.serve import x\n"
+                 "import importlib\nimportlib.import_module('jaxlib.xla')\n")
+    assert _imported_roots(f) >= {"jax", "repro", "jaxlib"}
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _cfg():
+    return get_smoke_config("qwen2.5-0.5b")
+
+
+@pytest.mark.parametrize("call", [
+    lambda: lm.init(_cfg()),
+    lambda: lm.init(_cfg(), device="cuda"),
+    lambda: lm.init_cache(_cfg(), 2, 16),
+    lambda: lm.init_paged_cache(_cfg(), 2, 16, 4, 8),
+    lambda: convert.params_from_numpy({}, _cfg()),
+    lambda: ServeEngine(_cfg(), {}, ServeConfig(max_len=16, num_slots=2)),
+    lambda: launch_serve.main(["--arch", "qwen2.5-0.5b", "--smoke"]),
+], ids=["init", "init-cuda", "init_cache", "init_paged_cache", "convert",
+        "engine", "launcher"])
+def test_entry_points_need_cuda_by_default(no_cuda, call):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call()
+
+
+def test_entry_points_run_on_cpu_when_asked(no_cuda, capsys):
+    params = lm.init(_cfg(), torch.Generator().manual_seed(0), device="cpu")
+    eng = ServeEngine(_cfg(), params, ServeConfig(max_len=16, num_slots=2),
+                      device="cpu")
+    out = eng.generate({"tokens": np.ones((2, 4), np.int32)},
+                       max_new_tokens=3)
+    assert out.shape == (2, 3)
+    with pytest.raises(ValueError, match="params live on"):
+        ServeEngine(_cfg(), {"w": torch.zeros(1, device="meta")},
+                    ServeConfig(max_len=16, num_slots=2), device="cpu")
+    assert launch_serve.main(["--arch", "qwen2.5-0.5b", "--smoke",
+                              "--device", "cpu", "--new-tokens", "4"]) == 0
+    assert "steady state" in capsys.readouterr().out
+
+
+class _FakeCuda(torch.Tensor):
+    """A CPU tensor that reports a CUDA device: stands in for a card so the
+    wrappers' CUDA branch runs here."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+def _fake(t):
+    return torch.Tensor._make_subclass(_FakeCuda, t)
+
+
+@pytest.fixture
+def missing_builds(monkeypatch, tmp_path):
+    """Neither kernel can be built: no nvcc, no triton."""
+    def no_nvcc():
+        raise _build.KernelBuildFailure("nvcc not found (stub)")
+    monkeypatch.setattr(_build, "nvcc", no_nvcc)
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(pda, "_fn", None)
+    monkeypatch.setattr(rn, "_compiled", None)
+    monkeypatch.setitem(sys.modules, "triton", None)
+
+
+def test_wrappers_raise_for_cuda_tensors_without_a_build(missing_builds):
+    before = dict(ops.LAUNCHES)
+    q = _fake(torch.zeros(2, 1, 16, 64))
+    pool = _fake(torch.zeros(8, 4, 2, 64))
+    tbl = _fake(torch.zeros(2, 4, dtype=torch.int32))
+    vl = _fake(torch.ones(2, dtype=torch.int32))
+    hm = _fake(torch.zeros(16, dtype=torch.int32))
+    with pytest.raises(_build.KernelBuildFailure, match="nvcc"):
+        ops.paged_decode_attention(q, pool, pool, tbl, vl, hm)
+    with pytest.raises(_build.KernelBuildFailure, match="triton"):
+        ops.rmsnorm(_fake(torch.zeros(3, 8)), _fake(torch.ones(8)))
+    assert ops.LAUNCHES == before
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take():
+    q = _fake(torch.zeros(2, 1, 16, 32))   # head dim 32: kernel takes 64
+    pool = _fake(torch.zeros(8, 4, 2, 32))
+    i32 = [_fake(torch.zeros(2, 4, dtype=torch.int32)),
+           _fake(torch.ones(2, dtype=torch.int32)),
+           _fake(torch.zeros(16, dtype=torch.int32))]
+    with pytest.raises(ValueError, match="head dim"):
+        ops.paged_decode_attention(q, pool, pool, *i32)
+    q32 = _fake(torch.zeros(2, 1, 32, 64))   # 32 q heads: kernel takes 16
+    pool64 = _fake(torch.zeros(8, 4, 2, 64))
+    with pytest.raises(ValueError, match="at most 16 q heads"):
+        ops.paged_decode_attention(q32, pool64, pool64, *i32[:2],
+                                   _fake(torch.zeros(32, dtype=torch.int32)))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ops.rmsnorm(_fake(torch.zeros(3, 8, dtype=torch.float16)),
+                    _fake(torch.ones(8, dtype=torch.float16)))
+    with pytest.raises(ValueError, match="different devices"):
+        ops.rmsnorm(_fake(torch.zeros(3, 8)), torch.ones(8))
+    with pytest.raises(ValueError, match="not supported"):
+        ops.rmsnorm(torch.zeros(3, 8, device="meta"),
+                    torch.ones(8, device="meta"))
