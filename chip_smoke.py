@@ -25,7 +25,24 @@ Phases, each of which makes the run exit non-zero if it fails:
 5. consistency at full width in f32: the engine's greedy tokens equal the
    argmax of one teacher-forced ``prefill`` (a path without the decode
    kernel) at every generated position, with the kernels' launch counts of
-   that run checked as in phase 4.
+   that run checked as in phase 4;
+6. the training kernels against their plain versions, bf16 and f32, at the
+   training path's shapes: the block gradient norms and the masked AdamW
+   step (Triton) on the stacked leaves wg [24, 896*4864], wq [24, 896*1024]
+   and ln1 [24, 896] with 5 of 24 rows selected, and the RMSNorm backward
+   (Triton) on [8*512, 896]; rows with sel = 0 come back bit-identical, two
+   launches of the norms give the same bits; times as in phase 3, beside
+   each kernel's bytes bound and a library yardstick where one exists;
+7. training at full width: the port's ``Trainer`` on qwen2.5-0.5b in bf16,
+   adagradselect, dense residency, global batch 8 x 512 tokens, 10 steps;
+   median step time after 2 warm-up steps, tokens/s, peak device memory,
+   launches per step of every kernel (checked against the path's counts),
+   k = 5 of 26 blocks selected at every step, finite losses, the AdamW
+   counts equal to the summed masks, and a profiled repeat;
+8. training consistency in f32 (TF32 off): topk_grad at full width with 2
+   layers, global batch 2 x 64, 3 steps, on the card (kernels) and on the
+   CPU (plain versions) from the same state: losses within 1e-4 relative,
+   equal masks at every step, parameters within 2 lr steps.
 
 Then it prints the kernel summary as one JSON line and, last, the device
 line ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
@@ -34,6 +51,8 @@ the repository beside it, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import math
+import statistics
 import subprocess
 import sys
 import time
@@ -52,6 +71,10 @@ PROMPT_LENS = (7, 17, 33, 64, 100, 128, 200, 255)
 NEW_TOKENS = 32
 SERVE = dict(max_len=512, num_slots=4, kv_layout="paged", page_size=16,
              decode_chunk=8)
+TRAIN_LEAVES = {"wg": (24, 896 * 4864), "wq": (24, 896 * 1024),
+                "ln1": (24, 896)}   # stacked leaves as the kernels see them
+TRAIN_SEL_ROWS = (1, 6, 11, 16, 21)  # 5 of 24 rows selected
+TRAIN = dict(global_batch=8, seq_len=512, steps=10, warmup=2)
 
 
 class PhaseFailed(RuntimeError):
@@ -308,14 +331,15 @@ def phase_serving(torch, ops, lm, cfg, ServeEngine, ServeConfig,
 
 
 def _check_launches(launches: dict, cfg, stats: dict) -> None:
-    """Each kernel of the path ran, as often as the path calls it: one
-    paged decode per layer and decode step, one RMSNorm per norm (two per
-    block and the final one) and forward (prefill or decode step)."""
+    """Each kernel of the path ran, as often as the path calls it (and so
+    at least once): one paged decode per layer and decode step, one RMSNorm
+    per norm (two per block and the final one) and forward (prefill or
+    decode step), and no training kernel."""
     steps = stats["decode_chunks"] * SERVE["decode_chunk"]
-    want = {"paged_decode_attention": cfg.num_layers * steps,
-            "rmsnorm": (2 * cfg.num_layers + 1) * (steps + stats["prefills"])}
-    check(all(launches[k] > 0 for k in launches),
-          f"a kernel of the path was not launched: {launches}")
+    want = {k: 0 for k in launches}   # the training kernels: off this path
+    want.update({
+        "paged_decode_attention": cfg.num_layers * steps,
+        "rmsnorm": (2 * cfg.num_layers + 1) * (steps + stats["prefills"])})
     check(launches == want, f"launch counts {launches} != the path's "
           f"{want} ({steps} decode steps, {stats['prefills']} prefills)")
 
@@ -394,6 +418,295 @@ def phase_consistency(torch, ops, lm, cfg, ServeEngine, ServeConfig,
           f"kernel launches in the f32 serving run: {json.dumps(launches)}")
 
 
+# ------------------------------------------------------------ training
+
+
+def _bits_equal(torch, a, b) -> bool:
+    ib = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[a.dtype]
+    return a.shape == b.shape and torch.equal(a.view(ib), b.view(ib))
+
+
+def phase_train_kernels(torch, ops, ref, timer) -> dict:
+    """Rows 7, 8 and 2b against their plain versions; returns the summary
+    entries of the main path's largest launch (wg, bf16; [4096, 896] bf16
+    for the RMSNorm backward)."""
+    F = torch.nn.functional
+    rows, main = [], {}
+    adam = dict(lr=0.3, b1=0.9, b2=0.999, eps=1e-8, wd=0.1)
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        es = torch.tensor([], dtype=dt).element_size()
+        for leaf, (nl, r) in TRAIN_LEAVES.items():
+            g = torch.Generator(device="cuda").manual_seed(nl * r % 9973)
+
+            def rnd(scale=1.0, shift=0.0):
+                return shift + scale * torch.randn(nl, r, generator=g,
+                                                   device="cuda")
+            grad = rnd(1.0, 0.5).to(dt)      # nonzero mean
+            # row 7: per-row sum of squares (f32 sums: f32 tolerance)
+            n0 = ops.LAUNCHES["block_grad_sq_norms"]
+            out = ops.block_grad_sq_norms(grad)
+            again = ops.block_grad_sq_norms(grad)
+            torch.cuda.synchronize()
+            check(ops.LAUNCHES["block_grad_sq_norms"] == n0 + 2,
+                  "block_grad_sq_norms did not count its launches")
+            check(_bits_equal(torch, out, again),
+                  f"block_grad_sq_norms {leaf} {dtype}: two launches gave "
+                  f"different bits")
+            err = _check_close(torch, out[:, None],
+                               ref.block_grad_sq_norms(grad)[:, None],
+                               "float32", f"block_grad_sq_norms {leaf} {dtype}")
+            bms, by = bound_ms(nl * r * es + nl * 4, 2 * nl * r, "float32")
+            row = dict(kernel="block_grad_sq_norms", case=leaf, dtype=dtype,
+                       shape=f"[{nl}, {r}]", max_abs_err=err, tol=TOL[
+                           "float32"],
+                       ms=timer.ms(lambda: ops.block_grad_sq_norms(grad)),
+                       plain_ms=timer.ms(
+                           lambda: ref.block_grad_sq_norms(grad)),
+                       library_ms=timer.ms(lambda: torch.linalg.vector_norm(
+                           grad, dim=1, dtype=torch.float32) ** 2),
+                       bound_ms=bms, bound_by=by)
+            rows.append(row)
+            if leaf == "wg" and dtype == "bfloat16":
+                main["block_grad_sq_norms"] = row
+            # row 8: masked AdamW, in place
+            p, m, v = rnd().to(dt), rnd(0.1, 0.05), rnd(0.01).abs() + 0.01
+            sel = torch.zeros(nl, device="cuda")
+            sel[list(TRAIN_SEL_ROWS)] = 1.0
+            cnt = torch.arange(1, nl + 1, dtype=torch.float32, device="cuda")
+            args = (sel, cnt, *adam.values())
+            pk, mk, vk = p.clone(), m.clone(), v.clone()
+            n0 = ops.LAUNCHES["masked_adamw"]
+            ops.masked_adamw(pk, grad, mk, vk, *args)
+            torch.cuda.synchronize()
+            check(ops.LAUNCHES["masked_adamw"] == n0 + 1,
+                  "masked_adamw did not count its launch")
+            pr, mr, vr = ref.masked_adamw(p, grad, m, v, *args)
+            on = sel > 0
+            err = _check_close(torch, pk[on], pr[on], dtype,
+                               f"masked_adamw p {leaf}")
+            for what, got, want in (("m", mk, mr), ("v", vk, vr)):
+                _check_close(torch, got[on], want[on], "float32",
+                             f"masked_adamw {what} {leaf} {dtype}")
+            for what, new, old in (("p", pk, p), ("m", mk, m), ("v", vk, v)):
+                check(_bits_equal(torch, new[~on], old[~on]),
+                      f"masked_adamw {leaf} {dtype}: {what} of a row with "
+                      f"sel = 0 changed")
+            moved = (pk.float() - p.float())[on].abs().max().item()
+            check(moved > 5 * TOL[dtype], f"masked_adamw {leaf} {dtype}: "
+                  f"the step ({moved:.3g}) is too small for the check")
+            n_sel = len(TRAIN_SEL_ROWS)
+            bms, by = bound_ms(n_sel * r * (3 * es + 16) + 2 * nl * 4,
+                               15 * n_sel * r, "float32")
+            row = dict(kernel="masked_adamw", case=leaf, dtype=dtype,
+                       shape=f"[{nl}, {r}], {n_sel} rows selected",
+                       max_abs_err=err, tol=TOL[dtype],
+                       ms=timer.ms(lambda: ops.masked_adamw(pk, grad, mk, vk,
+                                                            *args)),
+                       plain_ms=timer.ms(lambda: ref.masked_adamw(
+                           p, grad, m, v, *args)),
+                       library_ms=None, bound_ms=bms, bound_by=by)
+            rows.append(row)
+            if leaf == "wg" and dtype == "bfloat16":
+                main["masked_adamw"] = row
+            del grad, p, m, v, pk, mk, vk, pr, mr, vr
+        # row 2b: RMSNorm backward at the training path's [8 * 512, 896]
+        n, d = TRAIN["global_batch"] * TRAIN["seq_len"], 896
+        g = torch.Generator(device="cuda").manual_seed(5)
+        mu = 1 + 0.5 * torch.randn(d, generator=g, device="cuda")
+        x = (mu + torch.randn(n, d, generator=g, device="cuda")).to(dt)
+        s = (1 + 0.1 * torch.randn(d, generator=g, device="cuda")).to(dt)
+        dy = (1 + torch.randn(n, d, generator=g, device="cuda")).to(dt)
+        n0 = ops.LAUNCHES["rmsnorm_bwd"]
+        dx, ds = ops.rmsnorm_bwd(dy, x, s, 1e-6)
+        torch.cuda.synchronize()
+        check(ops.LAUNCHES["rmsnorm_bwd"] == n0 + 1,
+              "rmsnorm_bwd did not count its launch")
+        pdx, pds = ref.rmsnorm_bwd(dy, x, s, 1e-6)
+        err = _check_close(torch, dx, pdx, dtype, "rmsnorm_bwd dx")
+        err = max(err, _check_close(torch, ds[None], pds[None], dtype,
+                                    "rmsnorm_bwd dscale"))
+        xl = x.clone().requires_grad_()
+        sl = s.clone().requires_grad_()
+        yl = F.rms_norm(xl, (d,), weight=sl, eps=1e-6)
+        bms, by = bound_ms(3 * n * d * es + 2 * d * es, 10 * n * d,
+                           "float32")
+        row = dict(kernel="rmsnorm_bwd", case=f"N={n}", dtype=dtype,
+                   shape=f"[{n}, {d}]", max_abs_err=err, tol=TOL[dtype],
+                   ms=timer.ms(lambda: ops.rmsnorm_bwd(dy, x, s, 1e-6)),
+                   plain_ms=timer.ms(lambda: ref.rmsnorm_bwd(dy, x, s,
+                                                             1e-6)),
+                   library_ms=timer.ms(lambda: torch.autograd.grad(
+                       yl, (xl, sl), dy, retain_graph=True)),
+                   bound_ms=bms, bound_by=by)
+        rows.append(row)
+        if dtype == "bfloat16":
+            main["rmsnorm_bwd"] = row
+    print("training kernels vs plain versions (CUDA events, L2 flushed, ms "
+          "per call):")
+    for r in rows:
+        lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        print(f"  {r['kernel']:<20} {r['case']:<7} {r['dtype']:<9} "
+              f"err {r['max_abs_err']:.2e} (rtol=atol {r['tol']:.0e})  "
+              f"kernel {r['ms']:.4f}  plain {r['plain_ms']:.4f}  "
+              f"library {lib}  bound {r['bound_ms']:.5f} ({r['bound_by']})"
+              f"  {r['shape']}")
+    print("  yardsticks: torch.linalg.vector_norm(g, dim=1, dtype=f32)**2 "
+          "(row 7), the autograd of F.rms_norm (2b); masked_adamw has none "
+          "(no single call takes per-row masks and counts)")
+    return main
+
+
+def _train_cfg(cfg, method, steps, global_batch, seq_len, **opt):
+    from repro_torch.configs.base import (OptimizerConfig, SelectConfig,
+                                          TrainConfig)
+    return TrainConfig(
+        model=cfg, method=method,
+        # as the launcher builds them (launch/train.py)
+        select=SelectConfig(k_percent=20.0,
+                            steps_per_epoch=max(1, steps // 4)),
+        optimizer=OptimizerConfig(**{"lr": 1e-3, "total_steps": steps,
+                                     **opt}),
+        seq_len=seq_len, global_batch=global_batch, steps=steps, seed=0,
+        log_every=1)
+
+
+def phase_training(torch, ops, cfg, Trainer) -> dict:
+    steps, warm = TRAIN["steps"], TRAIN["warmup"]
+    tcfg = _train_cfg(cfg, "adagradselect", steps, TRAIN["global_batch"],
+                      TRAIN["seq_len"])
+    t0 = time.perf_counter()
+    tr = Trainer(tcfg, device="cuda")
+    torch.cuda.synchronize()
+    nb = cfg.num_blocks
+    k = tr.sel_cfg.num_selected(nb)
+    print(f"training {cfg.name} ({cfg.num_layers} layers, {cfg.dtype}, "
+          f"{nb} blocks, k = {k}): adagradselect, dense residency, batch "
+          f"{TRAIN['global_batch']} x {TRAIN['seq_len']} tokens, {steps} "
+          f"steps; init {time.perf_counter() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    mask_sum = torch.zeros(nb, device="cuda")
+    ops.reset_launches()                     # the main path's run
+    for _ in range(steps):
+        tr.train(1)
+        mask_sum += tr.state["sel"]["mask"].float()
+    launches = dict(ops.LAUNCHES)
+    log = tr.log
+    peak = torch.cuda.max_memory_allocated()
+    check(len(log.losses) == steps and all(math.isfinite(x)
+                                           for x in log.losses),
+          f"losses {log.losses}")
+    n_sel = [mt["num_selected"] for mt in log.metrics]
+    check(n_sel == [k] * steps, f"num_selected per step {n_sel}, want {k}")
+    check(torch.equal(tr.state["opt"]["counts"], mask_sum),
+          f"opt counts {tr.state['opt']['counts'].tolist()} != summed masks "
+          f"{mask_sum.tolist()}")
+    per_step = {name: n / steps for name, n in launches.items()}
+    nl = cfg.num_layers
+    want = {"paged_decode_attention": 0, "block_grad_sq_norms": 12,
+            "masked_adamw": 12,
+            # forward, and the recompute of each layer's two norms
+            # (remat="full"), then the backward of every norm
+            "rmsnorm": 2 * nl + 1 + 2 * nl, "rmsnorm_bwd": 2 * nl + 1}
+    check(per_step == want, f"launches per step {per_step} != the path's "
+          f"{want}")
+    times = log.step_times[warm:]
+    med = statistics.median(times)
+    tokens = TRAIN["global_batch"] * TRAIN["seq_len"]
+    print(f"  losses: {[round(x, 4) for x in log.losses]}")
+    print(f"  step time (median of steps {warm}..{steps - 1}): "
+          f"{med * 1e3:.2f} ms = {tokens / med:.0f} tokens/s; all steps "
+          f"(ms): {[round(t * 1e3, 2) for t in log.step_times]}")
+    print(f"  peak device memory: {peak / 2**30:.2f} GiB")
+    print(f"  selected per step: {n_sel}; counts = summed masks "
+          f"{mask_sum.int().tolist()}")
+    print(f"  launches per step: {json.dumps(per_step)}")
+    _profile_training(torch, tr)
+    return {"launches": launches, "step_ms": med * 1e3}
+
+
+def _profile_training(torch, tr) -> None:
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tr.train(2)
+    wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_time_total", 0) > 0
+              and e.device_type.name == "CUDA"]
+    if not events:
+        print("  profile: the profiler saw no device time (not measured)")
+        return
+    busy_us = sum(e.device_time_total for e in events)
+    print(f"  profile (2 more steps, profiler on): wall {wall * 1e3:.1f} ms, "
+          f"device kernels {busy_us / 1e3:.1f} ms in "
+          f"{sum(e.count for e in events)} launches, device idle share "
+          f"{max(0.0, 1 - busy_us / 1e6 / wall):.3f}")
+    for e in sorted(events, key=lambda e: -e.device_time_total)[:15]:
+        print(f"    {e.device_time_total / 1e3:9.2f} ms {e.count:7d}x  "
+              f"{e.key[:90]}")
+    ours = {}
+    for e in events:   # the port's Triton kernels, by their function names
+        for fn in ("_rmsnorm_fwd", "_rmsnorm_bwd", "_col_sums", "_partials",
+                   "_row_sums", "_masked_adamw"):
+            if e.key.startswith(fn):
+                ours[fn] = ours.get(fn, 0.0) + e.device_time_total / 1e3
+    print(f"  the port's kernels in that profile (ms): "
+          f"{json.dumps({k: round(v, 3) for k, v in ours.items()})}, "
+          f"{sum(ours.values()) / (busy_us / 1e3):.3f} of device time")
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if hasattr(tree, "to"):
+        return tree.to(device).clone()
+    return tree
+
+
+def phase_train_consistency(torch, ops, cfg, Trainer) -> None:
+    """The same 3 f32 topk_grad steps on the card and on the CPU."""
+    steps, lr = 3, 1e-3
+    cfg = cfg.replace(dtype="float32", num_layers=2)
+    tcfg = _train_cfg(cfg, "topk_grad", steps, 2, 64, lr=lr,
+                      schedule="constant", warmup_steps=0)
+    card = Trainer(tcfg, device="cuda")
+    cpu = Trainer(tcfg, device="cpu")
+    cpu.state = _to(card.state, "cpu")
+    ops.reset_launches()
+    for i in range(steps):
+        card.train(1)
+        cpu.train(1)
+        lc, lh = card.log.losses[-1], cpu.log.losses[-1]
+        check(abs(lc - lh) <= 1e-4 * abs(lh),
+              f"step {i}: loss card {lc} vs cpu {lh}")
+        mc = card.state["sel"]["mask"].cpu()
+        check(torch.equal(mc, cpu.state["sel"]["mask"]),
+              f"step {i}: masks differ: card {mc.int().tolist()} cpu "
+              f"{cpu.state['sel']['mask'].int().tolist()}")
+    launches = dict(ops.LAUNCHES)
+    check(all(launches[n] > 0 for n in ("rmsnorm", "rmsnorm_bwd",
+                                        "block_grad_sq_norms",
+                                        "masked_adamw")),
+          f"a training kernel did not run on the card: {launches}")
+    worst = 0.0
+    pc, ph = card.state["params"], cpu.state["params"]
+    for a, b in zip(_leaves(pc), _leaves(ph)):
+        worst = max(worst, (a.cpu() - b).abs().max().item())
+    limit = 2 * lr * steps
+    check(worst <= limit, f"params differ by {worst} > {limit}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card.log.losses,
+                                                   cpu.log.losses))
+    print(f"training consistency (f32, TF32 off, {cfg.num_layers} layers at "
+          f"full width, batch 2 x 64, {steps} topk_grad steps, card vs CPU): "
+          f"losses {[round(x, 6) for x in card.log.losses]}, max rel err "
+          f"{rel:.2e} (limit 1e-4); masks equal at every step; params max "
+          f"|err| {worst:.3g} (limit {limit:g}); card launches "
+          f"{json.dumps(launches)}")
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -412,6 +725,7 @@ def main() -> int:
         from repro_torch.kernels import _build, ops, ref
         from repro_torch.models import lm
         from repro_torch.serve import Request, ServeConfig, ServeEngine
+        from repro_torch.train.trainer import Trainer
     except ImportError as e:
         print(f"chip_smoke: the repro_torch package is not beside this "
               f"script ({e})", file=sys.stderr)
@@ -433,6 +747,12 @@ def main() -> int:
         phase = "consistency"
         phase_consistency(torch, ops, lm, cfg, ServeEngine, ServeConfig,
                           Request)
+        phase = "train kernels"
+        main_rows.update(phase_train_kernels(torch, ops, ref, Timer(torch)))
+        phase = "training"
+        training = phase_training(torch, ops, cfg, Trainer)
+        phase = "train consistency"
+        phase_train_consistency(torch, ops, cfg, Trainer)
     except Exception:   # the boundary: report the failed phase, exit non-zero
         traceback.print_exc()
         print(f"chip_smoke: phase {phase!r} FAILED", file=sys.stderr)
@@ -441,13 +761,24 @@ def main() -> int:
         "cuda", "src/repro_torch/csrc/paged_decode_attention.cu",
         "src/repro/kernels/decode_attention.py:95"),
         "rmsnorm": ("triton", "src/repro_torch/kernels/rmsnorm.py",
-                    "src/repro/kernels/rmsnorm.py:13")}
+                    "src/repro/kernels/rmsnorm.py:13"),
+        # no TPU kernel: the JAX package differentiates norms.apply in XLA;
+        # this is the TPU kernel whose forward it completes
+        "rmsnorm_bwd": ("triton", "src/repro_torch/kernels/rmsnorm.py",
+                        "src/repro/kernels/rmsnorm.py:13"),
+        "block_grad_sq_norms": (
+            "triton", "src/repro_torch/kernels/block_grad_norm.py",
+            "src/repro/kernels/block_grad_norm.py:21"),
+        "masked_adamw": ("triton", "src/repro_torch/kernels/masked_adamw.py",
+                         "src/repro/kernels/masked_adamw.py:34")}
     kernels = []
     for name, (route, source, replaces) in sources.items():
         r = main_rows[name]
+        # launches of the main-path runs: serving (phase 4) + training (7)
+        launches = serving["launches"][name] + training["launches"][name]
         kernels.append(dict(
             name=name, route=route, source=source, replaces=replaces,
-            launches=serving["launches"][name], max_abs_err=r["max_abs_err"],
+            launches=launches, max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
     print(json.dumps({"kernels": kernels}))

@@ -1,15 +1,19 @@
-"""Model configuration: a copy of ``ModelConfig`` from the JAX package's
-``configs/base.py`` (field for field, so configs convert one to one and the
-tests can build one from the other with ``dataclasses.asdict``).
+"""Configuration: copies of ``ModelConfig``, ``SelectConfig``,
+``OptimizerConfig`` and ``TrainConfig`` from the JAX package's
+``configs/base.py`` (field for field, with their checks, so configs convert
+one to one and the tests can build one from the other with
+``dataclasses.asdict``).
 
 The port keeps its own copy instead of importing the JAX package. Only the
-dense family is served by this slice; the other families' fields stay so the
-dataclass matches the reference.
+dense family runs in the port; the other families' fields, and the
+optimizer's residency, offload and LoRA fields, stay so the dataclasses
+match the reference (the port raises where they select a path it does not
+have yet).
 """
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 
 @dataclass(frozen=True)
@@ -141,3 +145,89 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class SelectConfig:
+    """Selection-policy hyper-parameters (paper §3.2 + baseline policies).
+
+    ``policy`` names an entry in the core/adagradselect.py policy registry
+    ("adagradselect" | "topk_grad" | "random" | "all" | "lisa" | "grass"),
+    validated at lookup, not here."""
+
+    policy: str = "adagradselect"
+    k_percent: float = 20.0        # percentage of blocks updated per step
+    epsilon0: float = 1.0          # initial exploration rate
+    epsilon_decay: float = 0.01    # lambda in eps_t = eps0 * exp(-lambda * t)
+    dirichlet_delta: float = 1.0   # smoothing constant delta (alpha = f + delta)
+    steps_per_epoch: int = 1000    # after this, epoch>=2 -> pure exploitation
+    always_include: tuple = ()     # block indices always selected (e.g. embed)
+    lisa_interval: int = 20        # "lisa": steps between mask resamples
+    grass_temperature: float = 1.0  # "grass": sampling ∝ cum_norms^T
+
+    def __post_init__(self):
+        if not 0.0 < self.k_percent <= 100.0:
+            raise ValueError(f"k_percent must be in (0, 100], got "
+                             f"{self.k_percent}")
+        if self.epsilon0 < 0.0 or self.epsilon_decay < 0.0:
+            raise ValueError("epsilon0/epsilon_decay must be >= 0")
+        if self.dirichlet_delta <= 0.0:
+            raise ValueError("dirichlet_delta must be > 0")
+        if self.steps_per_epoch < 1:
+            raise ValueError("steps_per_epoch must be >= 1")
+        if self.lisa_interval < 1:
+            raise ValueError("lisa_interval must be >= 1")
+        if self.grass_temperature < 0.0:
+            raise ValueError("grass_temperature must be >= 0")
+
+    def num_selected(self, num_blocks: int) -> int:
+        # paper guideline: min% >= 100/B  => at least one block per step
+        return max(1, int(round(num_blocks * self.k_percent / 100.0)))
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    name: str = "adamw"
+    lr: float = 2e-5
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    weight_decay: float = 0.01
+    grad_clip: float = 1.0
+    warmup_steps: int = 20
+    schedule: str = "cosine"       # "constant" | "cosine" | "linear"
+    total_steps: int = 1000
+    # paper 3.3: where the AdamW moments live. The port has "device" (full
+    # f32 m/v on the card, the dense masked AdamW); "banked" is ROADMAP
+    # Queue A item 6.
+    moment_residency: str = "device"  # "device" | "banked"
+    offload: str = "none"          # "none" | "host" | "zero1"
+    async_swap: bool = True        # banked only
+    moment_dtype: str = "float32"  # "float32" | "bfloat16"
+    accum_dtype: str = "float32"   # microbatch grad-accumulation buffer
+    # LoRA baseline
+    lora_rank: int = 0
+    lora_alpha: float = 16.0
+    # distributed-optimization knobs
+    grad_compression: str = "none"  # "none" | "bf16"
+    microbatch: int = 0             # >0 -> gradient accumulation over microbatches
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    model: ModelConfig = field(default_factory=ModelConfig)
+    select: SelectConfig = field(default_factory=SelectConfig)
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    # fine-tuning method: an entry in the repro_torch.methods registry,
+    # validated at Trainer construction
+    method: str = "adagradselect"
+    seq_len: int = 512
+    global_batch: int = 8
+    steps: int = 100
+    seed: int = 0
+    log_every: int = 10
+    eval_every: int = 0
+    checkpoint_every: int = 0
+    checkpoint_dir: str = ""
+    checkpoint_keep: int = 3
+    straggler_tau: float = 3.0     # abort threshold: step_time > tau * EWMA

@@ -1,9 +1,13 @@
-"""Parameter conversion between the JAX package and the port.
+"""Parameter and train-state conversion between the JAX package and the
+port.
 
 ``params_from_numpy`` takes the JAX package's parameters as a nested dict of
 numpy arrays (what ``jax.device_get`` gives) and returns the port's tree of
 tensors: the same key paths, the same stacked [L, ...] layout and, unless a
 ``dtype`` is given, the same dtype. ``params_to_numpy`` is its inverse.
+``train_state_from_numpy`` converts a whole dense-residency TrainState of
+the masked-selection family, so both packages can take the same step from
+the same state.
 """
 from __future__ import annotations
 
@@ -20,12 +24,13 @@ _NP_TO_TORCH = {np.dtype(np.float32): torch.float32,
 
 
 def _leaf_to_tensor(arr, device, dtype) -> torch.Tensor:
-    arr = np.asarray(arr)
+    # a copy: the port updates parameters and moments in place, and the
+    # array may be a read-only view of a JAX buffer
+    arr = np.array(arr)
     if arr.dtype.name == "bfloat16":   # ml_dtypes.bfloat16, as JAX hands out
-        t = torch.from_numpy(np.ascontiguousarray(arr).view(np.uint16))
-        t = t.view(torch.bfloat16)
+        t = torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
     elif arr.dtype in _NP_TO_TORCH:
-        t = torch.from_numpy(np.ascontiguousarray(arr))
+        t = torch.from_numpy(arr)
     else:
         raise TypeError(f"unsupported parameter dtype {arr.dtype}")
     return t.to(device=device, dtype=dtype or t.dtype).contiguous()
@@ -67,3 +72,40 @@ def params_to_numpy(params: dict) -> dict:
         return t.numpy()
     return {k: (params_to_numpy(v) if isinstance(v, dict) else leaf(v))
             for k, v in params.items()}
+
+
+def train_state_from_numpy(state: dict, cfg: ModelConfig,
+                           device="cuda") -> dict:
+    """A JAX TrainState as numpy (``params``, the dense ``opt`` = m, v,
+    counts, ``sel`` and ``step``) -> the port's TrainState on ``device``.
+    The selection state's PRNG key (uint32 [2], ``jax.random.PRNGKey``)
+    becomes the port's generator ``seed`` (the key's two words as one
+    integer); the key itself is kept as ``jax_key`` for tests."""
+    dev = resolve_device(device)
+    opt = state["opt"]
+    if set(opt) != {"m", "v", "counts"}:
+        raise NotImplementedError(
+            f"opt state keys {sorted(opt)}: only the dense residency "
+            f"(m, v, counts) is ported (banked: ROADMAP Queue A item 6)")
+
+    def tensor(a, dtype=None):
+        return _leaf_to_tensor(a, dev, dtype)
+
+    sel = {k: v for k, v in state["sel"].items() if k != "key"}
+    key = np.asarray(state["sel"]["key"], np.uint32)
+    out_sel = {"step": int(np.asarray(sel.pop("step"))),
+               "seed": (int(key[0]) << 32) | int(key[1]),
+               "jax_key": key,
+               "mask": torch.tensor(np.asarray(sel.pop("mask"), bool),
+                                    device=dev),
+               "indices": torch.tensor(np.asarray(sel.pop("indices")),
+                                       dtype=torch.int64, device=dev)}
+    out_sel.update({k: tensor(v) for k, v in sel.items()})
+    return {
+        "params": params_from_numpy(state["params"], cfg, dev),
+        "opt": {"m": params_from_numpy(opt["m"], cfg, dev),
+                "v": params_from_numpy(opt["v"], cfg, dev),
+                "counts": tensor(opt["counts"])},
+        "sel": out_sel,
+        "step": int(np.asarray(state["step"])),
+    }

@@ -14,11 +14,15 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import block_grad_norm as _bgn
+from repro_torch.kernels import masked_adamw as _ma
 from repro_torch.kernels import paged_decode_attention as _pda
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as _rn
 
-LAUNCHES = {"paged_decode_attention": 0, "rmsnorm": 0}
+LAUNCHES = {"paged_decode_attention": 0, "rmsnorm": 0, "rmsnorm_bwd": 0,
+            "block_grad_sq_norms": 0, "masked_adamw": 0}
+_FLOATS = (torch.float32, torch.bfloat16)
 
 
 def reset_launches() -> None:
@@ -128,3 +132,96 @@ def rmsnorm(x, scale, eps=1e-5):
         _rn.launch(x2d, scale, float(eps), out)
         LAUNCHES[name] += 1
     return out.view(x.shape)
+
+
+def rmsnorm_bwd(dy, x, scale, eps=1e-5):
+    """The backward of ``rmsnorm``: dy, x: [..., D]; scale: [D] -> (dx in
+    the dtype of x, dscale in the dtype of scale). One launch is the row
+    pass and its dscale column sum."""
+    name = "rmsnorm_bwd"
+    if not _on_card(name, dy, x, scale):
+        return ref.rmsnorm_bwd(dy, x, scale, eps)
+    d = x.shape[-1]
+    if dy.shape != x.shape or scale.shape != (d,):
+        _fail(name, f"dy {tuple(dy.shape)} must match x {tuple(x.shape)} "
+              f"and scale must be [D={d}], got {tuple(scale.shape)}")
+    if x.dtype not in _FLOATS or dy.dtype != x.dtype \
+            or scale.dtype not in _FLOATS:
+        _fail(name, f"x and dy must share a dtype of float32 or bfloat16 "
+              f"and scale be one of them, got {x.dtype}/{dy.dtype}/"
+              f"{scale.dtype}")
+    if not (dy.is_contiguous() and x.is_contiguous()
+            and scale.is_contiguous()):
+        _fail(name, "dy, x and scale must be contiguous")
+    if not 0 < d <= _rn.MAX_D:
+        _fail(name, f"the kernel takes 0 < D <= {_rn.MAX_D}, got {d}")
+    _rn.load()
+    x2d = x.view(-1, d)
+    dx = torch.empty_like(x2d)
+    dscale = torch.empty_like(scale)
+    _rn.launch_bwd(x2d, scale, dy.view(-1, d), float(eps), dx, dscale)
+    LAUNCHES[name] += 1
+    return dx.view(x.shape), dscale
+
+
+def block_grad_sq_norms(g):
+    """g: [L, ...] stacked gradient leaf (f32 or bf16) -> [L] f32 sum of
+    squares over the non-leading axes. Deterministic: the same input gives
+    the same bits. One launch is both stages of the reduction."""
+    name = "block_grad_sq_norms"
+    if not _on_card(name, g):
+        return ref.block_grad_sq_norms(g)
+    if g.ndim < 2 or g.numel() == 0:
+        _fail(name, f"g must be a nonempty [L, ...] leaf, got "
+              f"{tuple(g.shape)}")
+    if g.dtype not in _FLOATS:
+        _fail(name, f"g must be float32 or bfloat16, got {g.dtype}")
+    if not g.is_contiguous():
+        _fail(name, "g must be contiguous")
+    _bgn.load()
+    out = torch.empty((g.shape[0],), dtype=torch.float32, device=g.device)
+    _bgn.launch(g.view(g.shape[0], -1), out)
+    LAUNCHES[name] += 1
+    return out
+
+
+def masked_adamw(p, g, m, v, sel, counts, lr, b1, b2, eps, wd):
+    """Masked AdamW over a stacked leaf, IN PLACE on p, m and v. p, g:
+    [L, ...] in the param dtype; m, v: [L, ...] f32; sel, counts: [L] f32
+    (counts = post-increment per-block steps); lr and the hyper-parameters
+    are Python floats. Rows with sel = 0 keep p, m and v bit for bit.
+    Returns (p, m, v)."""
+    name = "masked_adamw"
+    if not _on_card(name, p, g, m, v, sel, counts):
+        nl = p.shape[0]
+        p2, m2, v2 = ref.masked_adamw(p.view(nl, -1), g.view(nl, -1),
+                                      m.view(nl, -1), v.view(nl, -1), sel,
+                                      counts, lr, b1, b2, eps, wd)
+        p.view(nl, -1).copy_(p2)
+        m.view(nl, -1).copy_(m2)
+        v.view(nl, -1).copy_(v2)
+        return p, m, v
+    nl = p.shape[0]
+    if p.ndim < 2 or g.shape != p.shape or m.shape != p.shape \
+            or v.shape != p.shape:
+        _fail(name, f"p, g, m, v must be [L, ...] of one shape, got "
+              f"{tuple(p.shape)}, {tuple(g.shape)}, {tuple(m.shape)}, "
+              f"{tuple(v.shape)}")
+    if sel.shape != (nl,) or counts.shape != (nl,):
+        _fail(name, f"sel and counts must be [L={nl}], got "
+              f"{tuple(sel.shape)} and {tuple(counts.shape)}")
+    if p.dtype not in _FLOATS or g.dtype != p.dtype:
+        _fail(name, f"p and g must share a dtype of float32 or bfloat16, "
+              f"got {p.dtype}/{g.dtype}")
+    for label, t in (("m", m), ("v", v), ("sel", sel), ("counts", counts)):
+        if t.dtype != torch.float32:
+            _fail(name, f"{label} must be float32, got {t.dtype}")
+    for label, t in (("p", p), ("g", g), ("m", m), ("v", v), ("sel", sel),
+                     ("counts", counts)):
+        if not t.is_contiguous():
+            _fail(name, f"{label} must be contiguous")
+    _ma.load()
+    _ma.launch(p.view(nl, -1), g.view(nl, -1), m.view(nl, -1),
+               v.view(nl, -1), sel, counts, lr, b1, b2, eps, wd)
+    LAUNCHES[name] += 1
+    return p, m, v

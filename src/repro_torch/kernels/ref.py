@@ -1,9 +1,11 @@
 """Plain PyTorch versions of the ported kernels (the allclose targets).
 
-Ports of ``decode_attention``, ``paged_decode_attention`` and ``rmsnorm`` from
-the JAX package's ``kernels/ref.py``. ``ops.py`` takes these for tensors on
-the CPU; ``chip_smoke.py`` holds the CUDA and Triton kernels against them on
-the card.
+Ports of ``decode_attention``, ``paged_decode_attention``, ``rmsnorm``,
+``block_grad_sq_norms`` and ``masked_adamw`` from the JAX package's
+``kernels/ref.py``, and ``rmsnorm_bwd``, the autograd of ``rmsnorm`` (the
+JAX package differentiates its RMSNorm in XLA and has no kernel or oracle
+for it). ``ops.py`` takes these for tensors on the CPU; ``chip_smoke.py``
+holds the CUDA and Triton kernels against them on the card.
 """
 from __future__ import annotations
 
@@ -54,3 +56,38 @@ def rmsnorm(x, scale, eps=1e-5):
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def rmsnorm_bwd(dy, x, scale, eps=1e-5):
+    """(dx, dscale) of ``rmsnorm`` at (x, scale) for the output gradient dy,
+    by autograd of the plain forward; dx in the dtype of x, dscale in the
+    dtype of scale."""
+    with torch.enable_grad():
+        xg = x.detach().requires_grad_(True)
+        sg = scale.detach().requires_grad_(True)
+        dx, ds = torch.autograd.grad(rmsnorm(xg, sg, eps), (xg, sg), dy)
+    return dx, ds
+
+
+def block_grad_sq_norms(g):
+    """g: [L, ...] -> [L] f32 sum of squares over the non-leading axes."""
+    gf = g.reshape(g.shape[0], -1).float()
+    return (gf * gf).sum(dim=1)
+
+
+def masked_adamw(p, g, m, v, sel, counts, lr, b1, b2, eps, wd):
+    """p, g: [L, R] (param dtype); m, v: [L, R] f32; sel, counts: [L] f32
+    (counts = post-increment per-block steps). Returns (p', m', v'), the
+    masked-AdamW step of the JAX package's ``core/masked_adamw.py``: rows
+    with sel = 0 come back unchanged."""
+    gf = g.float()
+    selb = (sel > 0)[:, None]
+    m2 = torch.where(selb, b1 * m + (1 - b1) * gf, m)
+    v2 = torch.where(selb, b2 * v + (1 - b2) * gf * gf, v)
+    c = torch.clamp(counts, min=1.0)[:, None]
+    mhat = m2 / (1 - b1 ** c)
+    vhat = v2 / (1 - b2 ** c)
+    pf = p.float()
+    step = lr * (mhat / (torch.sqrt(vhat) + eps) + wd * pf)
+    p2 = torch.where(selb, pf - step, pf)
+    return p2.to(p.dtype), m2, v2

@@ -13,6 +13,15 @@ def _mlp_residual(params, cfg: ModelConfig, x):
     return x + mlp.apply(params["mlp"], cfg, h)
 
 
+def attn_block_apply(params, cfg: ModelConfig, x, *, positions=None):
+    """Training forward of one block: x [B, S, D] -> x. (The reference
+    also returns an auxiliary loss, which is 0 for this block; the port's
+    ``lm.apply_train`` returns that 0 once.)"""
+    h = norms.apply(params["ln1"], x, cfg.norm_eps)
+    h = attention.apply(params["attn"], cfg, h, positions=positions)
+    return _mlp_residual(params, cfg, x + h)
+
+
 def attn_block_prefill(params, cfg: ModelConfig, x, *, cache_len):
     h = norms.apply(params["ln1"], x, cfg.norm_eps)
     h, kv = attention.apply_prefill(params["attn"], cfg, h,

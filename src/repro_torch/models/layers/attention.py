@@ -1,6 +1,6 @@
 """GQA/MHA attention layer with RoPE, optional QKV bias and KV caching
-(port of the JAX package's ``attention.py``: prefill, dense-cache decode and
-paged-pool decode).
+(port of the JAX package's ``attention.py``: the training forward, prefill,
+dense-cache decode and paged-pool decode).
 
 The caches and pools are updated in place (JAX returns new arrays); the
 functions still return them, so call sites read like the reference.
@@ -62,6 +62,18 @@ def _out_proj(params, cfg: ModelConfig, out, dtype):
         out = out * hm
     b, s, h, dh = out.shape
     return out.reshape(b, s, h * dh) @ params["wo"].reshape(h * dh, -1)
+
+
+def apply(params: dict, cfg: ModelConfig, x, *, positions=None):
+    """Training forward (causal). x: [B, S, D] -> [B, S, D]. ``positions``:
+    [S] or [B, S] RoPE positions (default arange(S)). The reference's vision
+    prefix (``prefix_len``) and packed ``segment_ids`` are not ported."""
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)
+    q, k, v = _project_qkv(params, cfg, x, positions)
+    out = core.chunked_attention(q, k, v, hmap=_hmap(cfg), causal=True,
+                                 softcap=cfg.attn_logit_softcap)
+    return _out_proj(params, cfg, out, x.dtype)
 
 
 def apply_prefill(params, cfg: ModelConfig, x, *, cache_len: int = 0):

@@ -1,10 +1,12 @@
 """Attention math of the GQA layers (port of the JAX package's
-``attention_core.py``, without packed-segment masking).
+``attention_core.py``, without packed-segment masking: ROADMAP Queue A
+item 8).
 
 GQA uses gather expansion: each q head reads its kv group through a static
-index map (``head2group`` / ``attention._hmap``). Prefill attention is the
-plain einsum/softmax of ``full_attention`` and ``chunked_attention``, as in
-the JAX package; decode against a dense cache is ``decode_attention``.
+index map (``head2group`` / ``attention._hmap``). Prefill and training
+attention is the plain einsum/softmax of ``full_attention`` and
+``chunked_attention``, as in the JAX package (whose training forward calls
+no flash kernel); decode against a dense cache is ``decode_attention``.
 """
 from __future__ import annotations
 
@@ -69,10 +71,17 @@ def full_attention(q, k, v, *, hmap=None, causal=True, q_offset=0,
 
 
 def chunked_attention(q, k, v, *, hmap=None, chunk_q=512, causal=True,
-                      softcap=0.0):
+                      softcap=0.0, segment_ids=None):
     """Exact causal attention over query chunks of ``chunk_q`` (bounds the
     score working set to [B, H, chunk_q, S]). S must be divisible by
-    chunk_q (or <= chunk_q)."""
+    chunk_q (or <= chunk_q). Under autograd each chunk keeps its own
+    probabilities for the backward; the training forward recomputes them
+    per layer instead (``lm.scan_stack`` with ``remat="full"``), which is
+    what the reference's per-chunk remat buys."""
+    if segment_ids is not None:
+        raise NotImplementedError(
+            "packed segment ids are not ported yet (ROADMAP Queue A item 8, "
+            "'Packed SFT pipeline')")
     b, s, h, dh = q.shape
     if s <= chunk_q:
         return full_attention(q, k, v, hmap=hmap, causal=causal,

@@ -1,6 +1,6 @@
 """Decoder-only language model, dense family (port of the dense half of the
-JAX package's ``models/lm.py``: init, prefill, caches, slot insertion and
-decode).
+JAX package's ``models/lm.py``: init, the training forward, prefill,
+caches, slot insertion and decode).
 
 Parameters keep the reference tree: the same key names, and the transformer
 blocks STACKED under ``"layers"`` with a leading [L] axis, so parameters
@@ -13,6 +13,7 @@ are updated in place by ``decode_step`` and the ``insert_slots*`` functions.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -133,6 +134,71 @@ def _logits(params, cfg: ModelConfig, x):
         real = torch.arange(vp, device=out.device) < cfg.vocab_size
         out = out + torch.where(real, 0.0, -1e30).to(out.dtype)
     return out
+
+
+# --------------------------------------------------------------- train fwd
+
+
+def _remat(fn, cfg: ModelConfig):
+    """``remat="full"``: recompute the layer in the backward instead of
+    keeping its activations (``jax.checkpoint`` of the reference)."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "full":
+        def remat_fn(*args):
+            return checkpoint(fn, *args, use_reentrant=False,
+                              preserve_rng_state=False)
+        return remat_fn
+    raise NotImplementedError(
+        f"remat={cfg.remat!r} is not ported (it names a jax.checkpoint "
+        f"policy); use 'full' or 'none'")
+
+
+def _unbind(tree: dict) -> dict:
+    """Each stacked leaf as a tuple of its layers (one ``unbind`` a leaf)."""
+    return {k: (_unbind(v) if isinstance(v, dict) else torch.unbind(v, 0))
+            for k, v in tree.items()}
+
+
+def _layer(unbound: dict, i: int) -> dict:
+    return {k: (_layer(v, i) if isinstance(v, dict) else v[i])
+            for k, v in unbound.items()}
+
+
+def scan_stack(cfg: ModelConfig, apply_fn, x, stacked: dict):
+    """``apply_fn(params_l, x) -> x`` over the layers of a stacked group,
+    in order (the reference's ``lax.scan``). Each leaf is split into its
+    layers by one ``unbind`` outside the checkpointed function: its backward
+    stacks the layers' gradients once, where indexing ``w[i]`` per layer
+    would write a full [L, ...] zero tensor for every layer."""
+    unbound = _unbind(stacked)
+    body = _remat(apply_fn, cfg)
+    for i in range(cfg.num_layers):
+        x = body(_layer(unbound, i), x)
+    return x
+
+
+def apply_train(params: dict, cfg: ModelConfig, batch: dict):
+    """-> (logits [B, S, V] aligned to batch["tokens"], aux_loss, extra).
+    Dense family; ``aux_loss`` is a 0-d f32 zero and ``extra`` empty, as
+    the reference gives for it. Packed batches (``segment_ids``) and the
+    reference's gated weight gradients (``masks``) are not ported."""
+    check_supported(cfg)
+    if batch.get("segment_ids") is not None:
+        raise NotImplementedError(
+            "packed batches (segment_ids) are not ported yet (ROADMAP Queue "
+            "A item 8, 'Packed SFT pipeline')")
+    tokens = batch["tokens"]
+    positions = batch.get("positions")
+    x = _embed_tokens(params, cfg, tokens)
+
+    def block(p_l, h):
+        return blocks.attn_block_apply(p_l, cfg, h, positions=positions)
+
+    x = scan_stack(cfg, block, x, params["layers"])
+    x = norms.apply(params["final_norm"], x, cfg.norm_eps)
+    logits = _logits(params, cfg, x)
+    return logits, torch.zeros((), device=x.device), {}
 
 
 # --------------------------------------------------------------- caches

@@ -1,0 +1,109 @@
+"""Training loop with logging (port of the JAX package's
+``train/trainer.py``, single device).
+
+Method-agnostic: the fine-tuning method is resolved through the
+``repro_torch.methods`` registry, which supplies the TrainState and the step
+function. The state is made on ``device`` — the card unless the caller
+passes ``device="cpu"`` — and every batch goes there.
+
+The loss is read back only at ``log_every`` boundaries, as the reference
+does: between boundaries the loop only enqueues steps (losses stay device
+scalars), and at a boundary one device synchronisation drains the queue,
+so the step times are honest window averages. ``log_every=0`` syncs every
+step.
+
+Not ported, and raising with their ROADMAP Queue A item: checkpoints (item
+3), eval (item 5), ``prefetch_depth > 0`` (item 8), ``mesh`` (item 11).
+The obs instruments and trace spans of the reference wait for item 10;
+its straggler watchdog and external data sources, which no caller of the
+port uses yet, are left out.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+
+import torch
+
+from repro_torch import methods
+from repro_torch.configs.base import TrainConfig
+from repro_torch.data import loader as data_loader
+from repro_torch.device import resolve_device
+
+
+@dataclass
+class TrainLog:
+    steps: list = field(default_factory=list)
+    losses: list = field(default_factory=list)
+    step_times: list = field(default_factory=list)
+    metrics: list = field(default_factory=list)
+
+
+def _not_ported(what: str, item: str):
+    raise NotImplementedError(f"{what} is not ported yet (ROADMAP Queue A "
+                              f"item {item})")
+
+
+class Trainer:
+    def __init__(self, tcfg: TrainConfig, *, method: str | None = None,
+                 prefetch_depth: int = 0, mesh=None, device="cuda"):
+        if mesh is not None:
+            _not_ported("training on a mesh", "11, 'Distributed'")
+        if prefetch_depth:
+            _not_ported("prefetch_depth > 0 (the Prefetcher)",
+                        "8, 'Packed SFT pipeline'")
+        if tcfg.checkpoint_dir or tcfg.checkpoint_every:
+            _not_ported("checkpointing", "3, 'Method registry, trainer and "
+                        "launcher' (its checkpoint part)")
+        if tcfg.eval_every:
+            _not_ported("eval during training", "5, 'Greedy eval'")
+        self.tcfg = tcfg
+        self.device = resolve_device(device)
+        self.method = methods.build(method or tcfg.method, tcfg)
+        self.sel_cfg = self.method.sel_cfg
+        self.state = self.method.init_state(tcfg.model, tcfg.optimizer,
+                                            tcfg.seed, device=self.device)
+        self.step_fn = self.method.make_step(tcfg.model, tcfg.optimizer)
+        self.data = data_loader.make_source(
+            "synthetic_math", seq_len=tcfg.seq_len,
+            global_batch=tcfg.global_batch, seed=tcfg.seed)
+        self.log = TrainLog()
+
+    def _device_batch(self, batch: dict) -> dict:
+        return {k: torch.from_numpy(v).to(self.device)
+                for k, v in batch.items()}
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def train(self, steps: int | None = None) -> TrainLog:
+        """Run ``steps`` steps (default ``tcfg.steps``) from the state's
+        step; returns the log, which accumulates across calls."""
+        tcfg = self.tcfg
+        steps = steps if steps is not None else tcfg.steps
+        step0 = self.state["step"]
+        last = step0 + steps - 1
+        pending = []  # (step, device-scalar loss) since the last boundary
+        t0 = time.perf_counter()
+        for step in range(step0, step0 + steps):
+            batch = self._device_batch(self.data.batch_at(step))
+            if not pending:
+                t0 = time.perf_counter()
+            self.state, metrics = self.step_fn(self.state, batch)
+            pending.append((step, metrics["loss"]))
+
+            at_log = tcfg.log_every and step % tcfg.log_every == 0
+            if at_log or step == last or not tcfg.log_every:
+                self._sync()
+                dt = (time.perf_counter() - t0) / len(pending)
+                self.log.steps.extend(s for s, _ in pending)
+                self.log.losses.extend(float(x) for _, x in pending)
+                self.log.step_times.extend([dt] * len(pending))
+                pending = []
+            if at_log:
+                small = {k: (v.item() if isinstance(v, torch.Tensor) else v)
+                         for k, v in metrics.items()
+                         if not isinstance(v, torch.Tensor) or v.ndim == 0}
+                self.log.metrics.append({"step": step, **small})
+        return self.log

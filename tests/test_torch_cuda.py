@@ -6,7 +6,11 @@ file imports nothing of JAX, so it runs where only PyTorch is installed:
 
 The sweep follows ``tests/test_kernels.py``: page sizes 4/8/16, scrambled
 tables with sentinel entries, mixed valid_len (one position, partial pages,
-full rows), the qwen2.5-0.5b head map, f32 and bf16 at its tolerances.
+full rows), the qwen2.5-0.5b head map, f32 and bf16 at its tolerances. The
+training kernels (block gradient norms, masked AdamW, RMSNorm backward) are
+checked on ragged rows, with bit-identical unselected AdamW rows and
+bit-reproducible norms, on inputs whose outputs are large beside the
+tolerance.
 """
 import numpy as np
 import pytest
@@ -117,3 +121,101 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         ops.rmsnorm(torch.ones(8, 4, device=cuda_device).T,
                     torch.ones(8, device=cuda_device))
+
+
+# ------------------------------------------------ training kernels (rows 7, 8, 2b)
+
+
+def _bits_equal(a, b):
+    """Bit-identical, NaN payloads included."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    ib = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[a.dtype]
+    return torch.equal(a.view(ib), b.view(ib))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 100), (2, 64, 65), (5, 7, 9, 11),
+                                   (4, 40000), (24, 896)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_grad_sq_norms_matches_plain(cuda_device, shape, dtype):
+    """Ragged rows (R not a multiple of the chunk or the tile), several
+    chunks per row (40000 > 16384), and two launches with the same bits."""
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    x = (0.5 + torch.randn(shape, generator=g, device=cuda_device)).to(dtype)
+    n0 = ops.LAUNCHES["block_grad_sq_norms"]
+    out = ops.block_grad_sq_norms(x)
+    again = ops.block_grad_sq_norms(x)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["block_grad_sq_norms"] == n0 + 2
+    assert out.dtype == torch.float32 and out.shape == (shape[0],)
+    assert _bits_equal(out, again)
+    torch.testing.assert_close(out, ref.block_grad_sq_norms(x),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 100), (2, 32, 9), (3, 2048),
+                                   (5, 5000)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_masked_adamw_matches_plain(cuda_device, shape, dtype):
+    """In place; rows with sel = 0 keep p, m and v bit for bit; lr = 0.3 so
+    the step is large beside the bf16 tolerance."""
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    nl = shape[0]
+
+    def rnd(scale=1.0, shift=0.0):
+        return shift + scale * torch.randn(shape, generator=g,
+                                           device=cuda_device)
+    p, grad = rnd().to(dtype), rnd(1.0, 0.5).to(dtype)
+    m, v = rnd(0.1, 0.05), rnd(0.01).abs() + 0.01
+    sel = torch.tensor([float(i % 2 == 0) for i in range(nl)],
+                       device=cuda_device)
+    cnt = torch.arange(1, nl + 1, dtype=torch.float32, device=cuda_device)
+    args = (0.3, 0.9, 0.999, 1e-8, 0.1)
+    pk, mk, vk = p.clone(), m.clone(), v.clone()
+    n0 = ops.LAUNCHES["masked_adamw"]
+    out = ops.masked_adamw(pk, grad, mk, vk, sel, cnt, *args)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["masked_adamw"] == n0 + 1
+    assert out[0] is pk and out[1] is mk and out[2] is vk
+    flat = lambda t: t.reshape(nl, -1)  # noqa: E731
+    pr, mr, vr = ref.masked_adamw(flat(p), flat(grad), flat(m), flat(v), sel,
+                                  cnt, *args)
+    torch.testing.assert_close(flat(pk).float(), pr.float(), **TOL[dtype])
+    torch.testing.assert_close(flat(mk), mr, **TOL[torch.float32])
+    torch.testing.assert_close(flat(vk), vr, **TOL[torch.float32])
+    off = sel == 0
+    for new, old in ((pk, p), (mk, m), (vk, v)):
+        assert _bits_equal(flat(new)[off], flat(old)[off])
+    moved = (flat(pk).float() - flat(p).float())[~off].abs().max()
+    assert moved > 5 * TOL[dtype]["atol"], moved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 33, 4096])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_bwd_matches_plain(cuda_device, n, dtype):
+    """x with nonzero column means and dy = 1 + N(0, 1), so dx and dscale
+    are large beside the tolerance; the backward through ``norms.apply``
+    launches the kernel."""
+    from repro_torch.models.layers import norms
+    g = torch.Generator(device=cuda_device).manual_seed(n)
+    mu = 1 + 0.5 * torch.randn(896, generator=g, device=cuda_device)
+    x = (mu + torch.randn(n, 896, generator=g, device=cuda_device)).to(dtype)
+    s = (1 + 0.1 * torch.randn(896, generator=g, device=cuda_device)).to(
+        dtype)
+    dy = (1 + torch.randn(n, 896, generator=g, device=cuda_device)).to(dtype)
+    n0 = ops.LAUNCHES["rmsnorm_bwd"]
+    dx, ds = ops.rmsnorm_bwd(dy, x, s, 1e-6)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["rmsnorm_bwd"] == n0 + 1
+    assert dx.dtype == dtype and ds.dtype == dtype
+    pdx, pds = ref.rmsnorm_bwd(dy, x, s, 1e-6)
+    _close(dx, pdx, dtype)
+    torch.testing.assert_close(ds.float(), pds.float(), **TOL[dtype])
+    xg, sg = x.clone().requires_grad_(), s.clone().requires_grad_()
+    gx, gs = torch.autograd.grad(norms.apply({"scale": sg}, xg, 1e-6),
+                                 (xg, sg), dy)
+    assert ops.LAUNCHES["rmsnorm_bwd"] == n0 + 2
+    assert _bits_equal(gx, dx) and _bits_equal(gs, ds)

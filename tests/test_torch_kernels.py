@@ -3,11 +3,14 @@
 On the CPU the port's wrappers run their plain PyTorch versions; those are
 held against the JAX oracles (``repro.kernels.ref``) and the Pallas kernels
 in interpret mode, over the sweep of ``tests/test_kernels.py`` (page sizes
-4/8/16, scrambled tables with sentinels, mixed valid_len, f32 and bf16) at
-its tolerances. The CUDA/Triton kernels themselves are compared with the
-plain versions on the card by ``tests/test_torch_cuda.py`` and
-``chip_smoke.py``.
+4/8/16, scrambled tables with sentinels, mixed valid_len, f32 and bf16;
+its block-norm and masked-AdamW shapes) at its tolerances. The RMSNorm
+backward, which has no Pallas kernel, is held against ``jax.vjp`` of the
+JAX package's ``norms.apply``. The CUDA/Triton kernels themselves are
+compared with the plain versions on the card by ``tests/test_torch_cuda.py``
+and ``chip_smoke.py``.
 """
+import jax
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -15,8 +18,10 @@ import pytest
 import torch
 
 from repro.kernels import decode_attention as jdec
+from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels import rmsnorm as jrms
+from repro.models.layers import norms as jnorms
 from repro_torch.kernels import ops, ref
 
 TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -135,3 +140,87 @@ def test_cpu_path_launches_no_kernel():
     torch.testing.assert_close(ops.rmsnorm(x, torch.ones(32)),
                                ref.rmsnorm(x, torch.ones(32)))
     assert ops.LAUNCHES == before
+
+
+# ------------------------------------------------ training kernels (rows 7, 8, 2b)
+
+
+@pytest.mark.parametrize("shape", [(3, 100), (2, 64, 65), (5, 7, 9, 11),
+                                   (1, 2048), (4, 4096)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_block_grad_sq_norms_vs_jax(shape, dtype):
+    """The sweep of tests/test_kernels.py::TestBlockGradNorm: the port's
+    plain version against the JAX oracle and the Pallas kernel (interpret
+    mode, through ``ops`` which pads rows to its chunk). Both sum exact
+    squares in f32, so the tolerance is f32's whatever the input type."""
+    rng = np.random.default_rng(2)
+    gj, gt = _pair(0.5 + 2 * rng.standard_normal(shape), dtype)
+    out = ops.block_grad_sq_norms(gt)
+    assert out.dtype == torch.float32 and out.shape == (shape[0],)
+    for want in (jref.block_grad_sq_norms(gj), jops.block_grad_sq_norms(gj)):
+        np.testing.assert_allclose(_as_np(out), _as_np(want), rtol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(4, 100), (2, 32, 9), (3, 2048)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_masked_adamw_vs_jax(shape, dtype):
+    """The sweep of tests/test_kernels.py::TestMaskedAdamW: the port's
+    wrapper on CPU tensors (the plain version, written back in place)
+    against the JAX oracle and the Pallas kernel in interpret mode; rows
+    with sel = 0 keep their bits."""
+    rng = np.random.default_rng(3)
+    nl = shape[0]
+    pj, pt = _pair(rng.standard_normal(shape), dtype)
+    gj, gt = _pair(0.5 + rng.standard_normal(shape), dtype)
+    mj, mt = _pair(0.05 + 0.1 * rng.standard_normal(shape), "float32")
+    vj, vt = _pair(0.01 + 0.01 * np.abs(rng.standard_normal(shape)),
+                   "float32")
+    sel = (np.arange(nl) % 2).astype(np.float32)
+    cnt = np.arange(1, nl + 1, dtype=np.float32)
+    args = (0.3, 0.9, 0.999, 1e-8, 0.1)
+    # the port updates in place: work on copies (a CPU tensor from numpy
+    # may share its memory with the JAX array made from the same numpy)
+    p0, m0, v0 = pt, mt, vt
+    pt, mt, vt = pt.clone(), mt.clone(), vt.clone()
+    out = ops.masked_adamw(pt, gt, mt, vt, torch.from_numpy(sel),
+                           torch.from_numpy(cnt), *args)
+    assert out[0] is pt and out[1] is mt and out[2] is vt
+    flat = lambda t: t.reshape(nl, -1)  # noqa: E731
+    oracle = jref.masked_adamw(flat(pj), flat(gj), flat(mj), flat(vj),
+                               jnp.asarray(sel), jnp.asarray(cnt), *args)
+    pallas = jops.masked_adamw(pj, gj, mj, vj, jnp.asarray(sel),
+                               jnp.asarray(cnt), *args)
+    for want in (oracle, [flat(w) for w in pallas]):
+        np.testing.assert_allclose(_as_np(flat(pt)), _as_np(want[0]),
+                                   **_tol(dtype))
+        for got, w in ((mt, want[1]), (vt, want[2])):
+            np.testing.assert_allclose(_as_np(flat(got)), _as_np(w),
+                                       **_tol("float32"))
+    off = torch.from_numpy(sel == 0)
+    for new, old in ((pt, p0), (mt, m0), (vt, v0)):
+        assert torch.equal(flat(new)[off], flat(old)[off])
+    moved = (flat(pt).float() - flat(p0).float())[~off].abs().max()
+    assert moved > 5 * _tol(dtype)["atol"]
+
+
+@pytest.mark.parametrize("shape", [(16, 64), (8, 896), (3, 5, 100)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_bwd_vs_jax(shape, dtype):
+    """The RMSNorm backward's plain version against ``jax.grad`` of the JAX
+    package's ``norms.apply`` (which XLA differentiates) under the same
+    output gradient."""
+    rng = np.random.default_rng(4)
+    mu = 1 + 0.5 * rng.standard_normal(shape[-1])
+    xj, xt = _pair(mu + rng.standard_normal(shape), dtype)
+    sj, st = _pair(1 + 0.1 * rng.standard_normal(shape[-1]), dtype)
+    dyj, dyt = _pair(1 + rng.standard_normal(shape), dtype)
+    dx, ds = ops.rmsnorm_bwd(dyt, xt, st, 1e-6)
+    assert dx.dtype == xt.dtype and ds.dtype == st.dtype
+    _, vjp = jax.vjp(lambda x, s: jnorms.apply({"scale": s}, x, 1e-6), xj,
+                     sj)
+    jdx, jds = vjp(dyj)
+    _assert_strong(jdx.reshape(-1, shape[-1]), dtype)
+    np.testing.assert_allclose(_as_np(dx), _as_np(jdx), **_tol(dtype))
+    # dscale sums over rows: compare relative to its size
+    np.testing.assert_allclose(_as_np(ds), _as_np(jds), rtol=_tol(dtype)[
+        "rtol"], atol=_tol(dtype)["atol"] * np.abs(_as_np(jds)).max())

@@ -17,12 +17,18 @@ import torch
 
 from repro_torch import convert
 from repro_torch.configs import get_smoke_config
+from repro_torch.configs.base import TrainConfig
 from repro_torch.kernels import _build, ops
+from repro_torch.kernels import block_grad_norm as bgn
+from repro_torch.kernels import masked_adamw as madamw
 from repro_torch.kernels import paged_decode_attention as pda
 from repro_torch.kernels import rmsnorm as rn
 from repro_torch.launch import serve as launch_serve
+from repro_torch.launch import train as launch_train
 from repro_torch.models import lm
 from repro_torch.serve import ServeConfig, ServeEngine
+from repro_torch.train.step import init_train_state
+from repro_torch.train.trainer import Trainer
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
@@ -70,6 +76,11 @@ def _cfg():
     return get_smoke_config("qwen2.5-0.5b")
 
 
+def _tcfg(**kw):
+    return TrainConfig(model=_cfg(), seq_len=48, global_batch=2, steps=2,
+                       **kw)
+
+
 @pytest.mark.parametrize("call", [
     lambda: lm.init(_cfg()),
     lambda: lm.init(_cfg(), device="cuda"),
@@ -78,8 +89,14 @@ def _cfg():
     lambda: convert.params_from_numpy({}, _cfg()),
     lambda: ServeEngine(_cfg(), {}, ServeConfig(max_len=16, num_slots=2)),
     lambda: launch_serve.main(["--arch", "qwen2.5-0.5b", "--smoke"]),
+    lambda: convert.train_state_from_numpy({"opt": {}}, _cfg()),
+    lambda: init_train_state(_cfg()),
+    lambda: Trainer(_tcfg()),
+    lambda: launch_train.main(["--arch", "qwen2.5-0.5b", "--smoke",
+                               "--steps", "2"]),
 ], ids=["init", "init-cuda", "init_cache", "init_paged_cache", "convert",
-        "engine", "launcher"])
+        "engine", "launcher", "convert-train-state", "init_train_state",
+        "trainer", "train-launcher"])
 def test_entry_points_need_cuda_by_default(no_cuda, call):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()
@@ -98,6 +115,36 @@ def test_entry_points_run_on_cpu_when_asked(no_cuda, capsys):
     assert launch_serve.main(["--arch", "qwen2.5-0.5b", "--smoke",
                               "--device", "cpu", "--new-tokens", "4"]) == 0
     assert "steady state" in capsys.readouterr().out
+    state = init_train_state(_cfg(), device="cpu")
+    assert state["params"]["embed"]["tok"].device.type == "cpu"
+    log = Trainer(_tcfg(log_every=1), device="cpu").train()
+    assert len(log.losses) == 2 and np.isfinite(log.losses).all()
+    assert launch_train.main(["--arch", "qwen2.5-0.5b", "--smoke",
+                              "--device", "cpu", "--steps", "4",
+                              "--seq-len", "48", "--global-batch", "2"]) == 0
+    out = capsys.readouterr().out
+    assert "final loss" in out and "device: cpu" in out
+
+
+@pytest.mark.parametrize("call, item", [
+    (lambda: Trainer(_tcfg(), method="lora", device="cpu"), "item 4"),
+    (lambda: Trainer(_tcfg(checkpoint_dir="ckpt"), device="cpu"), "item 3"),
+    (lambda: Trainer(_tcfg(eval_every=1), device="cpu"), "item 5"),
+    (lambda: Trainer(_tcfg(), prefetch_depth=2, device="cpu"), "item 8"),
+    (lambda: Trainer(_tcfg(), mesh=object(), device="cpu"), "item 11"),
+    (lambda: launch_train.main(["--arch", "qwen2.5-0.5b", "--smoke",
+                                "--device", "cpu", "--pack"]), "item 8"),
+    (lambda: launch_train.main(["--arch", "qwen2.5-0.5b", "--smoke",
+                                "--device", "cpu", "--trace", "t.json"]),
+     "item 10"),
+    (lambda: launch_train.main(["--arch", "qwen2.5-0.5b", "--smoke",
+                                "--device", "cpu", "--moment-residency",
+                                "banked"]), "item 6"),
+], ids=["lora", "checkpoint", "eval", "prefetch", "mesh", "pack", "trace",
+        "banked"])
+def test_training_features_not_ported_raise(call, item):
+    with pytest.raises(NotImplementedError, match=item):
+        call()
 
 
 class _FakeCuda(torch.Tensor):
@@ -122,7 +169,8 @@ def missing_builds(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "_LIBS", {})
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(pda, "_fn", None)
-    monkeypatch.setattr(rn, "_compiled", None)
+    for mod in (rn, bgn, madamw):
+        monkeypatch.setattr(mod, "_compiled", None)
     monkeypatch.setitem(sys.modules, "triton", None)
 
 
@@ -137,6 +185,14 @@ def test_wrappers_raise_for_cuda_tensors_without_a_build(missing_builds):
         ops.paged_decode_attention(q, pool, pool, tbl, vl, hm)
     with pytest.raises(_build.KernelBuildFailure, match="triton"):
         ops.rmsnorm(_fake(torch.zeros(3, 8)), _fake(torch.ones(8)))
+    x = _fake(torch.zeros(3, 8))
+    with pytest.raises(_build.KernelBuildFailure, match="triton"):
+        ops.rmsnorm_bwd(x, x, _fake(torch.ones(8)))
+    with pytest.raises(_build.KernelBuildFailure, match="triton"):
+        ops.block_grad_sq_norms(x)
+    row = _fake(torch.ones(3))
+    with pytest.raises(_build.KernelBuildFailure, match="triton"):
+        ops.masked_adamw(x, x, x, x, row, row, 1e-3, 0.9, 0.999, 1e-8, 0.0)
     assert ops.LAUNCHES == before
 
 
@@ -161,3 +217,15 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="not supported"):
         ops.rmsnorm(torch.zeros(3, 8, device="meta"),
                     torch.ones(8, device="meta"))
+    f16 = _fake(torch.zeros(3, 8, dtype=torch.float16))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ops.block_grad_sq_norms(f16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ops.rmsnorm_bwd(f16, f16, _fake(torch.ones(8)))
+    x, row = _fake(torch.zeros(3, 8)), _fake(torch.ones(3))
+    with pytest.raises(ValueError, match="m must be float32"):
+        ops.masked_adamw(x, x, _fake(torch.zeros(3, 8, dtype=torch.bfloat16)),
+                         x, row, row, 1e-3, 0.9, 0.999, 1e-8, 0.0)
+    with pytest.raises(ValueError, match="sel and counts must be"):
+        ops.masked_adamw(x, x, x, x, _fake(torch.ones(4)), row, 1e-3, 0.9,
+                         0.999, 1e-8, 0.0)
