@@ -42,7 +42,30 @@ Phases, each of which makes the run exit non-zero if it fails:
 8. training consistency in f32 (TF32 off): topk_grad at full width with 2
    layers, global batch 2 x 64, 3 steps, on the card (kernels) and on the
    CPU (plain versions) from the same state: losses within 1e-4 relative,
-   equal masks at every step, parameters within 2 lr steps.
+   equal masks at every step, parameters within 2 lr steps;
+9. the banked masked AdamW (Triton) against its plain version, bf16 and
+   f32, on wg, wq and ln1 [24, R] with [5, R] moment banks whose slots hold
+   4 leaf rows out of order and one free slot, one real slot unselected:
+   free and unselected rows bit-identical in p and in the banks, and the
+   same bits as the dense masked AdamW run on a dense copy whose m and v
+   hold the bank rows at the slot positions; times as in phase 6;
+10. banked training at full width (paper §3.3): the port's ``Trainer`` as
+   in phase 7 but with ``moment_residency="banked"``, ``offload="host"``
+   (a pinned host store) and the async swap planner; 2 warm-up steps, then
+   8 steps in one log window (the only host sync per step is the selected
+   indices' read); mean step time, tokens/s and peak device memory beside
+   phase 7's, the optimizer state's device and host bytes (the banks' m and
+   v equal to the bytes reckoned from the config), the swap statistics,
+   launches per step (12 banked, 0 dense AdamW), counts summing to 5 a
+   step, moments nonzero on exactly the blocks counted; then the same with
+   ``async_swap=False``; then dense, banked async and banked sync step
+   times in alternating rounds of 8-step windows;
+11. banked consistency in f32 (TF32 off), 2 layers at full width, k = 50%,
+   batch 2 x 64, 4 steps: (a) ``random`` on the card, banked async, banked
+   sync and dense from one state, with a seed whose masks admit the
+   embedding and later evict it: equal masks, losses within 1e-4 relative,
+   params and moments within 2 lr steps, hit rate 1.0; (b) ``topk_grad``
+   banked async on the card against banked on the CPU.
 
 Then it prints the kernel summary as one JSON line and, last, the device
 line ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
@@ -50,6 +73,8 @@ the repository beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import math
 import statistics
@@ -75,6 +100,8 @@ TRAIN_LEAVES = {"wg": (24, 896 * 4864), "wq": (24, 896 * 1024),
                 "ln1": (24, 896)}   # stacked leaves as the kernels see them
 TRAIN_SEL_ROWS = (1, 6, 11, 16, 21)  # 5 of 24 rows selected
 TRAIN = dict(global_batch=8, seq_len=512, steps=10, warmup=2)
+BANK_SLOTS = (16, 3, 24, 9, 21)      # 4 rows out of order, a free slot (24)
+BANK_SEL = (1.0, 1.0, 0.0, 0.0, 1.0)  # row 9 held but unselected
 
 
 class PhaseFailed(RuntimeError):
@@ -557,18 +584,19 @@ def phase_train_kernels(torch, ops, ref, timer) -> dict:
     return main
 
 
-def _train_cfg(cfg, method, steps, global_batch, seq_len, **opt):
+def _train_cfg(cfg, method, steps, global_batch, seq_len, log_every=1,
+               seed=0, k_percent=20.0, **opt):
     from repro_torch.configs.base import (OptimizerConfig, SelectConfig,
                                           TrainConfig)
     return TrainConfig(
         model=cfg, method=method,
         # as the launcher builds them (launch/train.py)
-        select=SelectConfig(k_percent=20.0,
+        select=SelectConfig(k_percent=k_percent,
                             steps_per_epoch=max(1, steps // 4)),
         optimizer=OptimizerConfig(**{"lr": 1e-3, "total_steps": steps,
                                      **opt}),
-        seq_len=seq_len, global_batch=global_batch, steps=steps, seed=0,
-        log_every=1)
+        seq_len=seq_len, global_batch=global_batch, steps=steps, seed=seed,
+        log_every=log_every)
 
 
 def phase_training(torch, ops, cfg, Trainer) -> dict:
@@ -604,7 +632,7 @@ def phase_training(torch, ops, cfg, Trainer) -> dict:
     per_step = {name: n / steps for name, n in launches.items()}
     nl = cfg.num_layers
     want = {"paged_decode_attention": 0, "block_grad_sq_norms": 12,
-            "masked_adamw": 12,
+            "masked_adamw": 12, "banked_masked_adamw": 0,
             # forward, and the recompute of each layer's two norms
             # (remat="full"), then the backward of every norm
             "rmsnorm": 2 * nl + 1 + 2 * nl, "rmsnorm_bwd": 2 * nl + 1}
@@ -622,7 +650,8 @@ def phase_training(torch, ops, cfg, Trainer) -> dict:
           f"{mask_sum.int().tolist()}")
     print(f"  launches per step: {json.dumps(per_step)}")
     _profile_training(torch, tr)
-    return {"launches": launches, "step_ms": med * 1e3}
+    return {"launches": launches, "step_ms": med * 1e3, "peak": peak,
+            "tokens_s": tokens / med}
 
 
 def _profile_training(torch, tr) -> None:
@@ -650,7 +679,7 @@ def _profile_training(torch, tr) -> None:
     ours = {}
     for e in events:   # the port's Triton kernels, by their function names
         for fn in ("_rmsnorm_fwd", "_rmsnorm_bwd", "_col_sums", "_partials",
-                   "_row_sums", "_masked_adamw"):
+                   "_row_sums", "_masked_adamw", "_banked_masked_adamw"):
             if e.key.startswith(fn):
                 ours[fn] = ours.get(fn, 0.0) + e.device_time_total / 1e3
     print(f"  the port's kernels in that profile (ms): "
@@ -707,6 +736,401 @@ def phase_train_consistency(torch, ops, cfg, Trainer) -> None:
           f"{json.dumps(launches)}")
 
 
+# ------------------------------------------------------- banked residency
+
+
+def phase_banked_kernel(torch, ops, ref, timer) -> dict:
+    """Row 9 against its plain version and against row 8; returns the
+    summary entry of the main path's largest launch (wg, bf16)."""
+    rows, main = [], {}
+    adam = (0.3, 0.9, 0.999, 1e-8, 0.1)
+    cap = len(BANK_SLOTS)
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        es = torch.tensor([], dtype=dt).element_size()
+        for leaf, (nl, r) in TRAIN_LEAVES.items():
+            g = torch.Generator(device="cuda").manual_seed(nl * r % 7919)
+
+            def rnd(n, scale=1.0, shift=0.0):
+                return shift + scale * torch.randn(n, r, generator=g,
+                                                   device="cuda")
+            p, grad = rnd(nl).to(dt), rnd(nl, 1.0, 0.5).to(dt)
+            m, v = rnd(cap, 0.1, 0.05), rnd(cap, 0.01).abs() + 0.01
+            slots = torch.tensor(BANK_SLOTS, dtype=torch.int32,
+                                 device="cuda")
+            sel = torch.tensor(BANK_SEL, device="cuda")
+            cnt = torch.arange(1, cap + 1, dtype=torch.float32,
+                               device="cuda")
+            args = (slots, sel, cnt, *adam)
+            pk, mk, vk = p.clone(), m.clone(), v.clone()
+            n0 = ops.LAUNCHES["banked_masked_adamw"]
+            ops.banked_masked_adamw(pk, grad, mk, vk, *args)
+            torch.cuda.synchronize()
+            check(ops.LAUNCHES["banked_masked_adamw"] == n0 + 1,
+                  "banked_masked_adamw did not count its launch")
+            pr, mr, vr = ref.banked_masked_adamw(p, grad, m, v, *args)
+            on = (slots < nl) & (sel > 0)          # active bank rows
+            touched = torch.zeros(nl, dtype=torch.bool, device="cuda")
+            touched[slots[on].long()] = True        # their leaf rows
+            err = _check_close(torch, pk[touched], pr[touched], dtype,
+                               f"banked_masked_adamw p {leaf}")
+            for what, got, want in (("m", mk, mr), ("v", vk, vr)):
+                _check_close(torch, got[on], want[on], "float32",
+                             f"banked_masked_adamw {what} {leaf} {dtype}")
+            check(_bits_equal(torch, pk[~touched], p[~touched]),
+                  f"banked_masked_adamw {leaf} {dtype}: a p row no active "
+                  f"slot holds changed")
+            for what, new, old in (("m", mk, m), ("v", vk, v)):
+                check(_bits_equal(torch, new[~on], old[~on]),
+                      f"banked_masked_adamw {leaf} {dtype}: {what} of a free "
+                      f"or unselected bank row changed")
+            moved = (pk.float() - p.float())[touched].abs().max().item()
+            check(moved > 5 * TOL[dtype], f"banked_masked_adamw {leaf} "
+                  f"{dtype}: the step ({moved:.3g}) is too small for the "
+                  f"check")
+            # row 8 on a dense copy holding the bank rows at their slots
+            real = [i for i, s in enumerate(BANK_SLOTS) if s < nl]
+            held = [BANK_SLOTS[i] for i in real]
+            pd = p.clone()
+            md = torch.zeros(nl, r, device="cuda")
+            vd = torch.zeros(nl, r, device="cuda")
+            md[held], vd[held] = m[real], v[real]
+            seld = torch.zeros(nl, device="cuda")
+            cntd = torch.zeros(nl, device="cuda")
+            seld[held], cntd[held] = sel[real], cnt[real]
+            ops.masked_adamw(pd, grad, md, vd, seld, cntd, *adam)
+            torch.cuda.synchronize()
+            check(_bits_equal(torch, pk, pd)
+                  and _bits_equal(torch, mk[real], md[held])
+                  and _bits_equal(torch, vk[real], vd[held]),
+                  f"banked_masked_adamw {leaf} {dtype}: not the same bits "
+                  f"as masked_adamw on the same rows")
+            del md, vd, pd
+            n_on = int(on.sum().item())
+            bms, by = bound_ms(n_on * r * (3 * es + 16) + cap * 12,
+                               15 * n_on * r, "float32")
+            row = dict(kernel="banked_masked_adamw", case=leaf, dtype=dtype,
+                       shape=f"p [{nl}, {r}], banks [{cap}, {r}], {n_on} "
+                       f"active rows", max_abs_err=err, tol=TOL[dtype],
+                       ms=timer.ms(lambda: ops.banked_masked_adamw(
+                           pk, grad, mk, vk, *args)),
+                       plain_ms=timer.ms(lambda: ref.banked_masked_adamw(
+                           p, grad, m, v, *args)),
+                       library_ms=None, bound_ms=bms, bound_by=by)
+            rows.append(row)
+            if leaf == "wg" and dtype == "bfloat16":
+                main["banked_masked_adamw"] = row
+            del p, grad, m, v, pk, mk, vk, pr, mr, vr
+    print("banked masked AdamW vs plain version and vs masked_adamw (CUDA "
+          "events, L2 flushed, ms per call):")
+    for r in rows:
+        print(f"  {r['kernel']:<20} {r['case']:<4} {r['dtype']:<9} "
+              f"err {r['max_abs_err']:.2e} (rtol=atol {r['tol']:.0e})  "
+              f"kernel {r['ms']:.4f}  plain {r['plain_ms']:.4f}  library -"
+              f"  bound {r['bound_ms']:.5f} ({r['bound_by']})  {r['shape']}")
+    print("  row 9 = row 8 bit for bit on every case; no library yardstick "
+          "(no single call takes slot indirection, masks and counts)")
+    return main
+
+
+def _record_masks(tr):
+    """Wrap the trainer's step so that each step's mask is kept."""
+    inner, masks = tr.step_fn, []
+
+    def step_fn(state, batch):
+        state, metrics = inner(state, batch)
+        masks.append(metrics["mask"])
+        return state, metrics
+    step_fn.swap_planner = getattr(inner, "swap_planner", None)
+    step_fn.swap_stats = getattr(inner, "swap_stats", None)
+    tr.step_fn = step_fn
+    return masks
+
+
+def _block_nonzero(torch, partition, moments) -> list:
+    """Per block: any nonzero moment entry in any of its leaves."""
+    from repro_torch.core.partition import leaves
+    out = [False] * partition.num_blocks
+    for g in partition.groups:
+        for leaf in leaves(moments[g.key]):
+            if g.stacked:
+                nz = leaf.reshape(g.length, -1).ne(0).any(dim=1).tolist()
+                for i, f in enumerate(nz):
+                    out[g.start + i] |= f
+            else:
+                out[g.start] |= bool(leaf.ne(0).any())
+    return out
+
+
+def phase_banked_training(torch, ops, cfg, Trainer, dense) -> dict:
+    from repro_torch.core import masked_adamw
+    from repro_torch.core import partition as part_mod
+    from repro_torch.core.offload import resident_opt_bytes
+    steps, warm = TRAIN["steps"], TRAIN["warmup"]
+    tokens = TRAIN["global_batch"] * TRAIN["seq_len"]
+    nl = cfg.num_layers
+    out = {}
+    for async_swap in (True, False):
+        gc.collect()
+        torch.cuda.empty_cache()
+        tcfg = _train_cfg(cfg, "adagradselect", steps, TRAIN["global_batch"],
+                          TRAIN["seq_len"], log_every=steps + 1,
+                          moment_residency="banked", offload="host",
+                          async_swap=async_swap)
+        t0 = time.perf_counter()
+        tr = Trainer(tcfg, device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        pn = part_mod.build_partition(cfg)
+        k = tr.sel_cfg.num_selected(pn.num_blocks)
+        opt = tr.state["opt"]
+        per_block = part_mod.params_per_block(pn, tr.state["params"])
+        cap = opt["banks"]["layers"]["slots"].shape[0]
+        reckoned = 8 * int(cap * per_block[1] + per_block[0]
+                           + per_block[pn.num_blocks - 1])
+        bank_mv = sum(t.numel() * t.element_size() for b in
+                      opt["banks"].values() for mom in ("m", "v")
+                      for t in part_mod.leaves(b[mom]))
+        res = resident_opt_bytes(opt)
+        small = sum(b["slots"].numel() * 4 for b in opt["banks"].values()) \
+            + opt["counts"].numel() * 4
+        check(bank_mv == reckoned and res["device"] == reckoned + small,
+              f"device moment bytes {bank_mv} (state {res['device']}) != "
+              f"reckoned {reckoned} (+ {small} of slots and counts)")
+        check(all(t.is_pinned() for t in part_mod.leaves(opt["store"])),
+              "the host store is not pinned")
+        label = "async" if async_swap else "sync"
+        print(f"banked training ({label} swap) {cfg.name}: adagradselect, "
+              f"k = {k} of {pn.num_blocks} blocks, offload host (pinned), "
+              f"bank capacity {cap}; batch {TRAIN['global_batch']} x "
+              f"{TRAIN['seq_len']}; init {init_s:.2f} s")
+        print(f"  optimizer state: device {res['device']:,} B (banks' m, v "
+              f"{bank_mv:,} = reckoned {reckoned:,}), host {res['host']:,} B "
+              f"(dense m, v would take {8 * int(per_block.sum()):,} B on the "
+              f"card)")
+        masks = _record_masks(tr)
+        torch.cuda.reset_peak_memory_stats()
+        tr.train(warm)
+        ops.reset_launches()                 # the main path's run
+        tr.train(steps - warm)               # one log window
+        launches = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        log = tr.log
+        check(len(log.losses) == steps
+              and all(math.isfinite(x) for x in log.losses),
+              f"losses {log.losses}")
+        n = steps - warm
+        per_step = {name: c / n for name, c in launches.items()}
+        want = {"paged_decode_attention": 0, "block_grad_sq_norms": 12,
+                "masked_adamw": 0, "banked_masked_adamw": 12,
+                "rmsnorm": 2 * nl + 1 + 2 * nl, "rmsnorm_bwd": 2 * nl + 1}
+        check(per_step == want, f"launches per step {per_step} != the "
+              f"banked path's {want}")
+        counts = opt["counts"]
+        check(int(counts.sum().item()) == k * steps
+              and all(int(mk.sum()) == k for mk in masks),
+              f"counts sum {counts.sum().item()} != {k} x {steps}")
+        m_full, v_full = masked_adamw.materialize_moments(pn, opt)
+        nz = [a or b for a, b in zip(_block_nonzero(torch, pn, m_full),
+                                     _block_nonzero(torch, pn, v_full))]
+        counted = (counts.cpu() > 0).tolist()
+        check(nz == counted, f"moments nonzero on blocks "
+              f"{[i for i, f in enumerate(nz) if f]}, counted "
+              f"{[i for i, f in enumerate(counted) if f]}")
+        del m_full, v_full
+        step_s = log.step_times[-1]
+        stats = tr.step_fn.swap_stats.as_dict()
+        print(f"  losses: {[round(x, 4) for x in log.losses]}")
+        print(f"  step time (mean of the {n}-step window): "
+              f"{step_s * 1e3:.2f} ms = {tokens / step_s:.0f} tokens/s "
+              f"(dense, phase 7: median {dense['step_ms']:.2f} ms = "
+              f"{dense['tokens_s']:.0f} tokens/s)")
+        print(f"  peak device memory: {peak / 2**30:.2f} GiB (dense, phase "
+              f"7: {dense['peak'] / 2**30:.2f} GiB)")
+        print(f"  swap stats: {json.dumps(stats)}")
+        print(f"  launches per step: {json.dumps(per_step)}; counts "
+              f"{counts.int().tolist()} (sum {int(counts.sum().item())}); "
+              f"moments nonzero on exactly the counted blocks")
+        check(peak < dense["peak"], f"banked peak {peak} is not below the "
+              f"dense peak {dense['peak']}")
+        if async_swap:
+            _profile_training(torch, tr)
+        out[label] = {"launches": launches, "step_ms": step_s * 1e3,
+                      "peak": peak, "stats": stats}
+        del tr, opt, counts, masks
+    print(f"banked step time: async {out['async']['step_ms']:.2f} ms, sync "
+          f"{out['sync']['step_ms']:.2f} ms, dense (phase 7) "
+          f"{dense['step_ms']:.2f} ms")
+    _timing_rounds(torch, cfg, Trainer)
+    return out["async"]
+
+
+def _timing_rounds(torch, cfg, Trainer, rounds=3) -> None:
+    """Step time of dense, banked async and banked sync in the same mode
+    (8-step windows, one sync at the window's end; the banked step adds
+    its indices read), in alternating rounds so that drift of the shared
+    host hits all three alike."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    steps, n = TRAIN["steps"], TRAIN["steps"] - TRAIN["warmup"]
+    kinds = {"dense": {}, "async": dict(moment_residency="banked",
+                                        offload="host", async_swap=True),
+             "sync": dict(moment_residency="banked", offload="host",
+                          async_swap=False)}
+    trs = {}
+    for name, opt in kinds.items():
+        trs[name] = Trainer(_train_cfg(
+            cfg, "adagradselect", steps * (rounds + 1), TRAIN["global_batch"],
+            TRAIN["seq_len"], log_every=10 ** 6, **opt), device="cuda")
+        trs[name].train(TRAIN["warmup"])
+    times = {name: [] for name in kinds}
+    for _ in range(rounds):
+        for name, tr in trs.items():
+            tr.train(n)
+            times[name].append(tr.log.step_times[-1] * 1e3)
+    tokens = TRAIN["global_batch"] * TRAIN["seq_len"]
+    print(f"  step time in {rounds} alternating rounds of {n}-step windows "
+          f"(ms): " + ", ".join(
+              f"{name} {[round(t, 2) for t in ts]} (median "
+              f"{statistics.median(ts):.2f} = "
+              f"{tokens / statistics.median(ts) * 1e3:.0f} tokens/s)"
+              for name, ts in times.items()))
+
+
+def _embed_admitted_then_evicted(masks) -> bool:
+    on = [bool(m[0]) for m in masks]
+    return any(on[i] and not any(on[i + 1:j]) and not on[j]
+               for i in range(len(on)) for j in range(i + 1, len(on)))
+
+
+def _pick_seed(torch, cfg, scfg, steps) -> int:
+    """The first seed whose ``random`` masks (which depend only on the seed
+    and the step) admit the embedding and later evict it."""
+    from repro_torch.core import adagradselect
+    nb = cfg.num_blocks
+    for seed in range(64):
+        st = adagradselect.init_state(nb, seed, policy="random",
+                                      k=scfg.num_selected(nb), device="cuda")
+        masks = []
+        for _ in range(steps):
+            m, st = adagradselect.select(scfg, st, torch.zeros(
+                nb, device="cuda"), nb)
+            masks.append(m.cpu())
+        if _embed_admitted_then_evicted(masks):
+            return seed
+    raise PhaseFailed("no seed below 64 admits and then evicts the embedding")
+
+
+def _copy_state(torch, state, device):
+    import numpy as np
+    if isinstance(state, dict):
+        return {k: _copy_state(torch, v, device) for k, v in state.items()}
+    if isinstance(state, torch.Tensor):
+        return state.to(device).clone()
+    if isinstance(state, np.ndarray):
+        return state.copy()
+    return state
+
+
+def phase_banked_consistency(torch, ops, cfg, Trainer) -> None:
+    from repro_torch.core import masked_adamw
+    from repro_torch.core import partition as part_mod
+    steps, lr = 4, 1e-3
+    cfg = cfg.replace(dtype="float32", num_layers=2)
+    pn = part_mod.build_partition(cfg)
+    limit = 2 * lr * steps
+    base = dict(lr=lr, schedule="constant", warmup_steps=0)
+    # (a) random on the card: banked async, banked sync, dense
+    probe = _train_cfg(cfg, "random", steps, 2, 64, k_percent=50.0)
+    seed = _pick_seed(torch, cfg, dataclasses.replace(probe.select,
+                                                      policy="random"), steps)
+    trainers = {name: Trainer(_train_cfg(cfg, "random", steps, 2, 64,
+                                         seed=seed, k_percent=50.0, **base,
+                                         **opt), device="cuda")
+                for name, opt in (
+                    ("dense", {}),
+                    ("async", dict(moment_residency="banked",
+                                   offload="host", async_swap=True)),
+                    ("sync", dict(moment_residency="banked",
+                                  offload="host", async_swap=False)))}
+    runs = {}
+    for name, tr in trainers.items():
+        for a, b in zip(_leaves(tr.state["params"]),   # one initial state
+                        _leaves(trainers["dense"].state["params"])):
+            a.copy_(b)
+    for name, tr in trainers.items():
+        masks = _record_masks(tr)
+        ops.reset_launches()
+        tr.train(steps)
+        runs[name] = (tr, [m.cpu() for m in masks], dict(ops.LAUNCHES))
+    del trainers
+    dense, dmasks, _ = runs["dense"]
+    check(_embed_admitted_then_evicted(dmasks),
+          f"seed {seed}: the masks do not admit and then evict the embedding")
+    worst = 0.0
+    for name in ("async", "sync"):
+        tr, masks, launches = runs[name]
+        check(launches["banked_masked_adamw"] > 0
+              and launches["masked_adamw"] == 0,
+              f"banked {name}: launches {launches}")
+        for i, (a, b) in enumerate(zip(masks, dmasks)):
+            check(torch.equal(a, b), f"banked {name} step {i}: mask "
+                  f"{a.int().tolist()} != dense {b.int().tolist()}")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(tr.log.losses,
+                                                       dense.log.losses))
+        check(rel <= 1e-4, f"banked {name}: loss rel err {rel}")
+        m, v = masked_adamw.materialize_moments(pn, tr.state["opt"])
+        for got, want in ((tr.state["params"], dense.state["params"]),
+                          (m, dense.state["opt"]["m"]),
+                          (v, dense.state["opt"]["v"])):
+            for a, b in zip(part_mod.leaves(got), part_mod.leaves(want)):
+                worst = max(worst, (a.cpu() - b.cpu()).abs().max().item())
+        check(worst <= limit, f"banked {name}: params or moments differ "
+              f"from dense by {worst} > {limit}")
+    stats = runs["async"][0].step_fn.swap_stats
+    check(stats.boundaries >= 1 and stats.predicted_hit_rate == 1.0
+          and stats.mispredicts == 0,
+          f"async swap stats {stats.as_dict()}: want hit rate 1.0")
+    print(f"banked consistency (a) (f32, TF32 off, {cfg.num_layers} layers at "
+          f"full width, k = 50%, batch 2 x 64, {steps} random steps, seed "
+          f"{seed}): masks {[m.nonzero()[:, 0].tolist() for m in dmasks]} "
+          f"equal for banked async, banked sync and dense (the embedding "
+          f"admitted and later evicted); loss max rel err {rel:.2e} (limit "
+          f"1e-4); params and moments max |err| {worst:.3g} (limit "
+          f"{limit:g}); async swap stats {json.dumps(stats.as_dict())}")
+    del runs, dense
+    # (b) topk_grad: banked async on the card against banked on the CPU
+    tcfg = _train_cfg(cfg, "topk_grad", steps, 2, 64, k_percent=50.0,
+                      moment_residency="banked", offload="host",
+                      async_swap=True, **base)
+    card = Trainer(tcfg, device="cuda")
+    cpu = Trainer(tcfg, device="cpu")
+    cpu.state = _copy_state(torch, card.state, "cpu")
+    cmasks, hmasks = _record_masks(card), _record_masks(cpu)
+    ops.reset_launches()
+    card.train(steps)
+    launches = dict(ops.LAUNCHES)
+    cpu.train(steps)
+    check(launches["banked_masked_adamw"] > 0,
+          f"(b): the banked kernel did not run on the card: {launches}")
+    for i, (a, b) in enumerate(zip(cmasks, hmasks)):
+        check(torch.equal(a.cpu(), b), f"(b) step {i}: card mask "
+              f"{a.int().tolist()} != cpu {b.int().tolist()}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card.log.losses,
+                                                   cpu.log.losses))
+    check(rel <= 1e-4, f"(b): loss rel err {rel}")
+    worst = max((a.cpu() - b).abs().max().item() for a, b in
+                zip(_leaves(card.state["params"]),
+                    _leaves(cpu.state["params"])))
+    check(worst <= limit, f"(b): params differ by {worst} > {limit}")
+    print(f"banked consistency (b) ({steps} topk_grad steps, banked async on "
+          f"the card vs banked on the CPU): losses "
+          f"{[round(x, 6) for x in card.log.losses]}, max rel err {rel:.2e} "
+          f"(limit 1e-4); masks equal at every step; params max |err| "
+          f"{worst:.3g} (limit {limit:g}); card swap stats "
+          f"{json.dumps(card.step_fn.swap_stats.as_dict())}")
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -753,6 +1177,12 @@ def main() -> int:
         training = phase_training(torch, ops, cfg, Trainer)
         phase = "train consistency"
         phase_train_consistency(torch, ops, cfg, Trainer)
+        phase = "banked kernel"
+        main_rows.update(phase_banked_kernel(torch, ops, ref, Timer(torch)))
+        phase = "banked training"
+        banked = phase_banked_training(torch, ops, cfg, Trainer, training)
+        phase = "banked consistency"
+        phase_banked_consistency(torch, ops, cfg, Trainer)
     except Exception:   # the boundary: report the failed phase, exit non-zero
         traceback.print_exc()
         print(f"chip_smoke: phase {phase!r} FAILED", file=sys.stderr)
@@ -770,12 +1200,18 @@ def main() -> int:
             "triton", "src/repro_torch/kernels/block_grad_norm.py",
             "src/repro/kernels/block_grad_norm.py:21"),
         "masked_adamw": ("triton", "src/repro_torch/kernels/masked_adamw.py",
-                         "src/repro/kernels/masked_adamw.py:34")}
+                         "src/repro/kernels/masked_adamw.py:34"),
+        "banked_masked_adamw": (
+            "triton", "src/repro_torch/kernels/masked_adamw.py",
+            "src/repro/kernels/masked_adamw.py:80")}
     kernels = []
     for name, (route, source, replaces) in sources.items():
         r = main_rows[name]
-        # launches of the main-path runs: serving (phase 4) + training (7)
-        launches = serving["launches"][name] + training["launches"][name]
+        # launches of the main-path runs: serving (phase 4) + training (7),
+        # and the banked training window (phase 10) for the banked kernel
+        launches = (banked["launches"][name] if name == "banked_masked_adamw"
+                    else serving["launches"][name]
+                    + training["launches"][name])
         kernels.append(dict(
             name=name, route=route, source=source, replaces=replaces,
             launches=launches, max_abs_err=r["max_abs_err"],

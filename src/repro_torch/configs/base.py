@@ -197,9 +197,10 @@ class OptimizerConfig:
     warmup_steps: int = 20
     schedule: str = "cosine"       # "constant" | "cosine" | "linear"
     total_steps: int = 1000
-    # paper 3.3: where the AdamW moments live. The port has "device" (full
-    # f32 m/v on the card, the dense masked AdamW); "banked" is ROADMAP
-    # Queue A item 6.
+    # paper 3.3: where the AdamW moments live. "device": full f32 m/v on
+    # the card (the dense masked AdamW); "banked": [k]-slot banks on the
+    # card over a full store placed by ``offload`` ("host" or "none";
+    # "zero1" is ROADMAP Queue A item 11).
     moment_residency: str = "device"  # "device" | "banked"
     offload: str = "none"          # "none" | "host" | "zero1"
     async_swap: bool = True        # banked only

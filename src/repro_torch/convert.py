@@ -5,9 +5,9 @@ port.
 numpy arrays (what ``jax.device_get`` gives) and returns the port's tree of
 tensors: the same key paths, the same stacked [L, ...] layout and, unless a
 ``dtype`` is given, the same dtype. ``params_to_numpy`` is its inverse.
-``train_state_from_numpy`` converts a whole dense-residency TrainState of
-the masked-selection family, so both packages can take the same step from
-the same state.
+``train_state_from_numpy`` converts a whole TrainState of the
+masked-selection family, dense or banked residency, so both packages can
+take the same step from the same state.
 """
 from __future__ import annotations
 
@@ -74,19 +74,61 @@ def params_to_numpy(params: dict) -> dict:
             for k, v in params.items()}
 
 
-def train_state_from_numpy(state: dict, cfg: ModelConfig,
-                           device="cuda") -> dict:
-    """A JAX TrainState as numpy (``params``, the dense ``opt`` = m, v,
-    counts, ``sel`` and ``step``) -> the port's TrainState on ``device``.
-    The selection state's PRNG key (uint32 [2], ``jax.random.PRNGKey``)
-    becomes the port's generator ``seed`` (the key's two words as one
-    integer); the key itself is kept as ``jax_key`` for tests."""
+def _tree_to_tensors(tree, device, pin=False):
+    if isinstance(tree, dict):
+        return {k: _tree_to_tensors(v, device, pin) for k, v in tree.items()}
+    t = _leaf_to_tensor(tree, device, None)
+    return t.pin_memory() if pin else t
+
+
+def _banked_opt_from_numpy(opt: dict, dev, offload: str) -> dict:
+    """A JAX banked ``opt`` (banks, host ``slot_map``, counts, store) -> the
+    port's, with the store placed per ``offload``: "host" keeps it in host
+    RAM (pinned when the banks are on the card), "none" puts it on
+    ``dev``."""
+    if offload not in ("host", "none"):
+        raise NotImplementedError(
+            f"offload={offload!r} is not ported yet (ROADMAP Queue A item "
+            f"11, 'Distributed')")
+    banks = {}
+    for key, bank in opt["banks"].items():
+        banks[key] = {
+            "m": _tree_to_tensors(bank["m"], dev),
+            "v": _tree_to_tensors(bank["v"], dev),
+            "slots": torch.tensor(np.asarray(bank["slots"], np.int32),
+                                  device=dev)}
+    store_dev = dev if offload == "none" else torch.device("cpu")
+    return {
+        "banks": banks,
+        "slot_map": np.array(opt["slot_map"], np.int32),
+        "counts": _leaf_to_tensor(opt["counts"], dev, None),
+        "store": _tree_to_tensors(opt["store"], store_dev,
+                                  pin=offload == "host"
+                                  and dev.type == "cuda"),
+    }
+
+
+def train_state_from_numpy(state: dict, cfg: ModelConfig, device="cuda",
+                           offload: str = "host") -> dict:
+    """A JAX TrainState as numpy (``params``, ``opt``, ``sel`` and
+    ``step``) -> the port's TrainState on ``device``. ``opt`` is the dense
+    layout (m, v, counts) or the banked one (banks, slot_map, counts,
+    store; the store placed per ``offload``, "host" or "none"). The
+    selection state's PRNG key (uint32 [2], ``jax.random.PRNGKey``) becomes
+    the port's generator ``seed`` (the key's two words as one integer); the
+    key itself is kept as ``jax_key`` for tests."""
     dev = resolve_device(device)
     opt = state["opt"]
-    if set(opt) != {"m", "v", "counts"}:
-        raise NotImplementedError(
-            f"opt state keys {sorted(opt)}: only the dense residency "
-            f"(m, v, counts) is ported (banked: ROADMAP Queue A item 6)")
+    if set(opt) == {"m", "v", "counts"}:
+        out_opt = {"m": params_from_numpy(opt["m"], cfg, dev),
+                   "v": params_from_numpy(opt["v"], cfg, dev),
+                   "counts": _leaf_to_tensor(opt["counts"], dev, None)}
+    elif set(opt) == {"banks", "slot_map", "counts", "store"}:
+        out_opt = _banked_opt_from_numpy(opt, dev, offload)
+    else:
+        raise ValueError(f"opt state keys {sorted(opt)}: neither the dense "
+                         f"(m, v, counts) nor the banked (banks, slot_map, "
+                         f"counts, store) layout")
 
     def tensor(a, dtype=None):
         return _leaf_to_tensor(a, dev, dtype)
@@ -103,9 +145,7 @@ def train_state_from_numpy(state: dict, cfg: ModelConfig,
     out_sel.update({k: tensor(v) for k, v in sel.items()})
     return {
         "params": params_from_numpy(state["params"], cfg, dev),
-        "opt": {"m": params_from_numpy(opt["m"], cfg, dev),
-                "v": params_from_numpy(opt["v"], cfg, dev),
-                "counts": tensor(opt["counts"])},
+        "opt": out_opt,
         "sel": out_sel,
         "step": int(np.asarray(state["step"])),
     }

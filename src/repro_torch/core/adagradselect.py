@@ -1,7 +1,5 @@
 """Layer-selection controller: a registry of ``SelectionPolicy`` objects
-(port of the JAX package's ``core/adagradselect.py``, without
-``predict_next``, which only the banked residency uses: ROADMAP Queue A
-item 6).
+(port of the JAX package's ``core/adagradselect.py``).
 
 The paper's Algorithm 2 (``adagradselect``) is one entry in a string-keyed
 policy registry beside its baselines (``topk_grad`` = Alg. 1, ``random``,
@@ -85,6 +83,16 @@ class SelectionPolicy:
             return {**state, "cum_norms": state["cum_norms"] + block_norms}
         return state
 
+    def predict_next(self, cfg: SelectConfig, state: dict, draws: dict,
+                     num_blocks: int, k: int) -> torch.Tensor:
+        """Predicted mask of the NEXT ``select``, from the post-select state
+        alone (the next step's norms are unknown): ``propose`` with zero
+        norms. Exact for the rules that read no norms (``random``,
+        ``lisa``, ``all``); the cumulative-signal approximation for
+        ``adagradselect`` and ``grass``."""
+        zeros = torch.zeros((num_blocks,), device=state["mask"].device)
+        return self.propose(cfg, state, draws, zeros, k, num_blocks)
+
 
 @register_policy("all")
 class FullPolicy(SelectionPolicy):
@@ -109,6 +117,11 @@ class TopKGradPolicy(SelectionPolicy):
 
     def propose(self, cfg, state, draws, block_norms, k, num_blocks):
         return selection.topk_mask(block_norms, k)
+
+    def predict_next(self, cfg, state, draws, num_blocks, k):
+        # no state to rank by: selections drift slowly (BlockLLM), so the
+        # best guess is the current mask
+        return state["mask"]
 
 
 @register_policy("adagradselect")
@@ -248,3 +261,21 @@ def observe(cfg: SelectConfig, state: dict,
     """Feed post-backward norms to the policy without selecting (gate
     mode)."""
     return get_policy(cfg.policy).observe(cfg, state, block_norms)
+
+
+def predict_next(cfg: SelectConfig, state: dict, num_blocks: int,
+                 draws: dict | None = None) -> torch.Tensor:
+    """Predicted NEXT selection as a [k] indices vector (the contract of
+    ``state["indices"]``: ascending block ids padded with ``num_blocks``),
+    from the post-``select`` state alone. The draws default to
+    ``make_draws`` at this state, which is the generator of the next
+    ``select`` (its step is already advanced), so a policy that reads no
+    norms is predicted exactly. Pure; reads nothing back to the host."""
+    pol = get_policy(cfg.policy)
+    k = cfg.num_selected(num_blocks)
+    if draws is None:
+        draws = make_draws(cfg, state, num_blocks)
+    mask = pol.predict_next(cfg, state, draws, num_blocks, k)
+    mask = selection.apply_always_include(mask, cfg.always_include)
+    cap = state["indices"].shape[0] if "indices" in state else num_blocks
+    return selected_indices(mask, cap)

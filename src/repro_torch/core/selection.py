@@ -13,8 +13,10 @@ import torch
 
 
 def topk_mask(scores: torch.Tensor, k: int) -> torch.Tensor:
-    """Boolean mask of the k largest entries of ``scores`` [N] -> [N]."""
-    idx = torch.topk(scores, k).indices
+    """Boolean mask of the k largest entries of ``scores`` [N] -> [N]. Ties
+    go to the lower index, as ``lax.top_k`` breaks them in the reference
+    (``torch.topk`` leaves their order unspecified)."""
+    idx = torch.sort(scores, descending=True, stable=True).indices[:k]
     mask = torch.zeros(scores.shape, dtype=torch.bool, device=scores.device)
     return mask.index_fill_(0, idx, True)
 

@@ -21,7 +21,8 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as _rn
 
 LAUNCHES = {"paged_decode_attention": 0, "rmsnorm": 0, "rmsnorm_bwd": 0,
-            "block_grad_sq_norms": 0, "masked_adamw": 0}
+            "block_grad_sq_norms": 0, "masked_adamw": 0,
+            "banked_masked_adamw": 0}
 _FLOATS = (torch.float32, torch.bfloat16)
 
 
@@ -223,5 +224,54 @@ def masked_adamw(p, g, m, v, sel, counts, lr, b1, b2, eps, wd):
     _ma.load()
     _ma.launch(p.view(nl, -1), g.view(nl, -1), m.view(nl, -1),
                v.view(nl, -1), sel, counts, lr, b1, b2, eps, wd)
+    LAUNCHES[name] += 1
+    return p, m, v
+
+
+def banked_masked_adamw(p, g, m, v, slots, sel, counts, lr, b1, b2, eps,
+                        wd):
+    """Masked AdamW over the bank rows of a stacked leaf, IN PLACE. p, g:
+    [L, ...] in the param dtype; m, v: [cap, ...] f32 banks whose row i
+    holds the moments of leaf row ``slots[i]`` (int32 [cap]; ``>= L`` is a
+    free slot); sel, counts: [cap] f32. The p rows ``slots[i]`` with sel > 0
+    and the bank rows take the step; free slots, rows with sel = 0 and the
+    leaf rows no slot holds keep their bits. Returns (p, m, v)."""
+    name = "banked_masked_adamw"
+    if not _on_card(name, p, g, m, v, slots, sel, counts):
+        nl, cap = p.shape[0], m.shape[0]
+        p2, m2, v2 = ref.banked_masked_adamw(
+            p.view(nl, -1), g.view(nl, -1), m.view(cap, -1),
+            v.view(cap, -1), slots, sel, counts, lr, b1, b2, eps, wd)
+        p.view(nl, -1).copy_(p2)
+        m.view(cap, -1).copy_(m2)
+        v.view(cap, -1).copy_(v2)
+        return p, m, v
+    nl, cap = p.shape[0], m.shape[0]
+    if p.ndim < 2 or g.shape != p.shape or v.shape != m.shape \
+            or m.shape[1:] != p.shape[1:]:
+        _fail(name, f"p, g must be [L, ...] and m, v [cap, ...] with the "
+              f"same trailing shape, got {tuple(p.shape)}, {tuple(g.shape)},"
+              f" {tuple(m.shape)}, {tuple(v.shape)}")
+    if slots.shape != (cap,) or sel.shape != (cap,) \
+            or counts.shape != (cap,):
+        _fail(name, f"slots, sel and counts must be [cap={cap}], got "
+              f"{tuple(slots.shape)}, {tuple(sel.shape)} and "
+              f"{tuple(counts.shape)}")
+    if p.dtype not in _FLOATS or g.dtype != p.dtype:
+        _fail(name, f"p and g must share a dtype of float32 or bfloat16, "
+              f"got {p.dtype}/{g.dtype}")
+    if slots.dtype != torch.int32:
+        _fail(name, f"slots must be int32, got {slots.dtype}")
+    for label, t in (("m", m), ("v", v), ("sel", sel), ("counts", counts)):
+        if t.dtype != torch.float32:
+            _fail(name, f"{label} must be float32, got {t.dtype}")
+    for label, t in (("p", p), ("g", g), ("m", m), ("v", v),
+                     ("slots", slots), ("sel", sel), ("counts", counts)):
+        if not t.is_contiguous():
+            _fail(name, f"{label} must be contiguous")
+    _ma.load()
+    _ma.launch_banked(p.view(nl, -1), g.view(nl, -1), m.view(cap, -1),
+                      v.view(cap, -1), slots, sel, counts, lr, b1, b2, eps,
+                      wd)
     LAUNCHES[name] += 1
     return p, m, v

@@ -2,9 +2,10 @@
 
 Ports of ``decode_attention``, ``paged_decode_attention``, ``rmsnorm``,
 ``block_grad_sq_norms`` and ``masked_adamw`` from the JAX package's
-``kernels/ref.py``, and ``rmsnorm_bwd``, the autograd of ``rmsnorm`` (the
+``kernels/ref.py``; ``rmsnorm_bwd``, the autograd of ``rmsnorm`` (the
 JAX package differentiates its RMSNorm in XLA and has no kernel or oracle
-for it). ``ops.py`` takes these for tensors on the CPU; ``chip_smoke.py``
+for it); and ``banked_masked_adamw``, the gather, ``masked_adamw`` and
+scatter that the reference's banked step runs around its kernel. ``ops.py`` takes these for tensors on the CPU; ``chip_smoke.py``
 holds the CUDA and Triton kernels against them on the card.
 """
 from __future__ import annotations
@@ -91,3 +92,23 @@ def masked_adamw(p, g, m, v, sel, counts, lr, b1, b2, eps, wd):
     step = lr * (mhat / (torch.sqrt(vhat) + eps) + wd * pf)
     p2 = torch.where(selb, pf - step, pf)
     return p2.to(p.dtype), m2, v2
+
+
+def banked_masked_adamw(p, g, m, v, slots, sel, counts, lr, b1, b2, eps,
+                        wd):
+    """p, g: [L, R] (param dtype); m, v: [cap, R] f32 banks; slots: [cap]
+    int (bank row i holds leaf row ``slots[i]``; ``>= L`` is a free slot);
+    sel, counts: [cap] f32. Returns (p', m', v'): ``masked_adamw`` on the
+    rows gathered through ``slots`` (free slots read zeros and count as
+    unselected), the p rows scattered back where the slot is real."""
+    n = p.shape[0]
+    valid = slots.long() < n
+    rows = torch.where(valid, slots.long(), 0)
+    sel = torch.where(valid, sel, 0.0)
+    fill = valid[:, None]
+    p2, m2, v2 = masked_adamw(torch.where(fill, p[rows], 0),
+                              torch.where(fill, g[rows], 0), m, v, sel,
+                              counts, lr, b1, b2, eps, wd)
+    p_out = p.clone()
+    p_out[rows[valid]] = p2[valid]
+    return p_out, m2, v2

@@ -9,13 +9,20 @@ On the CPU, through the plain PyTorch versions of the kernels:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-0.5b \
       --smoke --device cpu --steps 4 --seq-len 48 --global-batch 4
 
+Banked moment residency (paper §3.3): ``--moment-residency banked`` with
+``--offload host`` (the full store in pinned host RAM) or ``--offload
+none`` (the store on the card), and ``--async-swap on|off`` (the predicted
+boundary queued on a copy stream, or every boundary synchronous). The run
+then prints the optimizer state's bytes on the card and on the host, and
+the swap statistics.
+
 Flags of the reference whose feature is not ported raise
 ``NotImplementedError`` naming its ROADMAP Queue A item: ``--method lora``
 (4), ``--checkpoint-dir``/``--checkpoint-every`` (3), ``--eval-every`` (5),
-``--moment-residency banked`` (6; ``--async-swap`` only applies there), ``--pack``,
-``--data`` other than synthetic_math and ``--prefetch-depth`` (8),
-``--trace``/``--metrics-json``/``--report`` (10), ``--mesh`` and
-``--offload`` (11).
+``--pack``, ``--data`` other than synthetic_math and ``--prefetch-depth``
+(8), ``--trace``/``--metrics-json``/``--report`` (10), ``--mesh``,
+``--offload zero1`` and ``--offload`` under ``--moment-residency device``
+(11).
 """
 from __future__ import annotations
 
@@ -84,6 +91,7 @@ def main(argv=None):
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.configs.base import (OptimizerConfig, SelectConfig,
                                           TrainConfig)
+    from repro_torch.core.offload import resident_opt_bytes
     from repro_torch.device import resolve_device
     from repro_torch.kernels import ops
     from repro_torch.train.trainer import Trainer
@@ -119,11 +127,18 @@ def main(argv=None):
           f"opt-state {report.opt_bytes / (1 << 20):.1f} MiB (model), "
           f"resident {report.opt_bytes_resident / (1 << 20):.1f} MiB  "
           f"{report.detail}")
+    if args.moment_residency == "banked":
+        res = resident_opt_bytes(trainer.state["opt"])
+        print(f"resident moment bytes: device {res['device']:,} "
+              f"host {res['host']:,}")
     ops.reset_launches()
     log = trainer.train()
     print(f"final loss: {log.losses[-1]:.4f}  "
           f"mean step time: {np.mean(log.step_times[3:]):.3f}s")
     print("kernel launches:", json.dumps(ops.LAUNCHES))
+    stats = getattr(trainer.step_fn, "swap_stats", None)
+    if stats is not None:
+        print("swap stats:", json.dumps(stats.as_dict()))
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"losses": log.losses, "step_times": log.step_times,

@@ -1,7 +1,7 @@
 """Method-agnostic training-step building blocks (port of the JAX package's
 ``train/step.py``): the masked next-token loss, gradients with microbatch
 accumulation, and the TrainState of the masked-selection family (dense
-residency).
+or banked residency).
 
 The step factories live in ``repro_torch.methods``. Parameters are plain
 tensors that do not require grad; ``value_and_grad`` differentiates
@@ -90,24 +90,36 @@ def init_train_state(model_cfg: ModelConfig, seed: int = 0,
                      policy: str = "adagradselect",
                      select_k: int | None = None,
                      moment_residency: str = "device",
+                     store_policy: str = "host",
                      device="cuda") -> dict:
     """TrainState of the masked-selection family: params (random, from a
-    generator seeded with ``seed`` on ``device``) + dense masked-AdamW
-    moments + the policy's selection state + the step (a Python int)."""
-    if moment_residency == "banked":
-        raise NotImplementedError(
-            "moment_residency='banked' is not ported yet (ROADMAP Queue A "
-            "item 6, 'Banked residency')")
-    if moment_residency != "device":
+    generator seeded with ``seed`` on ``device``) + masked-AdamW moments +
+    the policy's selection state + the step (a Python int).
+
+    ``moment_residency == "device"``: ``state["opt"]`` is the dense layout
+    ``{"m", "v", "counts"}``. ``"banked"``: the compact layout ``{"banks",
+    "slot_map", "counts", "store"}``, [select_k]-slot banks on ``device``
+    over a full store placed per ``store_policy`` ("host": host RAM,
+    pinned on the card; "none": ``device``; see
+    ``masked_adamw.init_banked_opt_state``). ``select_k`` sets both the
+    bank capacity and the length of the selection state's ``indices``
+    (default: ``num_blocks``)."""
+    if moment_residency not in ("device", "banked"):
         raise ValueError(f"unknown moment_residency {moment_residency!r}; "
                          f"expected 'device' or 'banked'")
     dev = resolve_device(device)
     partition = part_mod.build_partition(model_cfg)
     params = lm.init(model_cfg, torch.Generator(device=dev).manual_seed(seed),
                      device=dev)
+    if moment_residency == "banked":
+        k = select_k if select_k is not None else partition.num_blocks
+        opt = masked_adamw.init_banked_opt_state(partition, params, k,
+                                                 store_policy)
+    else:
+        opt = masked_adamw.init_opt_state(partition, params)
     return {
         "params": params,
-        "opt": masked_adamw.init_opt_state(partition, params),
+        "opt": opt,
         "sel": adagradselect.init_state(partition.num_blocks, seed,
                                         policy=policy, k=select_k,
                                         device=dev),

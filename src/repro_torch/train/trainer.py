@@ -10,7 +10,8 @@ The loss is read back only at ``log_every`` boundaries, as the reference
 does: between boundaries the loop only enqueues steps (losses stay device
 scalars), and at a boundary one device synchronisation drains the queue,
 so the step times are honest window averages. ``log_every=0`` syncs every
-step.
+step. (The banked residency's step also reads its selected block ids back,
+once a step, by design: ``methods/selection.py``.)
 
 Not ported, and raising with their ROADMAP Queue A item: checkpoints (item
 3), eval (item 5), ``prefetch_depth > 0`` (item 8), ``mesh`` (item 11).
@@ -70,7 +71,16 @@ class Trainer:
         self.log = TrainLog()
 
     def _device_batch(self, batch: dict) -> dict:
-        return {k: torch.from_numpy(v).to(self.device)
+        """The batch on the state's device. On the card each array is staged
+        in pinned memory and copied with ``non_blocking=True``, so the host
+        does not wait for the queued steps: a copy from pageable memory
+        would synchronise. PyTorch's pinned host allocator records an event
+        after the copy and keeps the staging block until that event has
+        completed. On the CPU the arrays are used as they are."""
+        if self.device.type == "cpu":
+            return {k: torch.from_numpy(v) for k, v in batch.items()}
+        return {k: torch.from_numpy(v).pin_memory().to(self.device,
+                                                       non_blocking=True)
                 for k, v in batch.items()}
 
     def _sync(self) -> None:
@@ -86,24 +96,33 @@ class Trainer:
         last = step0 + steps - 1
         pending = []  # (step, device-scalar loss) since the last boundary
         t0 = time.perf_counter()
-        for step in range(step0, step0 + steps):
-            batch = self._device_batch(self.data.batch_at(step))
-            if not pending:
-                t0 = time.perf_counter()
-            self.state, metrics = self.step_fn(self.state, batch)
-            pending.append((step, metrics["loss"]))
+        try:
+            for step in range(step0, step0 + steps):
+                batch = self._device_batch(self.data.batch_at(step))
+                if not pending:
+                    t0 = time.perf_counter()
+                self.state, metrics = self.step_fn(self.state, batch)
+                pending.append((step, metrics["loss"]))
 
-            at_log = tcfg.log_every and step % tcfg.log_every == 0
-            if at_log or step == last or not tcfg.log_every:
-                self._sync()
-                dt = (time.perf_counter() - t0) / len(pending)
-                self.log.steps.extend(s for s, _ in pending)
-                self.log.losses.extend(float(x) for _, x in pending)
-                self.log.step_times.extend([dt] * len(pending))
-                pending = []
-            if at_log:
-                small = {k: (v.item() if isinstance(v, torch.Tensor) else v)
-                         for k, v in metrics.items()
-                         if not isinstance(v, torch.Tensor) or v.ndim == 0}
-                self.log.metrics.append({"step": step, **small})
+                at_log = tcfg.log_every and step % tcfg.log_every == 0
+                if at_log or step == last or not tcfg.log_every:
+                    self._sync()
+                    dt = (time.perf_counter() - t0) / len(pending)
+                    self.log.steps.extend(s for s, _ in pending)
+                    self.log.losses.extend(float(x) for _, x in pending)
+                    self.log.step_times.extend([dt] * len(pending))
+                    pending = []
+                if at_log:
+                    small = {k: (v.item() if isinstance(v, torch.Tensor)
+                                 else v)
+                             for k, v in metrics.items()
+                             if not isinstance(v, torch.Tensor)
+                             or v.ndim == 0}
+                    self.log.metrics.append({"step": step, **small})
+        finally:
+            # banked residency: order the card after any dispatched boundary
+            # before the caller reads the state
+            planner = getattr(self.step_fn, "swap_planner", None)
+            if planner is not None:
+                planner.quiesce()
         return self.log

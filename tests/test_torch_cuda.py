@@ -10,7 +10,10 @@ full rows), the qwen2.5-0.5b head map, f32 and bf16 at its tolerances. The
 training kernels (block gradient norms, masked AdamW, RMSNorm backward) are
 checked on ragged rows, with bit-identical unselected AdamW rows and
 bit-reproducible norms, on inputs whose outputs are large beside the
-tolerance.
+tolerance. The banked masked AdamW (row 9) is held against its plain
+version and, bit for bit, against row 8 on the same rows. Tied scores in
+``topk_mask`` go to the lower index on the card too, and three dense
+training steps with their batch uploads make no host sync.
 """
 import numpy as np
 import pytest
@@ -219,3 +222,140 @@ def test_rmsnorm_bwd_matches_plain(cuda_device, n, dtype):
                                  (xg, sg), dy)
     assert ops.LAUNCHES["rmsnorm_bwd"] == n0 + 2
     assert _bits_equal(gx, dx) and _bits_equal(gs, ds)
+
+
+# ------------------------------------------- banked residency (row 9) and repairs
+
+
+def _banked_inputs(dev, dtype, shape, slots, seed=13):
+    """p, g [L, ...]; m, v [cap, ...] banks; sel with the first real slot
+    and every free slot at 0; counts."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    nl, cap = shape[0], len(slots)
+    bank = (cap,) + tuple(shape[1:])
+
+    def rnd(shp, scale=1.0, shift=0.0):
+        return shift + scale * torch.randn(shp, generator=g, device=dev)
+    p, grad = rnd(shape).to(dtype), rnd(shape, 1.0, 0.5).to(dtype)
+    m, v = rnd(bank, 0.1, 0.05), rnd(bank, 0.01).abs() + 0.01
+    sl = torch.tensor(slots, dtype=torch.int32, device=dev)
+    sel = (sl < nl).float()
+    sel[0] = 0.0
+    cnt = torch.arange(1, cap + 1, dtype=torch.float32, device=dev)
+    return p, grad, m, v, sl, sel, cnt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, slots", [((4, 100), [2, 4, 0, 3]),
+                                          ((3, 2048), [2, 0, 3]),
+                                          ((5, 5000), [4, 1, 5, 0, 2]),
+                                          ((24, 896), [20, 3, 24, 11, 7])])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_banked_masked_adamw_matches_plain_and_row8(cuda_device, shape,
+                                                    slots, dtype):
+    """Row 9 in place against its plain version; free slots, the slot with
+    sel = 0 and the leaf rows no slot selects keep their bits; and the same
+    bits as row 8 run on a dense copy whose m and v hold the bank rows at
+    the slot positions."""
+    p, grad, m, v, sl, sel, cnt = _banked_inputs(cuda_device, dtype, shape,
+                                                 slots)
+    args = (0.3, 0.9, 0.999, 1e-8, 0.1)
+    nl = shape[0]
+    pk, mk, vk = p.clone(), m.clone(), v.clone()
+    n0 = ops.LAUNCHES["banked_masked_adamw"]
+    out = ops.banked_masked_adamw(pk, grad, mk, vk, sl, sel, cnt, *args)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["banked_masked_adamw"] == n0 + 1
+    assert out[0] is pk and out[1] is mk and out[2] is vk
+    pr, mr, vr = ref.banked_masked_adamw(p, grad, m, v, sl, sel, cnt, *args)
+    torch.testing.assert_close(pk.float(), pr.float(), **TOL[dtype])
+    torch.testing.assert_close(mk, mr, **TOL[torch.float32])
+    torch.testing.assert_close(vk, vr, **TOL[torch.float32])
+    on = (sl < nl) & (sel > 0)
+    touched = torch.zeros(nl, dtype=torch.bool, device=cuda_device)
+    touched[sl[on].long()] = True
+    assert _bits_equal(pk[~touched], p[~touched])
+    for new, old in ((mk, m), (vk, v)):
+        assert _bits_equal(new[~on], old[~on])
+    # row 8 on the dense copy
+    real = (sl < nl).nonzero()[:, 0]
+    rows = sl[real].long()
+    pd = p.clone()
+    md = torch.zeros(shape, device=cuda_device)
+    vd = torch.zeros(shape, device=cuda_device)
+    md[rows], vd[rows] = m[real], v[real]
+    seld = torch.zeros(nl, device=cuda_device)
+    cntd = torch.zeros(nl, device=cuda_device)
+    seld[rows], cntd[rows] = sel[real], cnt[real]
+    ops.masked_adamw(pd, grad, md, vd, seld, cntd, *args)
+    torch.cuda.synchronize()
+    assert _bits_equal(pk, pd)
+    assert _bits_equal(mk[real], md[rows]) and _bits_equal(vk[real], vd[rows])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scores, k, want", [([0.0] * 26, 5, [0, 1, 2, 3, 4]),
+                                             ([1, 2, 2, 2, 0], 2, [1, 2])])
+def test_topk_mask_ties_go_to_the_lower_index(cuda_device, scores, k, want):
+    from repro_torch.core import selection
+    mask = selection.topk_mask(torch.tensor(scores, device=cuda_device), k)
+    assert mask.nonzero()[:, 0].tolist() == want
+
+
+@pytest.mark.cuda
+def test_dense_steps_and_batch_uploads_never_sync(cuda_device):
+    """Three dense training steps of the smoke config, batch uploads
+    included, under ``set_sync_debug_mode("error")``: no host sync outside
+    the log boundary (which the loop is not asked for here)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.train.trainer import Trainer
+    tr = Trainer(TrainConfig(model=get_smoke_config("qwen2.5-0.5b"),
+                             seq_len=48, global_batch=4, steps=4),
+                 device="cuda")
+    tr.train(1)     # first launches: builds and compiles the kernels
+    torch.cuda.synchronize()
+    state = tr.state
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for step in range(1, 4):
+            batch = tr._device_batch(tr.data.batch_at(step))
+            state, metrics = tr.step_fn(state, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert state["step"] == 4
+    assert torch.isfinite(metrics["loss"]).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("async_swap", [True, False])
+def test_banked_step_syncs_the_host_once(cuda_device, async_swap):
+    """The banked step's only host sync is its read of the selected (and
+    predicted) block ids: one synchronising call a step under
+    ``set_sync_debug_mode("warn")``, batch uploads included."""
+    import warnings
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import OptimizerConfig, TrainConfig
+    from repro_torch.train.trainer import Trainer
+    tr = Trainer(TrainConfig(
+        model=get_smoke_config("qwen2.5-0.5b"), seq_len=48, global_batch=4,
+        steps=5, optimizer=OptimizerConfig(moment_residency="banked",
+                                           offload="host",
+                                           async_swap=async_swap)),
+        device="cuda")
+    tr.train(1)
+    torch.cuda.synchronize()
+    state = tr.state
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for step in range(1, 5):
+                batch = tr._device_batch(tr.data.batch_at(step))
+                state, _ = tr.step_fn(state, batch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "synchronizing" in str(w.message)]
+    assert len(syncs) == 4, [str(w.message) for w in caught]
+    assert tr.step_fn.swap_stats.steps == 5

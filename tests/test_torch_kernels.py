@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import partition as jpart
 from repro.kernels import decode_attention as jdec
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
@@ -200,6 +201,60 @@ def test_masked_adamw_vs_jax(shape, dtype):
     for new, old in ((pt, p0), (mt, m0), (vt, v0)):
         assert torch.equal(flat(new)[off], flat(old)[off])
     moved = (flat(pt).float() - flat(p0).float())[~off].abs().max()
+    assert moved > 5 * _tol(dtype)["atol"]
+
+
+# bank slots per sweep shape: real rows out of order and a free slot (= L)
+BANK_SLOTS = {4: [2, 4, 0], 2: [1, 2, 0], 3: [2, 0, 3]}
+
+
+@pytest.mark.parametrize("shape", [(4, 100), (2, 32, 9), (3, 2048)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_banked_masked_adamw_vs_jax(shape, dtype):
+    """Row 9 at the sweep of tests/test_kernels.py::TestMaskedAdamW: the
+    port's wrapper on CPU tensors (the plain version, in place) against the
+    JAX package's Pallas banked kernel in interpret mode, whose p rows are
+    scattered back with the reference's drop semantics. The free slot has
+    sel = 0 (the reference needs it); one real slot has sel = 0 too. Leaf
+    rows no slot selects, the free slot's bank row and the unselected bank
+    row keep their bits."""
+    rng = np.random.default_rng(4)
+    nl = shape[0]
+    slots = np.asarray(BANK_SLOTS[nl], np.int32)
+    cap = len(slots)
+    bank = (cap,) + shape[1:]
+    pj, pt = _pair(rng.standard_normal(shape), dtype)
+    gj, gt = _pair(0.5 + rng.standard_normal(shape), dtype)
+    mj, mt = _pair(0.05 + 0.1 * rng.standard_normal(bank), "float32")
+    vj, vt = _pair(0.01 + 0.01 * np.abs(rng.standard_normal(bank)),
+                   "float32")
+    sel = np.where(slots < nl, 1.0, 0.0).astype(np.float32)
+    sel[0] = 0.0    # one real slot unselected
+    cnt = np.arange(1, cap + 1, dtype=np.float32)
+    args = (0.3, 0.9, 0.999, 1e-8, 0.1)
+    p0, m0, v0 = pt, mt, vt
+    pt, mt, vt = pt.clone(), mt.clone(), vt.clone()
+    out = ops.banked_masked_adamw(pt, gt, mt, vt, torch.from_numpy(slots),
+                                  torch.from_numpy(sel),
+                                  torch.from_numpy(cnt), *args)
+    assert out[0] is pt and out[1] is mt and out[2] is vt
+    p_rows, m2, v2 = jops.banked_masked_adamw(
+        pj, gj, mj, vj, jnp.asarray(slots), jnp.asarray(sel),
+        jnp.asarray(cnt), *args)
+    want_p = jpart.scatter_rows(pj, jnp.asarray(slots), p_rows)
+    np.testing.assert_allclose(_as_np(pt), _as_np(want_p), **_tol(dtype))
+    for got, w in ((mt, m2), (vt, v2)):
+        np.testing.assert_allclose(_as_np(got), _as_np(w),
+                                   **_tol("float32"))
+    on = (slots < nl) & (sel > 0)
+    touched = torch.zeros(nl, dtype=torch.bool)
+    touched[slots[on]] = True
+    flat = lambda t: t.reshape(t.shape[0], -1)  # noqa: E731
+    assert torch.equal(flat(pt)[~touched], flat(p0)[~touched])
+    off = torch.from_numpy(~on)
+    for new, old in ((mt, m0), (vt, v0)):
+        assert torch.equal(flat(new)[off], flat(old)[off])
+    moved = (flat(pt).float() - flat(p0).float())[touched].abs().max()
     assert moved > 5 * _tol(dtype)["atol"]
 
 

@@ -91,12 +91,13 @@ def _tcfg(**kw):
     lambda: launch_serve.main(["--arch", "qwen2.5-0.5b", "--smoke"]),
     lambda: convert.train_state_from_numpy({"opt": {}}, _cfg()),
     lambda: init_train_state(_cfg()),
+    lambda: init_train_state(_cfg(), moment_residency="banked"),
     lambda: Trainer(_tcfg()),
     lambda: launch_train.main(["--arch", "qwen2.5-0.5b", "--smoke",
                                "--steps", "2"]),
 ], ids=["init", "init-cuda", "init_cache", "init_paged_cache", "convert",
         "engine", "launcher", "convert-train-state", "init_train_state",
-        "trainer", "train-launcher"])
+        "init_train_state-banked", "trainer", "train-launcher"])
 def test_entry_points_need_cuda_by_default(no_cuda, call):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()
@@ -139,12 +140,23 @@ def test_entry_points_run_on_cpu_when_asked(no_cuda, capsys):
      "item 10"),
     (lambda: launch_train.main(["--arch", "qwen2.5-0.5b", "--smoke",
                                 "--device", "cpu", "--moment-residency",
-                                "banked"]), "item 6"),
+                                "banked", "--offload", "zero1"]), "item 11"),
 ], ids=["lora", "checkpoint", "eval", "prefetch", "mesh", "pack", "trace",
-        "banked"])
+        "banked-zero1"])
 def test_training_features_not_ported_raise(call, item):
     with pytest.raises(NotImplementedError, match=item):
         call()
+
+
+@pytest.mark.parametrize("offload", ["host", "none"])
+def test_banked_launcher_runs_on_cpu(offload, capsys):
+    assert launch_train.main(["--arch", "qwen2.5-0.5b", "--smoke",
+                              "--device", "cpu", "--moment-residency",
+                              "banked", "--offload", offload, "--steps", "4",
+                              "--seq-len", "48", "--global-batch", "2"]) == 0
+    out = capsys.readouterr().out
+    assert "final loss" in out and "resident moment bytes" in out
+    assert '"dispatches": 4' in out
 
 
 class _FakeCuda(torch.Tensor):
@@ -229,3 +241,25 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="sel and counts must be"):
         ops.masked_adamw(x, x, x, x, _fake(torch.ones(4)), row, 1e-3, 0.9,
                          0.999, 1e-8, 0.0)
+
+
+def test_banked_wrapper_raises_and_rejects(missing_builds):
+    """Row 9 on CUDA tensors: no build raises and counts nothing; what the
+    kernel does not take is refused."""
+    before = dict(ops.LAUNCHES)
+    p, bank = _fake(torch.zeros(4, 8)), _fake(torch.zeros(2, 8))
+    slots = _fake(torch.tensor([1, 4], dtype=torch.int32))
+    row = _fake(torch.ones(2))
+    args = (1e-3, 0.9, 0.999, 1e-8, 0.0)
+    with pytest.raises(_build.KernelBuildFailure, match="triton"):
+        ops.banked_masked_adamw(p, p, bank, bank, slots, row, row, *args)
+    assert ops.LAUNCHES == before
+    with pytest.raises(ValueError, match="slots must be int32"):
+        ops.banked_masked_adamw(p, p, bank, bank, _fake(slots.long()), row,
+                                row, *args)
+    with pytest.raises(ValueError, match="same trailing shape"):
+        ops.banked_masked_adamw(p, p, _fake(torch.zeros(2, 9)), bank, slots,
+                                row, row, *args)
+    with pytest.raises(ValueError, match=r"\[cap=2\]"):
+        ops.banked_masked_adamw(p, p, bank, bank, slots,
+                                _fake(torch.ones(3)), row, *args)
