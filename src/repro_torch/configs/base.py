@@ -203,7 +203,11 @@ class OptimizerConfig:
     # "zero1" is ROADMAP Queue A item 11).
     moment_residency: str = "device"  # "device" | "banked"
     offload: str = "none"          # "none" | "host" | "zero1"
-    async_swap: bool = True        # banked only
+    # banked only. Off by default, unlike the reference: the port's
+    # synchronous boundary already queues its copies without blocking the
+    # host, and the swap planner has yet to earn its staged rows' memory
+    # (PERF.md §6, PR 17).
+    async_swap: bool = False
     moment_dtype: str = "float32"  # "float32" | "bfloat16"
     accum_dtype: str = "float32"   # microbatch grad-accumulation buffer
     # LoRA baseline

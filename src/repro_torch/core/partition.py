@@ -145,21 +145,7 @@ def layer_masks_dict(partition: BlockPartition, mask: torch.Tensor) -> dict:
 #
 # A stacked group's banked moments live in a [cap, ...] bank whose row s
 # holds the moments of local block ``slots[s]`` (``slots[s] == length``:
-# a free slot). Both helpers take such slot vectors.
-
-
-def gather_rows(leaf: torch.Tensor, slots: torch.Tensor,
-                fill: float = 0) -> torch.Tensor:
-    """Rows of a stacked leaf [L, ...] at ``slots`` [n] -> [n, ...].
-    Out-of-range entries (the ``L`` free-slot sentinel) read as ``fill``
-    rows instead of clamping onto a real block."""
-    idx = slots.long()
-    valid = idx < leaf.shape[0]
-    rows = leaf[torch.where(valid, idx, 0)]
-    shape = (-1,) + (1,) * (leaf.ndim - 1)
-    return torch.where(valid.reshape(shape), rows,
-                       torch.full((), fill, dtype=leaf.dtype,
-                                  device=leaf.device))
+# a free slot).
 
 
 def scatter_rows(leaf: torch.Tensor, slots: torch.Tensor,

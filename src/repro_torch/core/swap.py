@@ -30,7 +30,8 @@ on streams and orders it with events, on the caller's thread. The staging
 rows are allocated on the copy stream and marked with ``record_stream``
 where the current stream consumes them; a dropped job is first waited on.
 The reference's ``StagingPool`` is not needed: the pinned store is the
-staging on the host side.
+staging on the host side. Nor is its ``close``, which shuts its thread
+down: ``quiesce`` is all the end of training needs.
 
 On the CPU there are no streams and each copy completes where it is issued;
 the planner's plans, hits and misses are the same.
@@ -53,10 +54,11 @@ class SwapStats:
     synchronous ones; ``mispredicts`` the sync swaps made while a wrong
     prediction (or one whose plan overflowed) was in flight. A boundary with
     no prediction in flight — the first step of a ``train`` call, or async
-    disabled — is a sync swap but no mispredict, so ``predicted_hit_rate``
-    is hits over the boundaries that had a prediction. Phase times are
-    host-clock microseconds summed over steps: ``phase_a_us`` includes the wait for the forward, backward and selection
-    (the indices read), ``swap_us`` the boundary (resolve and commit, or the
+    disabled — is a sync swap but no mispredict. ``predicted_hit_rate`` is
+    the reference's, hits over all boundaries; ``dispatched_hit_rate`` is
+    hits over the boundaries that had a prediction in flight. Phase times
+    are host-clock microseconds summed over steps: ``phase_a_us`` includes
+    the wait for the forward, backward and selection (the indices read), ``swap_us`` the boundary (resolve and commit, or the
     synchronous swap), ``phase_b_us`` the queueing of the update and of the
     next dispatch. (The reference's obs histograms wait for ROADMAP Queue A
     item 10.)"""
@@ -72,12 +74,18 @@ class SwapStats:
 
     @property
     def predicted_hit_rate(self) -> float:
+        return (self.predicted_hits / self.boundaries if self.boundaries
+                else 1.0)
+
+    @property
+    def dispatched_hit_rate(self) -> float:
         predicted = self.predicted_hits + self.mispredicts
         return self.predicted_hits / predicted if predicted else 1.0
 
     def as_dict(self) -> dict:
         return {**dataclasses.asdict(self),
-                "predicted_hit_rate": self.predicted_hit_rate}
+                "predicted_hit_rate": self.predicted_hit_rate,
+                "dispatched_hit_rate": self.dispatched_hit_rate}
 
 
 def _mask(num_blocks: int, indices: np.ndarray) -> np.ndarray:
@@ -173,10 +181,6 @@ class SwapPlanner:
         nothing is lost (staged rows can be made again, predicted
         writebacks are inert)."""
         self._take_pending()
-
-    def close(self) -> None:
-        self.quiesce()
-        self._stream = None
 
     def _take_pending(self):
         job, self._pending = self._pending, None

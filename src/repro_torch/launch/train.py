@@ -12,9 +12,10 @@ On the CPU, through the plain PyTorch versions of the kernels:
 Banked moment residency (paper §3.3): ``--moment-residency banked`` with
 ``--offload host`` (the full store in pinned host RAM) or ``--offload
 none`` (the store on the card), and ``--async-swap on|off`` (the predicted
-boundary queued on a copy stream, or every boundary synchronous). The run
-then prints the optimizer state's bytes on the card and on the host, and
-the swap statistics.
+boundary queued on a copy stream, or, the default, every boundary
+synchronous). The run then prints the optimizer state's bytes on the card
+and on the host, and the swap statistics; on the card also the peak
+device memory.
 
 Flags of the reference whose feature is not ported raise
 ``NotImplementedError`` naming its ROADMAP Queue A item: ``--method lora``
@@ -60,7 +61,7 @@ def main(argv=None):
                     choices=["none", "host", "zero1"])
     ap.add_argument("--moment-residency", default="device",
                     choices=["device", "banked"])
-    ap.add_argument("--async-swap", default="on", choices=["on", "off"])
+    ap.add_argument("--async-swap", default="off", choices=["on", "off"])
     ap.add_argument("--mesh", default=None,
                     choices=[None, "single", "multi", "tiny", "data"])
     ap.add_argument("--checkpoint-dir", default="")
@@ -136,6 +137,9 @@ def main(argv=None):
     print(f"final loss: {log.losses[-1]:.4f}  "
           f"mean step time: {np.mean(log.step_times[3:]):.3f}s")
     print("kernel launches:", json.dumps(ops.LAUNCHES))
+    if dev.type == "cuda":
+        print(f"peak device memory: "
+              f"{torch.cuda.max_memory_allocated(dev) / (1 << 30):.2f} GiB")
     stats = getattr(trainer.step_fn, "swap_stats", None)
     if stats is not None:
         print("swap stats:", json.dumps(stats.as_dict()))

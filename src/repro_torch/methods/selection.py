@@ -18,11 +18,13 @@ Two moment residencies (``opt_cfg.moment_residency``):
   design pays, as the reference does, since the boundary is planned on the
   host; then the boundary moves evicted and admitted blocks' moments
   between store and banks; phase B steps the bank rows
-  (``ops.banked_masked_adamw``). Under ``opt_cfg.async_swap`` a
-  ``core.swap.SwapPlanner`` queues the predicted next boundary's copies on
-  a copy stream while the card computes, and its predicted indices come
-  back in the same host read; an exact prediction leaves only the bank
-  commit on the critical path, a miss falls back to the synchronous swap
+  (``ops.banked_masked_adamw``). The synchronous boundary queues its
+  copies on the current stream without blocking the host. Under
+  ``opt_cfg.async_swap`` (off by default) a ``core.swap.SwapPlanner``
+  instead queues the predicted next boundary's copies on a copy stream
+  while the card computes, and its predicted indices come back in the same
+  host read; an exact prediction leaves only the bank commit on the
+  critical path, a miss falls back to the synchronous swap
   (``step_fn.swap_stats``).
 
 Not ported here, and raising: ``offload="zero1"`` and any offload under

@@ -152,8 +152,9 @@ def test_training_features_not_ported_raise(call, item):
 def test_banked_launcher_runs_on_cpu(offload, capsys):
     assert launch_train.main(["--arch", "qwen2.5-0.5b", "--smoke",
                               "--device", "cpu", "--moment-residency",
-                              "banked", "--offload", offload, "--steps", "4",
-                              "--seq-len", "48", "--global-batch", "2"]) == 0
+                              "banked", "--offload", offload, "--async-swap",
+                              "on", "--steps", "4", "--seq-len", "48",
+                              "--global-batch", "2"]) == 0
     out = capsys.readouterr().out
     assert "final loss" in out and "resident moment bytes" in out
     assert '"dispatches": 4' in out
