@@ -6,7 +6,8 @@
 Phases, each of which makes the run exit non-zero if it fails:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build every CUDA source of the port with ``nvcc`` and time it;
+2. build every CUDA source of the port with ``nvcc``, one process per
+   source, all started together, and time it;
 3. each kernel against its plain PyTorch version on the card, on the same
    inputs: the paged decode attention kernel (CUDA) on scrambled page
    tables with sentinel entries and mixed ``valid_len``, with the
@@ -36,9 +37,11 @@ Phases, each of which makes the run exit non-zero if it fails:
 7. training at full width: the port's ``Trainer`` on qwen2.5-0.5b in bf16,
    adagradselect, dense residency, global batch 8 x 512 tokens, 10 steps;
    median step time after 2 warm-up steps, tokens/s, peak device memory,
-   launches per step of every kernel (checked against the path's counts),
-   k = 5 of 26 blocks selected at every step, finite losses, the AdamW
-   counts equal to the summed masks, and a profiled repeat;
+   launches per step of every kernel (checked against the path's counts,
+   the flash kernels 48 forward, 24 dq and 24 dk/dv: ``remat="full"``
+   runs each layer's forward twice), k = 5 of 26 blocks selected at every
+   step, finite losses, the AdamW counts equal to the summed masks, and a
+   profiled repeat;
 8. training consistency in f32 (TF32 off): topk_grad at full width with 2
    layers, global batch 2 x 64, 3 steps, on the card (kernels) and on the
    CPU (plain versions) from the same state: losses within 1e-4 relative,
@@ -66,7 +69,29 @@ Phases, each of which makes the run exit non-zero if it fails:
    embedding and later evict it: equal masks, losses within 1e-4 relative,
    each leaf of params, m and v within 1e-5 of its largest magnitude, no
    mispredict (every boundary but the unpredicted first hits); (b)
-   ``topk_grad`` banked async on the card against banked on the CPU.
+   ``topk_grad`` banked async on the card against banked on the CPU;
+12. the flash attention kernels (CUDA; forward, dq, dk/dv) against their
+   plain versions, f32 and bf16: causal and segmented at the training shape
+   (B 8, S 512, 16 q heads on 2 kv heads through the qwen2.5-0.5b head map,
+   D 64; the segment ids of a real ``pack_batch``), a ragged S of 300 and
+   head dim 128; o, lse, dq, dk and dv within the tolerance on inputs
+   whose rows are large beside it, dk and dv bit-identical over two
+   launches; times as in phase 3 beside each kernel's bound (operations
+   over the dtype's peak, or bytes), the plain versions' and
+   ``scaled_dot_product_attention``'s (causal, or with a boolean
+   block-diagonal mask) forward and backward (timed only);
+13. packed SFT training at full width: phase 7's run on the packed
+   synthetic records (``make_source("packed_math")``, 8 x 512 tokens, ~12
+   records a row), 10 steps; tokens/s, non-pad tokens and records a step,
+   peak device memory, launches per step as in phase 7, k = 5 blocks a
+   step, finite losses, and a profile of 2 steps with the flash kernels'
+   share of device time and the idle share;
+14. packed consistency in f32 (TF32 off), 2 layers at full width: (a) on
+   the card, a packed 2 x 512 batch's loss and gradients equal the
+   unpacked oracle's (the same records one a row), loss 1e-5 relative and
+   each gradient leaf within 1e-5 of its largest magnitude; (b) 3 packed
+   ``topk_grad`` steps on the card and on the CPU from one state, as
+   phase 8 holds them.
 
 Then it prints the kernel summary as one JSON line and, last, the device
 line ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
@@ -103,6 +128,7 @@ TRAIN_SEL_ROWS = (1, 6, 11, 16, 21)  # 5 of 24 rows selected
 TRAIN = dict(global_batch=8, seq_len=512, steps=10, warmup=2)
 BANK_SLOTS = (16, 3, 24, 9, 21)      # 4 rows out of order, a free slot (24)
 BANK_SEL = (1.0, 1.0, 0.0, 0.0, 1.0)  # row 9 held but unselected
+FLASH_NAMES = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
 
 
 class PhaseFailed(RuntimeError):
@@ -168,10 +194,14 @@ def phase_card() -> str:
 
 
 def phase_build(_build) -> None:
+    """One nvcc per CUDA source, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
-    libs = [_build.build(name).name for name in _build.sources()]
+    names = _build.sources()
+    with ThreadPoolExecutor(len(names)) as pool:
+        libs = [p.name for p in pool.map(_build.build, names)]
     dt = time.perf_counter() - t0
-    print(f"build: nvcc {dt:.2f} s for {libs} (sm_90a)")
+    print(f"build: nvcc {dt:.2f} s for {libs} (sm_90a, in parallel)")
     for name, log in _build.BUILD_LOG.items():
         for ln in log.splitlines():
             if "registers" in ln or "spill" in ln:
@@ -600,6 +630,14 @@ def _train_cfg(cfg, method, steps, global_batch, seq_len, log_every=1,
         log_every=log_every)
 
 
+def _flash_per_step(nl: int) -> dict:
+    """Flash launches of one training step: each layer's forward runs
+    twice (``remat="full"`` recomputes it in the backward), its backward
+    once."""
+    return {"flash_attention_fwd": 2 * nl, "flash_attention_bwd_dq": nl,
+            "flash_attention_bwd_dkv": nl}
+
+
 def phase_training(torch, ops, cfg, Trainer) -> dict:
     steps, warm = TRAIN["steps"], TRAIN["warmup"]
     tcfg = _train_cfg(cfg, "adagradselect", steps, TRAIN["global_batch"],
@@ -636,7 +674,8 @@ def phase_training(torch, ops, cfg, Trainer) -> dict:
             "masked_adamw": 12, "banked_masked_adamw": 0,
             # forward, and the recompute of each layer's two norms
             # (remat="full"), then the backward of every norm
-            "rmsnorm": 2 * nl + 1 + 2 * nl, "rmsnorm_bwd": 2 * nl + 1}
+            "rmsnorm": 2 * nl + 1 + 2 * nl, "rmsnorm_bwd": 2 * nl + 1,
+            **_flash_per_step(nl)}
     check(per_step == want, f"launches per step {per_step} != the path's "
           f"{want}")
     times = log.step_times[warm:]
@@ -678,14 +717,19 @@ def _profile_training(torch, tr) -> None:
         print(f"    {e.device_time_total / 1e3:9.2f} ms {e.count:7d}x  "
               f"{e.key[:90]}")
     ours = {}
-    for e in events:   # the port's Triton kernels, by their function names
+    for e in events:   # the port's kernels, by their function names
         for fn in ("_rmsnorm_fwd", "_rmsnorm_bwd", "_col_sums", "_partials",
                    "_row_sums", "_masked_adamw", "_banked_masked_adamw"):
-            if e.key.startswith(fn):
+            if e.key.startswith(fn):      # Triton: the name comes first
                 ours[fn] = ours.get(fn, 0.0) + e.device_time_total / 1e3
+        for fn in FLASH_NAMES:            # CUDA C++: inside the signature
+            if fn in e.key:
+                ours[fn] = ours.get(fn, 0.0) + e.device_time_total / 1e3
+    flash = sum(ours.get(fn, 0.0) for fn in FLASH_NAMES)
     print(f"  the port's kernels in that profile (ms): "
           f"{json.dumps({k: round(v, 3) for k, v in ours.items()})}, "
-          f"{sum(ours.values()) / (busy_us / 1e3):.3f} of device time")
+          f"{sum(ours.values()) / (busy_us / 1e3):.3f} of device time; the "
+          f"flash kernels {flash:.3f} ms = {flash / (busy_us / 1e3):.3f}")
 
 
 def _to(tree, device):
@@ -719,7 +763,8 @@ def phase_train_consistency(torch, ops, cfg, Trainer) -> None:
     launches = dict(ops.LAUNCHES)
     check(all(launches[n] > 0 for n in ("rmsnorm", "rmsnorm_bwd",
                                         "block_grad_sq_norms",
-                                        "masked_adamw")),
+                                        "masked_adamw",
+                                        *_flash_per_step(1))),
           f"a training kernel did not run on the card: {launches}")
     worst = 0.0
     pc, ph = card.state["params"], cpu.state["params"]
@@ -924,7 +969,8 @@ def phase_banked_training(torch, ops, cfg, Trainer, dense) -> dict:
         per_step = {name: c / n for name, c in launches.items()}
         want = {"paged_decode_attention": 0, "block_grad_sq_norms": 12,
                 "masked_adamw": 0, "banked_masked_adamw": 12,
-                "rmsnorm": 2 * nl + 1 + 2 * nl, "rmsnorm_bwd": 2 * nl + 1}
+                "rmsnorm": 2 * nl + 1 + 2 * nl, "rmsnorm_bwd": 2 * nl + 1,
+                **_flash_per_step(nl)}
         check(per_step == want, f"launches per step {per_step} != the "
               f"banked path's {want}")
         counts = opt["counts"]
@@ -1145,6 +1191,310 @@ def phase_banked_consistency(torch, ops, cfg, Trainer) -> None:
           f"{json.dumps(card.step_fn.swap_stats.as_dict())}")
 
 
+# ------------------------------------------------------ flash attention
+
+
+def _packed_segments(b, s, seed=0):
+    """The segment ids of a real packed batch of b x s tokens."""
+    from repro_torch.data.pipeline import SyntheticMathRecords, packing
+    from repro_torch.data.synthetic import MathTaskConfig
+    src = SyntheticMathRecords(MathTaskConfig(seq_len=s, seed=seed))
+    batch, _ = packing.pack_batch(src, 0, b, s)
+    return batch["segment_ids"]
+
+
+def _flash_case(torch, dtype, b, s, d, segmented, seed=0):
+    """qwen2.5-0.5b's head map (16 q heads, 7 on kv head 0, 9 on kv head
+    1: the two padded ones clamp onto the last); N(0, 1) k, v and do; in
+    bf16 q = 3 N(0, 1), a peaked softmax whose outputs stay large beside
+    the 2e-2 tolerance, in f32 q = N(0, 1), where f32 roundoff stays well
+    inside 1e-5 (at q = 3 N(0, 1) the plain version's own dk/dv differ
+    from an f64 evaluation by more than 1e-5)."""
+    h, kvh = 16, 2
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dt = getattr(torch, dtype)
+
+    def rnd(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=g,
+                                    device="cuda")).to(dt)
+    q = rnd(b, s, h, d, scale=3.0 if dtype == "bfloat16" else 1.0)
+    k, v, do = rnd(b, s, kvh, d), rnd(b, s, kvh, d), rnd(b, s, h, d)
+    hmap = torch.tensor([min(i // 7, kvh - 1) for i in range(h)],
+                        dtype=torch.int32, device="cuda")
+    seg = (torch.as_tensor(_packed_segments(b, s), device="cuda")
+           if segmented else None)
+    return q, k, v, do, hmap, seg
+
+
+def _flash_work(torch, q, k, seg):
+    """(pairs, bytes of q, of k): the (query, key) pairs that attend (causal,
+    and within a segment), summed over the rows, and one operand's bytes."""
+    b, s = q.shape[:2]
+    pos = torch.arange(s, device="cuda")
+    ok = (pos[:, None] >= pos[None, :])[None]
+    if seg is not None:
+        ok = ok & (seg[:, :, None] == seg[:, None, :])
+    pairs = int(ok.expand(b, s, s).sum().item())
+    return pairs, q.numel() * q.element_size(), k.numel() * k.element_size()
+
+
+def phase_flash_kernels(torch, ops, ref, _fa, timer) -> dict:
+    """Rows 4-6 against their plain versions; returns the summary entries
+    at the packed training shape (bf16)."""
+    F = torch.nn.functional
+    cases = [("train causal", 8, 512, 64, False),
+             ("train packed", 8, 512, 64, True),
+             ("ragged S=300", 2, 300, 64, True),
+             ("D=128", 2, 512, 128, True)]
+    rows, main = [], {}
+    for dtype in ("bfloat16", "float32"):
+        for label, b, s, d, segmented in cases:
+            q, k, v, do, hm, seg = _flash_case(torch, dtype, b, s, d,
+                                               segmented)
+            n0 = dict(ops.LAUNCHES)
+            o, lse = ops.flash_attention_fwd(q, k, v, hm, segment_ids=seg)
+            dq, dk, dv = ops.flash_attention_bwd(q, k, v, o, lse, do, hm,
+                                                 segment_ids=seg)
+            _, dk2, dv2 = ops.flash_attention_bwd(q, k, v, o, lse, do, hm,
+                                                  segment_ids=seg)
+            torch.cuda.synchronize()
+            check(all(ops.LAUNCHES[n] - n0[n] == w for n, w in (
+                ("flash_attention_fwd", 1), ("flash_attention_bwd_dq", 2),
+                ("flash_attention_bwd_dkv", 2))),
+                "the flash wrappers did not count their launches")
+            check(_bits_equal(torch, dk, dk2) and _bits_equal(torch, dv, dv2),
+                  f"flash {label} {dtype}: dk/dv differ between two launches")
+            po, plse = ref.flash_attention_fwd(q, k, v, hm, seg)
+            pq, pk, pv = ref.flash_attention_bwd(q, k, v, o, lse, do, hm, seg)
+            what = f"flash {label}"
+            errs = {"o": _check_close(torch, o, po, dtype, f"{what} o"),
+                    "lse": _check_close(torch, lse, plse, "float32",
+                                        f"{what} lse ({dtype} inputs)")}
+            for name, got, want in (("dq", dq, pq), ("dk", dk, pk),
+                                    ("dv", dv, pv)):
+                errs[name] = _check_close(torch, got, want, dtype,
+                                          f"{what} {name}")
+            if label.startswith("train"):
+                rows += _flash_times(torch, F, ref, _fa, timer, dtype, label,
+                                     q, k, v, do, o, lse, hm, seg, errs)
+                if label == "train packed" and dtype == "bfloat16":
+                    main.update({r["kernel"]: r for r in rows[-3:]})
+            print(f"  flash {label:<13} {dtype:<9} B={b} S={s} H=16 KVH=2 "
+                  f"D={d}{' segmented' if segmented else ' causal'}: max "
+                  f"|err| " + ", ".join(f"{n} {e:.2e}"
+                                        for n, e in errs.items())
+                  + f" (rtol=atol {TOL[dtype]:.0e}); dk/dv bit-identical "
+                  f"over two launches")
+            del q, k, v, do, o, lse, dq, dk, dv, dk2, dv2, po, pq, pk, pv
+    print("flash kernels at the training shape (CUDA events, L2 flushed, ms "
+          "per call):")
+    for r in rows:
+        print(f"  {r['kernel']:<24} {r['case']:<12} {r['dtype']:<9} "
+              f"err {r['max_abs_err']:.2e}  kernel {r['ms']:.4f}  plain "
+              f"{r['plain_ms']:.4f}  library {r['library_ms']:.4f}  bound "
+              f"{r['bound_ms']:.5f} ({r['bound_by']})  {r['shape']}")
+    print("  plain ms of dq and dk/dv: the plain backward, which computes "
+          "dq, dk and dv at once (delta included); library: "
+          "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True), "
+          "with a boolean causal block-diagonal mask when segmented, and "
+          "its autograd backward for both dq and dk/dv (timed only)")
+    return main
+
+
+def _flash_times(torch, F, ref, _fa, timer, dtype, label, q, k, v, do, o,
+                 lse, hm, seg, errs) -> list:
+    pairs, q_bytes, kv_bytes = _flash_work(torch, q, k, seg)
+    b, s, h, d = q.shape
+    lse_b = b * h * s * 4                     # lse, and delta alike
+    idx = (0 if seg is None else b * s * 4) + h * 4
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    o2, lse2 = torch.empty_like(o), torch.empty_like(lse)
+    # the library call: SDPA in its [B, H, S, D] layout (its GQA map is
+    # h // 8, not the port's, which moves no work), timed only
+    ql, kl, vl, dol = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    mask = None
+    if seg is not None:
+        pos = torch.arange(s, device="cuda")
+        mask = ((pos[:, None] >= pos[None, :])[None]
+                & (seg[:, :, None] == seg[:, None, :]))[:, None]
+    qg, kg, vg = (t.clone().requires_grad_() for t in (ql, kl, vl))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            qg, kg, vg, attn_mask=mask, is_causal=mask is None,
+            enable_gqa=True)
+    out_l = sdpa()
+    lib_fwd = timer.ms(lambda: sdpa().detach(), reps=10)
+    lib_bwd = timer.ms(lambda: torch.autograd.grad(
+        out_l, (qg, kg, vg), dol, retain_graph=True), reps=10)
+    plain_fwd = timer.ms(lambda: ref.flash_attention_fwd(q, k, v, hm, seg),
+                         reps=5)
+    plain_bwd = timer.ms(lambda: ref.flash_attention_bwd(
+        q, k, v, o, lse, do, hm, seg), reps=5)
+    shape = (f"B={b} S={s} H={h} KVH={k.shape[2]} D={d}, {pairs} attending "
+             f"pairs")
+    out = []
+    for kernel, fn, n_mm, nbytes, err, plain, lib in (
+            ("flash_attention_fwd",
+             lambda: _fa.launch_fwd(q, k, v, seg, hm, True, o2, lse2),
+             2, 2 * q_bytes + 2 * kv_bytes + lse_b + idx,
+             max(errs["o"], errs["lse"]), plain_fwd, lib_fwd),
+            ("flash_attention_bwd_dq",
+             lambda: _fa.launch_bwd_dq(q, k, v, do, lse, delta, seg, hm,
+                                       True, dq),
+             3, 3 * q_bytes + 2 * kv_bytes + 2 * lse_b + idx, errs["dq"],
+             plain_bwd,
+             lib_bwd),
+            ("flash_attention_bwd_dkv",
+             lambda: _fa.launch_bwd_dkv(q, k, v, do, lse, delta, seg, hm,
+                                        True, dk, dv),
+             4, 2 * q_bytes + 4 * kv_bytes + 2 * lse_b + idx,
+             max(errs["dk"], errs["dv"]), plain_bwd, lib_bwd)):
+        # each matrix product of the kernel: 2 D flops per attending pair
+        # and q head
+        bms, by = bound_ms(nbytes, n_mm * 2 * d * h * pairs, dtype)
+        out.append(dict(kernel=kernel, case=label.split()[1], dtype=dtype,
+                        shape=shape, max_abs_err=err, tol=TOL[dtype],
+                        ms=timer.ms(fn), plain_ms=plain, library_ms=lib,
+                        bound_ms=bms, bound_by=by))
+    return out
+
+
+def phase_packed_training(torch, ops, cfg, Trainer, loader, dense) -> dict:
+    """Phase 7's run on the packed synthetic records."""
+    steps, warm = TRAIN["steps"], TRAIN["warmup"]
+    gb, sl = TRAIN["global_batch"], TRAIN["seq_len"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    tcfg = _train_cfg(cfg, "adagradselect", steps, gb, sl)
+    data = loader.make_source("packed_math", seq_len=sl, global_batch=gb,
+                              seed=tcfg.seed)
+    tr = Trainer(tcfg, data_source=data, device="cuda")
+    k = tr.sel_cfg.num_selected(cfg.num_blocks)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()                     # the main path's run
+    for _ in range(steps):
+        tr.train(1)
+    launches = dict(ops.LAUNCHES)
+    log = tr.log
+    peak = torch.cuda.max_memory_allocated()
+    check(len(log.losses) == steps and all(math.isfinite(x)
+                                           for x in log.losses),
+          f"losses {log.losses}")
+    n_sel = [mt["num_selected"] for mt in log.metrics]
+    check(n_sel == [k] * steps, f"num_selected per step {n_sel}, want {k}")
+    per_step = {name: n / steps for name, n in launches.items()}
+    nl = cfg.num_layers
+    want = {"paged_decode_attention": 0, "block_grad_sq_norms": 12,
+            "masked_adamw": 12, "banked_masked_adamw": 0,
+            "rmsnorm": 4 * nl + 1, "rmsnorm_bwd": 2 * nl + 1,
+            **_flash_per_step(nl)}
+    check(per_step == want, f"launches per step {per_step} != the packed "
+          f"path's {want}")
+    check(data.cursor()["record"] == sum(log.records),
+          f"cursor {data.cursor()} != {sum(log.records)} records trained")
+    med = statistics.median(log.step_times[warm:])
+    tokens = gb * sl
+    real = statistics.mean(log.real_tokens)
+    recs = statistics.mean(log.records)
+    print(f"packed training {cfg.name} ({cfg.dtype}): adagradselect, k = "
+          f"{k}, packed synthetic records, batch {gb} x {sl}, {steps} steps")
+    print(f"  losses: {[round(x, 4) for x in log.losses]}")
+    print(f"  step time (median of steps {warm}..{steps - 1}): "
+          f"{med * 1e3:.2f} ms = {tokens / med:.0f} tokens/s, "
+          f"{real / med:.0f} non-pad tokens/s; {real:.1f} non-pad tokens "
+          f"({real / tokens:.3f}) and {recs:.1f} records a step (unpacked, "
+          f"phase 7: {dense['step_ms']:.2f} ms for {gb} records); all steps "
+          f"(ms): {[round(t * 1e3, 2) for t in log.step_times]}")
+    print(f"  peak device memory: {peak / 2**30:.2f} GiB (phase 7: "
+          f"{dense['peak'] / 2**30:.2f} GiB)")
+    print(f"  launches per step: {json.dumps(per_step)}")
+    _profile_training(torch, tr)
+    return {"launches": launches}
+
+
+def phase_packed_consistency(torch, ops, cfg, Trainer, loader, lm,
+                             step) -> None:
+    from repro_torch.data.pipeline import SyntheticMathRecords, packing
+    from repro_torch.data.synthetic import MathTaskConfig
+    cfg = cfg.replace(dtype="float32", num_layers=2)
+    # (a) packed = unpacked oracle on the card
+    params = lm.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                     device="cuda")
+    src = SyntheticMathRecords(MathTaskConfig(seq_len=512))
+    packed, n = packing.pack_batch(src, 0, 2, 512)
+    unpacked, _ = packing.unpacked_batch(src, 0, n, 64)
+
+    def run(batch):
+        dev = {key: torch.as_tensor(a, device="cuda")
+               for key, a in batch.items()}
+        (loss, _), grads = step.value_and_grad(
+            lambda p, mb: step.model_loss(cfg, p, mb), params, dev)
+        return loss.item(), grads
+    ops.reset_launches()
+    lp, gp = run(packed)
+    lu, gu = run(unpacked)
+    launches = dict(ops.LAUNCHES)
+    check(all(launches[name] > 0 for name in _flash_per_step(1)),
+          f"(a): the flash kernels did not run: {launches}")
+    check(abs(lp - lu) <= 1e-5 * abs(lu), f"(a): packed loss {lp} != "
+          f"unpacked {lu}")
+    worst = 0.0
+    for a, b in zip(_leaves(gp), _leaves(gu)):
+        err = (a - b).abs().max().item()
+        scale = b.abs().max().item()
+        worst = max(worst, err / scale if scale else err)
+        check(err <= 1e-5 * scale, f"(a): gradient leaf {tuple(b.shape)} "
+              f"differs by {err} > 1e-5 x {scale}")
+    print(f"packed consistency (a) (f32, TF32 off, {cfg.num_layers} layers "
+          f"at full width, on the card): a 2 x 512 packed batch of {n} "
+          f"records against the same records one a row (x 64): loss "
+          f"{lp:.6f} vs {lu:.6f} (rel err {abs(lp - lu) / abs(lu):.2e}, "
+          f"limit 1e-5); gradients per leaf max |err| / max |unpacked| "
+          f"{worst:.3g} (limit 1e-5)")
+    del params, gp, gu
+    # (b) packed topk_grad steps, card against CPU
+    steps, lr = 3, 1e-3
+    tcfg = _train_cfg(cfg, "topk_grad", steps, 2, 128, lr=lr,
+                      schedule="constant", warmup_steps=0)
+
+    def pipe():
+        return loader.make_source("packed_math", seq_len=128, global_batch=2,
+                                  seed=tcfg.seed)
+    card = Trainer(tcfg, data_source=pipe(), device="cuda")
+    cpu = Trainer(tcfg, data_source=pipe(), device="cpu")
+    cpu.state = _to(card.state, "cpu")
+    ops.reset_launches()
+    for i in range(steps):
+        card.train(1)
+        cpu.train(1)
+        lc, lh = card.log.losses[-1], cpu.log.losses[-1]
+        check(abs(lc - lh) <= 1e-4 * abs(lh),
+              f"(b) step {i}: loss card {lc} vs cpu {lh}")
+        mc = card.state["sel"]["mask"].cpu()
+        check(torch.equal(mc, cpu.state["sel"]["mask"]),
+              f"(b) step {i}: masks differ: card {mc.int().tolist()} cpu "
+              f"{cpu.state['sel']['mask'].int().tolist()}")
+    launches = dict(ops.LAUNCHES)
+    check(all(launches[name] > 0 for name in _flash_per_step(1)),
+          f"(b): the flash kernels did not run on the card: {launches}")
+    worst = max((a.cpu() - b).abs().max().item() for a, b in
+                zip(_leaves(card.state["params"]),
+                    _leaves(cpu.state["params"])))
+    limit = 2 * lr * steps
+    check(worst <= limit, f"(b): params differ by {worst} > {limit}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card.log.losses,
+                                                   cpu.log.losses))
+    print(f"packed consistency (b) ({steps} packed topk_grad steps, batch 2 "
+          f"x 128 ({card.log.records} records), card vs CPU): losses "
+          f"{[round(x, 6) for x in card.log.losses]}, max rel err "
+          f"{rel:.2e} (limit 1e-4); masks equal at every step; params max "
+          f"|err| {worst:.3g} (limit {limit:g}); card launches "
+          f"{json.dumps(launches)}")
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -1160,9 +1510,12 @@ def main() -> int:
         return 2
     try:
         from repro_torch.configs import get_config
+        from repro_torch.data import loader
         from repro_torch.kernels import _build, ops, ref
+        from repro_torch.kernels import flash_attention as _fa
         from repro_torch.models import lm
         from repro_torch.serve import Request, ServeConfig, ServeEngine
+        from repro_torch.train import step
         from repro_torch.train.trainer import Trainer
     except ImportError as e:
         print(f"chip_smoke: the repro_torch package is not beside this "
@@ -1197,6 +1550,14 @@ def main() -> int:
         banked = phase_banked_training(torch, ops, cfg, Trainer, training)
         phase = "banked consistency"
         phase_banked_consistency(torch, ops, cfg, Trainer)
+        phase = "flash kernels"
+        main_rows.update(phase_flash_kernels(torch, ops, ref, _fa,
+                                             Timer(torch)))
+        phase = "packed training"
+        packed = phase_packed_training(torch, ops, cfg, Trainer, loader,
+                                       training)
+        phase = "packed consistency"
+        phase_packed_consistency(torch, ops, cfg, Trainer, loader, lm, step)
     except Exception:   # the boundary: report the failed phase, exit non-zero
         traceback.print_exc()
         print(f"chip_smoke: phase {phase!r} FAILED", file=sys.stderr)
@@ -1218,14 +1579,28 @@ def main() -> int:
         "banked_masked_adamw": (
             "triton", "src/repro_torch/kernels/masked_adamw.py",
             "src/repro/kernels/masked_adamw.py:80")}
+    flash_src = "src/repro_torch/csrc/flash_attention.cu"
+    sources.update({
+        "flash_attention_fwd": ("cuda", flash_src,
+                                "src/repro/kernels/flash_attention.py:33"),
+        "flash_attention_bwd_dq": ("cuda", flash_src,
+                                   "src/repro/kernels/flash_attention.py:117"),
+        "flash_attention_bwd_dkv": (
+            "cuda", flash_src, "src/repro/kernels/flash_attention.py:154")})
     kernels = []
     for name, (route, source, replaces) in sources.items():
         r = main_rows[name]
         # launches of the main-path runs: serving (phase 4) + training (7),
-        # and the banked training window (phase 10) for the banked kernel
-        launches = (banked["launches"][name] if name == "banked_masked_adamw"
-                    else serving["launches"][name]
-                    + training["launches"][name])
+        # the banked training window (phase 10) for the banked kernel, and
+        # training (7), banked training (10) and packed training (13) for
+        # the flash kernels
+        if name == "banked_masked_adamw":
+            launches = banked["launches"][name]
+        elif name.startswith("flash"):
+            launches = (training["launches"][name]
+                        + banked["launches"][name] + packed["launches"][name])
+        else:
+            launches = serving["launches"][name] + training["launches"][name]
         kernels.append(dict(
             name=name, route=route, source=source, replaces=replaces,
             launches=launches, max_abs_err=r["max_abs_err"],

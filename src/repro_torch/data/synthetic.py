@@ -1,6 +1,7 @@
 """Synthetic math-reasoning dataset — the offline proxy for MetaMathQA-40K
-(a copy of the training half of the JAX package's ``data/synthetic.py``;
-the eval helpers follow with ROADMAP Queue A item 5).
+(a copy of the JAX package's ``data/synthetic.py`` without its answer
+parsers ``answer_of``/``decode_answer``, which follow with the greedy eval,
+ROADMAP Queue A item 5).
 
 Problems are multi-digit additions with a column-by-column chain-of-thought
 and a final answer, emitted as token sequences with a loss mask covering only
@@ -26,6 +27,11 @@ class MathTaskConfig:
     seq_len: int = 64
     seed: int = 1234
     eval_offset: int = 1 << 30  # index offset separating train/eval streams
+
+
+def prompt_len(cfg: MathTaskConfig) -> int:
+    # BOS a_digits + b_digits =
+    return 1 + cfg.digits + 1 + cfg.digits + 1
 
 
 def _digits_of(x: int, width: int) -> list[int]:

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import block_grad_norm as _bgn
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import masked_adamw as _ma
 from repro_torch.kernels import paged_decode_attention as _pda
 from repro_torch.kernels import ref
@@ -22,7 +23,8 @@ from repro_torch.kernels import rmsnorm as _rn
 
 LAUNCHES = {"paged_decode_attention": 0, "rmsnorm": 0, "rmsnorm_bwd": 0,
             "block_grad_sq_norms": 0, "masked_adamw": 0,
-            "banked_masked_adamw": 0}
+            "banked_masked_adamw": 0, "flash_attention_fwd": 0,
+            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
 _FLOATS = (torch.float32, torch.bfloat16)
 
 
@@ -275,3 +277,122 @@ def banked_masked_adamw(p, g, m, v, slots, sel, counts, lr, b1, b2, eps,
                       wd)
     LAUNCHES[name] += 1
     return p, m, v
+
+
+def _check_flash(name, q, k, v, hmap, segment_ids, *more):
+    """What the flash kernels take: q [B, S, H, D], k/v [B, S, KVH, D] of
+    one float dtype, head dim 64 or 128, int32 hmap [H] and segment ids
+    [B, S], contiguous and 16-byte aligned, the grid in range."""
+    b, s, h, d = q.shape
+    if q.dtype not in _FLOATS or k.dtype != q.dtype or v.dtype != q.dtype:
+        _fail(name, f"q, k, v must share a dtype of float32 or bfloat16, "
+              f"got {q.dtype}/{k.dtype}/{v.dtype}")
+    if k.ndim != 4 or k.shape[:2] != (b, s) or k.shape[3] != d \
+            or v.shape != k.shape:
+        _fail(name, f"k and v must be [B={b}, S={s}, KVH, D={d}], got "
+              f"{tuple(k.shape)} and {tuple(v.shape)}")
+    if d not in _fa.HEAD_DIMS:
+        _fail(name, f"the kernels take head dim {_fa.HEAD_DIMS}, got {d}")
+    if hmap.shape != (h,) or hmap.dtype != torch.int32:
+        _fail(name, f"hmap must be int32 [H={h}], got {hmap.dtype} "
+              f"{tuple(hmap.shape)}")
+    if segment_ids is not None and (segment_ids.shape != (b, s)
+                                    or segment_ids.dtype != torch.int32):
+        _fail(name, f"segment_ids must be int32 [B={b}, S={s}], got "
+              f"{segment_ids.dtype} {tuple(segment_ids.shape)}")
+    for t in (q, k, v, hmap, segment_ids, *more):
+        if t is not None and not t.is_contiguous():
+            _fail(name, "every operand must be contiguous")
+        if t is not None and t.data_ptr() % 16:
+            _fail(name, "every operand must be 16-byte aligned")
+    if not (s > 0 and 0 < b * h <= 65535 and b * k.shape[2] <= 65535):
+        _fail(name, f"grid out of range (B={b}, S={s}, H={h})")
+
+
+def flash_attention_fwd(q, k, v, hmap, *, causal=True, segment_ids=None):
+    """q: [B, S, H, D]; k, v: [B, S, KVH, D] (not head-expanded); hmap: [H]
+    int32 q-head -> kv-head map; segment_ids: optional [B, S] int32 (0 =
+    pad) -> (o [B, S, H, D] in the dtype of q, lse [B, H, S] f32). One
+    launch of the forward kernel (row 4)."""
+    name = "flash_attention_fwd"
+    ids = () if segment_ids is None else (segment_ids,)
+    if not _on_card(name, q, k, v, hmap, *ids):
+        return ref.flash_attention_fwd(q, k, v, hmap, segment_ids, causal)
+    _check_flash(name, q, k, v, hmap, segment_ids)
+    _fa.load()
+    b, s, h, _ = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    _fa.launch_fwd(q, k, v, segment_ids, hmap, causal, o, lse)
+    LAUNCHES[name] += 1
+    return o, lse
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, hmap, *, causal=True,
+                        segment_ids=None):
+    """-> (dq, dk, dv) of ``flash_attention_fwd`` for the output gradient
+    do, from its saved (o, lse); dk and dv summed over each kv head's q
+    heads in a fixed order (the same inputs give the same bits). ``delta =
+    rowsum(do * o)`` is a torch reduction; then one launch each of the dq
+    (row 5) and the dk/dv (row 6) kernels."""
+    name = "flash_attention_bwd"
+    ids = () if segment_ids is None else (segment_ids,)
+    if not _on_card(name, q, k, v, o, lse, do, hmap, *ids):
+        return ref.flash_attention_bwd(q, k, v, o, lse, do, hmap,
+                                       segment_ids, causal)
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
+            or do.dtype != q.dtype:
+        _fail(name, f"o and do must be like q {tuple(q.shape)} {q.dtype}, "
+              f"got {tuple(o.shape)} {o.dtype} and {tuple(do.shape)} "
+              f"{do.dtype}")
+    b, s, h, _ = q.shape
+    if lse.shape != (b, h, s) or lse.dtype != torch.float32:
+        _fail(name, f"lse must be float32 [B, H, S] = {(b, h, s)}, got "
+              f"{lse.dtype} {tuple(lse.shape)}")
+    _check_flash(name, q, k, v, hmap, segment_ids, o, lse, do)
+    _fa.load()
+    delta = (do.float() * o.float()).sum(dim=-1).transpose(1, 2) \
+        .contiguous()
+    dq = torch.empty_like(q)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _fa.launch_bwd_dq(q, k, v, do, lse, delta, segment_ids, hmap, causal, dq)
+    LAUNCHES["flash_attention_bwd_dq"] += 1
+    _fa.launch_bwd_dkv(q, k, v, do, lse, delta, segment_ids, hmap, causal,
+                       dk, dv)
+    LAUNCHES["flash_attention_bwd_dkv"] += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward kernel; its backward the dq and dk/dv kernels. Saves q,
+    k, v, o and lse: no head-expanded K/V and no [S, S] scores."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, hmap, segment_ids, causal):
+        o, lse = flash_attention_fwd(q, k, v, hmap, causal=causal,
+                                     segment_ids=segment_ids)
+        ctx.save_for_backward(q, k, v, o, lse, hmap, segment_ids)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, hmap, segment_ids = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, o, lse, do.contiguous(), hmap, causal=ctx.causal,
+            segment_ids=segment_ids)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q, k, v, hmap, *, causal=True, segment_ids=None,
+                    softcap=0.0):
+    """Differentiable flash attention in the layer's layout: q [B, S, H,
+    D]; k, v [B, S, KVH, D] read through the int32 [H] map ``hmap``;
+    ``segment_ids``: optional [B, S] int32 packed segment ids (0 = pad),
+    attention block-diagonal over equal ids -> o [B, S, H, D]. The kernels
+    (rows 4-6) on CUDA tensors, their plain versions on CPU tensors. A
+    logit softcap is not implemented by the kernels and raises."""
+    if softcap:
+        _fail("flash_attention", f"softcap = {softcap}: the kernels "
+              f"implement no logit softcap (0 only)")
+    return _FlashAttention.apply(q, k, v, hmap, segment_ids, causal)

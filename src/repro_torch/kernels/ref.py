@@ -2,7 +2,9 @@
 
 Ports of ``decode_attention``, ``paged_decode_attention``, ``rmsnorm``,
 ``block_grad_sq_norms`` and ``masked_adamw`` from the JAX package's
-``kernels/ref.py``; ``rmsnorm_bwd``, the autograd of ``rmsnorm`` (the
+``kernels/ref.py``; ``flash_attention_fwd`` and ``flash_attention_bwd``,
+the math of the JAX package's flash kernels (``kernels/flash_attention.py``)
+in one tile, on unexpanded K/V; ``rmsnorm_bwd``, the autograd of ``rmsnorm`` (the
 JAX package differentiates its RMSNorm in XLA and has no kernel or oracle
 for it); and ``banked_masked_adamw``, the gather, ``masked_adamw`` and
 scatter that the reference's banked step runs around its kernel. ``ops.py`` takes these for tensors on the CPU; ``chip_smoke.py``
@@ -112,3 +114,63 @@ def banked_masked_adamw(p, g, m, v, slots, sel, counts, lr, b1, b2, eps,
     p_out = p.clone()
     p_out[rows[valid]] = p2[valid]
     return p_out, m2, v2
+
+
+def _flash_mask(s, device, segment_ids, causal):
+    """[B or 1, 1, S, S] bool of the (query, key) pairs that attend."""
+    pos = torch.arange(s, device=device)
+    ok = (pos[:, None] >= pos[None, :]) if causal else \
+        torch.ones(s, s, dtype=torch.bool, device=device)
+    ok = ok[None, None]
+    if segment_ids is not None:
+        ok = ok & (segment_ids[:, None, :, None]
+                   == segment_ids[:, None, None, :])
+    return ok
+
+
+def flash_attention_fwd(q, k, v, hmap, segment_ids=None, causal=True):
+    """q: [B, S, H, D]; k, v: [B, S, KVH, D] (not head-expanded); hmap:
+    [H] int q-head -> kv-head map; segment_ids: optional [B, S] int packed
+    segment ids (0 = pad; attention stays within equal ids). -> (o
+    [B, S, H, D] in the dtype of q, lse [B, H, S] f32). The forward kernel's
+    math in one tile: q scaled before q.k, f32 softmax with masked entries
+    zeroed, ``lse = m + log(max(l, 1e-30))``."""
+    b, s, h, d = q.shape
+    hm = hmap.long()
+    qf = q.float() * (d ** -0.5)
+    kf, vf = k.float()[:, :, hm], v.float()[:, :, hm]
+    ok = _flash_mask(s, q.device, segment_ids, causal)
+    scores = torch.where(ok, torch.einsum("bqhd,bkhd->bhqk", qf, kf),
+                         NEG_INF)
+    m = scores.amax(dim=-1)
+    p = torch.where(ok, torch.exp(scores - m[..., None]), 0.0)
+    lsum = torch.clamp(p.sum(dim=-1), min=1e-30)
+    o = torch.einsum("bhqk,bkhd->bqhd", p, vf) / lsum.transpose(1, 2)[..., None]
+    return o.to(q.dtype), m + torch.log(lsum)
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, hmap, segment_ids=None,
+                        causal=True):
+    """-> (dq [B, S, H, D], dk, dv [B, S, KVH, D]) of ``flash_attention_fwd``
+    for the output gradient do, from its saved (o, lse). The backward
+    kernels' math in one tile: ``delta = rowsum(do * o)``, p = exp(s - lse)
+    with s = (q.k) * scale, ds = p (do.v - delta) scale; dk and dv summed
+    over each kv head's q heads."""
+    b, s, h, d = q.shape
+    scale = d ** -0.5
+    hm = hmap.long()
+    qf, dof = q.float(), do.float()
+    kf, vf = k.float()[:, :, hm], v.float()[:, :, hm]
+    delta = (dof * o.float()).sum(dim=-1).transpose(1, 2)    # [B, H, S]
+    ok = _flash_mask(s, q.device, segment_ids, causal)
+    scores = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    p = torch.where(ok, torch.exp(scores - lse[..., None]), 0.0)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = p * (dp - delta[..., None]) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    dk_h = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    dv_h = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    kvh = k.shape[2]
+    dk = torch.zeros(b, s, kvh, d, device=q.device).index_add_(2, hm, dk_h)
+    dv = torch.zeros(b, s, kvh, d, device=q.device).index_add_(2, hm, dv_h)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

@@ -17,13 +17,24 @@ synchronous). The run then prints the optimizer state's bytes on the card
 and on the host, and the swap statistics; on the card also the peak
 device memory.
 
+Packed SFT training (``--pack``): the synthetic corpus as variable-length
+records, greedily packed into the [B, L] rows with segment ids and
+per-segment positions (attention through the segment-masked flash
+kernels); ``--data jsonl_sft --data-path c.jsonl`` reads
+``{"prompt", "completion"}`` lines instead, packed under ``--pack``.
+``--data packed_math`` names the synthetic records explicitly (one record
+a row without ``--pack``). The run prints tokens/s beside the non-pad
+tokens and the records a step.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-0.5b \
+      --pack --steps 10 --seq-len 512 --global-batch 8
+
 Flags of the reference whose feature is not ported raise
 ``NotImplementedError`` naming its ROADMAP Queue A item: ``--method lora``
 (4), ``--checkpoint-dir``/``--checkpoint-every`` (3), ``--eval-every`` (5),
-``--pack``, ``--data`` other than synthetic_math and ``--prefetch-depth``
-(8), ``--trace``/``--metrics-json``/``--report`` (10), ``--mesh``,
-``--offload zero1`` and ``--offload`` under ``--moment-residency device``
-(11).
+``--data jsonl`` and ``--prefetch-depth`` (8),
+``--trace``/``--metrics-json``/``--report`` (10), ``--mesh``, ``--offload
+zero1`` and ``--offload`` under ``--moment-residency device`` (11).
 """
 from __future__ import annotations
 
@@ -52,9 +63,19 @@ def main(argv=None):
     ap.add_argument("--seq-len", type=int, default=64)
     ap.add_argument("--global-batch", type=int, default=32)
     ap.add_argument("--data", default="synthetic_math",
-                    choices=["synthetic_math", "jsonl", "jsonl_sft"])
-    ap.add_argument("--data-path", default="")
-    ap.add_argument("--pack", action="store_true")
+                    choices=["synthetic_math", "packed_math", "jsonl",
+                             "jsonl_sft"],
+                    help="synthetic_math: pure-f(step) source; packed_math "
+                         "/ jsonl_sft: streaming pipeline over synthetic "
+                         "records / {'prompt','completion'} lines (packed "
+                         "under --pack)")
+    ap.add_argument("--data-path", default="",
+                    help="corpus path for --data jsonl_sft")
+    ap.add_argument("--pack", action="store_true",
+                    help="segment-aware sequence packing (jsonl_sft, or "
+                         "synthetic_math via its record form): multiple "
+                         "examples per row with block-diagonal attention "
+                         "+ per-segment positions")
     ap.add_argument("--prefetch-depth", type=int, default=0)
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--offload", default="none",
@@ -84,15 +105,16 @@ def main(argv=None):
         raise NotImplementedError(
             "--mesh is not ported yet (ROADMAP Queue A item 11, "
             "'Distributed')")
-    if args.pack or args.data != "synthetic_math" or args.prefetch_depth:
+    if args.data == "jsonl" or args.prefetch_depth:
         raise NotImplementedError(
-            "--pack, --data jsonl/jsonl_sft and --prefetch-depth are not "
-            "ported yet (ROADMAP Queue A item 8, 'Packed SFT pipeline')")
+            "--data jsonl (the legacy ring source) and --prefetch-depth are "
+            "not ported yet (ROADMAP Queue A item 8, 'Packed SFT pipeline')")
 
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.configs.base import (OptimizerConfig, SelectConfig,
                                           TrainConfig)
     from repro_torch.core.offload import resident_opt_bytes
+    from repro_torch.data import loader
     from repro_torch.device import resolve_device
     from repro_torch.kernels import ops
     from repro_torch.train.trainer import Trainer
@@ -117,7 +139,14 @@ def main(argv=None):
         checkpoint_every=args.checkpoint_every,
         eval_every=args.eval_every)
 
-    trainer = Trainer(tcfg, device=dev)
+    data_source = None
+    if args.data != "synthetic_math" or args.pack:
+        kind = "packed_math" if args.data == "synthetic_math" else args.data
+        data_source = loader.make_source(
+            kind, seq_len=args.seq_len, global_batch=args.global_batch,
+            seed=args.seed, path=args.data_path, pack=args.pack)
+
+    trainer = Trainer(tcfg, data_source=data_source, device=dev)
     report = trainer.method.trainable_param_report(mcfg, trainer.state)
     where = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
              else "cpu (plain PyTorch path)")
@@ -134,9 +163,17 @@ def main(argv=None):
               f"host {res['host']:,}")
     ops.reset_launches()
     log = trainer.train()
+    step_s = np.mean(log.step_times[3:])
+    tokens = args.global_batch * args.seq_len
     print(f"final loss: {log.losses[-1]:.4f}  "
-          f"mean step time: {np.mean(log.step_times[3:]):.3f}s")
+          f"mean step time: {step_s:.3f}s")
+    print(f"tokens/s: {tokens / step_s:.0f} ({tokens} tokens a step, "
+          f"{np.mean(log.real_tokens):.1f} of them not padding = "
+          f"{np.mean(log.real_tokens) / step_s:.0f} non-pad tokens/s; "
+          f"{np.mean(log.records):.1f} records a step)")
     print("kernel launches:", json.dumps(ops.LAUNCHES))
+    print("kernel launches per step:", json.dumps(
+        {k: n / args.steps for k, n in ops.LAUNCHES.items()}))
     if dev.type == "cuda":
         print(f"peak device memory: "
               f"{torch.cuda.max_memory_allocated(dev) / (1 << 30):.2f} GiB")

@@ -13,12 +13,15 @@ def _mlp_residual(params, cfg: ModelConfig, x):
     return x + mlp.apply(params["mlp"], cfg, h)
 
 
-def attn_block_apply(params, cfg: ModelConfig, x, *, positions=None):
-    """Training forward of one block: x [B, S, D] -> x. (The reference
-    also returns an auxiliary loss, which is 0 for this block; the port's
+def attn_block_apply(params, cfg: ModelConfig, x, *, positions=None,
+                     segment_ids=None):
+    """Training forward of one block: x [B, S, D] -> x; ``segment_ids``:
+    [B, S] packed segment ids or None. (The reference also returns an
+    auxiliary loss, which is 0 for this block; the port's
     ``lm.apply_train`` returns that 0 once.)"""
     h = norms.apply(params["ln1"], x, cfg.norm_eps)
-    h = attention.apply(params["attn"], cfg, h, positions=positions)
+    h = attention.apply(params["attn"], cfg, h, positions=positions,
+                        segment_ids=segment_ids)
     return _mlp_residual(params, cfg, x + h)
 
 

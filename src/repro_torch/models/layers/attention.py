@@ -1,6 +1,8 @@
 """GQA/MHA attention layer with RoPE, optional QKV bias and KV caching
 (port of the JAX package's ``attention.py``: the training forward, prefill,
-dense-cache decode and paged-pool decode).
+dense-cache decode and paged-pool decode). The training forward runs the
+flash kernels (``ops.flash_attention``) unless ``cfg.use_pallas ==
+"never"``; prefill and decode keep their paths.
 
 The caches and pools are updated in place (JAX returns new arrays); the
 functions still return them, so call sites read like the reference.
@@ -64,15 +66,31 @@ def _out_proj(params, cfg: ModelConfig, out, dtype):
     return out.reshape(b, s, h * dh) @ params["wo"].reshape(h * dh, -1)
 
 
-def apply(params: dict, cfg: ModelConfig, x, *, positions=None):
+def apply(params: dict, cfg: ModelConfig, x, *, positions=None,
+          segment_ids=None):
     """Training forward (causal). x: [B, S, D] -> [B, S, D]. ``positions``:
-    [S] or [B, S] RoPE positions (default arange(S)). The reference's vision
-    prefix (``prefix_len``) and packed ``segment_ids`` are not ported."""
+    [S] or [B, S] RoPE positions (default arange(S); packed batches pass
+    per-segment-reset positions). ``segment_ids``: [B, S] int32 packed
+    segment ids (0 = pad): attention is block-diagonal over equal ids.
+
+    Attention goes through ``ops.flash_attention`` (the CUDA kernels of
+    rows 4-6 on the card, their plain versions on the CPU) unless
+    ``cfg.use_pallas == "never"``, which keeps the reference's
+    ``chunked_attention``, as the reference's ``ops`` documents its kernels
+    behind that switch. The reference's vision prefix (``prefix_len``) is
+    not ported."""
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
     q, k, v = _project_qkv(params, cfg, x, positions)
-    out = core.chunked_attention(q, k, v, hmap=_hmap(cfg), causal=True,
-                                 softcap=cfg.attn_logit_softcap)
+    if cfg.use_pallas == "never":
+        out = core.chunked_attention(q, k, v, hmap=_hmap(cfg), causal=True,
+                                     softcap=cfg.attn_logit_softcap,
+                                     segment_ids=segment_ids)
+    else:
+        out = ops.flash_attention(
+            q.contiguous(), k.contiguous(), v.contiguous(),
+            _hmap_tensor(cfg, x.device), causal=True,
+            segment_ids=segment_ids, softcap=cfg.attn_logit_softcap)
     return _out_proj(params, cfg, out, x.dtype)
 
 

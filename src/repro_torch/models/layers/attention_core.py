@@ -1,12 +1,13 @@
 """Attention math of the GQA layers (port of the JAX package's
-``attention_core.py``, without packed-segment masking: ROADMAP Queue A
-item 8).
+``attention_core.py``, packed-segment masking included).
 
 GQA uses gather expansion: each q head reads its kv group through a static
-index map (``head2group`` / ``attention._hmap``). Prefill and training
-attention is the plain einsum/softmax of ``full_attention`` and
-``chunked_attention``, as in the JAX package (whose training forward calls
-no flash kernel); decode against a dense cache is ``decode_attention``.
+index map (``head2group`` / ``attention._hmap``). ``full_attention`` and
+``chunked_attention`` are the plain einsum/softmax path: serving prefill
+takes it always, and the training forward when ``cfg.use_pallas ==
+"never"``; otherwise the training forward calls the flash kernels through
+``kernels.ops.flash_attention`` (``attention.apply``). Decode against a
+dense cache is ``decode_attention``.
 """
 from __future__ import annotations
 
@@ -45,10 +46,13 @@ def _softcap(scores: torch.Tensor, cap: float) -> torch.Tensor:
 
 
 def full_attention(q, k, v, *, hmap=None, causal=True, q_offset=0,
-                   softcap=0.0, kv_len_mask=None):
+                   softcap=0.0, kv_len_mask=None, q_seg=None, k_seg=None):
     """Exact attention. q: [B, Sq, H, Dh]; k: [B, Sk, KVH, Dh];
     v: [B, Sk, KVH, Dv]; hmap: head2group map (None -> MHA identity);
-    kv_len_mask: [B, Sk] bool of valid cache slots."""
+    kv_len_mask: [B, Sk] bool of valid cache slots. q_seg/k_seg: [B, Sq] /
+    [B, Sk] packed segment ids: scores are masked to equal-segment pairs
+    (with the causal mask, per-example causal attention; a query keeps its
+    own position, so no softmax row is fully masked)."""
     b, sq, h, dh = q.shape
     sk = k.shape[1]
     if hmap is None:
@@ -65,6 +69,9 @@ def full_attention(q, k, v, *, hmap=None, causal=True, q_offset=0,
         scores = torch.where(mask[None, None], scores, NEG_INF)
     if kv_len_mask is not None:
         scores = torch.where(kv_len_mask[:, None, None, :], scores, NEG_INF)
+    if q_seg is not None:
+        seg_ok = q_seg[:, None, :, None] == k_seg[:, None, None, :]
+        scores = torch.where(seg_ok, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, ve)
     return out.to(q.dtype)
@@ -77,21 +84,24 @@ def chunked_attention(q, k, v, *, hmap=None, chunk_q=512, causal=True,
     chunk_q (or <= chunk_q). Under autograd each chunk keeps its own
     probabilities for the backward; the training forward recomputes them
     per layer instead (``lm.scan_stack`` with ``remat="full"``), which is
-    what the reference's per-chunk remat buys."""
-    if segment_ids is not None:
-        raise NotImplementedError(
-            "packed segment ids are not ported yet (ROADMAP Queue A item 8, "
-            "'Packed SFT pipeline')")
+    what the reference's per-chunk remat buys.
+
+    ``segment_ids``: [B, S] packed segment ids (0 = pad): block-diagonal
+    masking as in ``full_attention``; the query-side ids are chunked along
+    with q, the key side stays whole."""
     b, s, h, dh = q.shape
     if s <= chunk_q:
         return full_attention(q, k, v, hmap=hmap, causal=causal,
-                              softcap=softcap)
+                              softcap=softcap, q_seg=segment_ids,
+                              k_seg=segment_ids)
     if s % chunk_q:
         raise ValueError(f"sequence {s} is not a multiple of chunk_q "
                          f"{chunk_q}")
-    outs = [full_attention(q[:, i:i + chunk_q], k, v, hmap=hmap,
-                           causal=causal, q_offset=i, softcap=softcap)
-            for i in range(0, s, chunk_q)]
+    outs = [full_attention(
+        q[:, i:i + chunk_q], k, v, hmap=hmap, causal=causal, q_offset=i,
+        softcap=softcap, k_seg=segment_ids,
+        q_seg=None if segment_ids is None else segment_ids[:, i:i + chunk_q])
+        for i in range(0, s, chunk_q)]
     return torch.cat(outs, dim=1)
 
 

@@ -7,8 +7,10 @@ blocks STACKED under ``"layers"`` with a leading [L] axis, so parameters
 convert one to one (``convert.py``) and kernels see the same rows. The
 reference's ``lax.scan`` over layers is a Python loop over that axis.
 
-``batch``: {"tokens": [B, S] int tensor}. Caches are dicts of tensors and
-are updated in place by ``decode_step`` and the ``insert_slots*`` functions.
+``batch``: {"tokens": [B, S] int tensor}, and for packed SFT batches also
+``segment_ids`` and ``positions`` [B, S] int32. Caches are dicts of
+tensors and are updated in place by ``decode_step`` and the
+``insert_slots*`` functions.
 """
 from __future__ import annotations
 
@@ -178,22 +180,52 @@ def scan_stack(cfg: ModelConfig, apply_fn, x, stacked: dict):
     return x
 
 
+def _check_packed_support(cfg: ModelConfig):
+    """Packed batches need block-diagonal attention; families whose token
+    mixing is not per-position-maskable and the MLA/vlm/MTP paths do not
+    implement it, so they are refused rather than trained across example
+    boundaries (the reference's check)."""
+    if cfg.family in ("ssm", "hybrid"):
+        raise ValueError(
+            f"segment-packed batches are not supported for family="
+            f"{cfg.family!r}: the SSM state scan carries context across "
+            f"segment boundaries. Use the unpacked pipeline (pack=False) "
+            f"for this architecture.")
+    if cfg.family == "vlm":
+        raise ValueError(
+            "segment-packed batches are not supported for family='vlm' "
+            "(the patch prefix is shared by every row); use pack=False")
+    if cfg.use_mla:
+        raise ValueError(
+            "segment-packed batches are not implemented for MLA attention; "
+            "use pack=False or a GQA/MHA architecture")
+    if cfg.mtp_depth:
+        raise ValueError(
+            "segment-packed batches are not implemented for mtp_depth > 0: "
+            "the MTP head's attention is not segment-masked and its "
+            "shift-2 loss would cross example boundaries; use pack=False")
+
+
 def apply_train(params: dict, cfg: ModelConfig, batch: dict):
     """-> (logits [B, S, V] aligned to batch["tokens"], aux_loss, extra).
     Dense family; ``aux_loss`` is a 0-d f32 zero and ``extra`` empty, as
-    the reference gives for it. Packed batches (``segment_ids``) and the
-    reference's gated weight gradients (``masks``) are not ported."""
+    the reference gives for it. Packed SFT batches also carry
+    ``segment_ids`` [B, S] (0 = pad) and ``positions`` [B, S] (reset at
+    each segment): attention is block-diagonal over segments and RoPE sees
+    each example at its unpacked positions, so the packed forward equals
+    running every segment as its own row. The reference's gated weight
+    gradients (``masks``) are not ported."""
+    segment_ids = batch.get("segment_ids")
+    if segment_ids is not None:
+        _check_packed_support(cfg)
     check_supported(cfg)
-    if batch.get("segment_ids") is not None:
-        raise NotImplementedError(
-            "packed batches (segment_ids) are not ported yet (ROADMAP Queue "
-            "A item 8, 'Packed SFT pipeline')")
     tokens = batch["tokens"]
     positions = batch.get("positions")
     x = _embed_tokens(params, cfg, tokens)
 
     def block(p_l, h):
-        return blocks.attn_block_apply(p_l, cfg, h, positions=positions)
+        return blocks.attn_block_apply(p_l, cfg, h, positions=positions,
+                                       segment_ids=segment_ids)
 
     x = scan_stack(cfg, block, x, params["layers"])
     x = norms.apply(params["final_norm"], x, cfg.norm_eps)

@@ -13,11 +13,19 @@ so the step times are honest window averages. ``log_every=0`` syncs every
 step. (The banked residency's step also reads its selected block ids back,
 once a step, by design: ``methods/selection.py``.)
 
+Data: the synthetic math source by default, or any ``data_source=`` as
+the reference takes it — a pure ``batch_at(step)`` source or a streaming
+``data.pipeline.SFTPipeline`` (packed SFT batches with ``segment_ids`` and
+``positions``, whose attention runs the segment-masked flash kernels).
+The loop consumes ``(batch, cursor)`` pairs and commits the cursor of the
+last batch it trained on with ``restore_cursor``, so the next ``train``
+call continues the record stream. The log keeps each step's records and
+non-pad tokens.
+
 Not ported, and raising with their ROADMAP Queue A item: checkpoints (item
 3), eval (item 5), ``prefetch_depth > 0`` (item 8), ``mesh`` (item 11).
 The obs instruments and trace spans of the reference wait for item 10;
-its straggler watchdog and external data sources, which no caller of the
-port uses yet, are left out.
+its straggler watchdog, which no caller of the port uses yet, is left out.
 """
 from __future__ import annotations
 
@@ -29,6 +37,8 @@ import torch
 from repro_torch import methods
 from repro_torch.configs.base import TrainConfig
 from repro_torch.data import loader as data_loader
+from repro_torch.data import tokenizer
+from repro_torch.data.pipeline import StepIndexedAdapter
 from repro_torch.device import resolve_device
 
 
@@ -38,6 +48,19 @@ class TrainLog:
     losses: list = field(default_factory=list)
     step_times: list = field(default_factory=list)
     metrics: list = field(default_factory=list)
+    records: list = field(default_factory=list)      # examples per step
+    real_tokens: list = field(default_factory=list)  # non-pad tokens per step
+
+
+def batch_counts(batch: dict) -> tuple[int, int]:
+    """(records, non-pad tokens) of a host batch: a packed batch counts its
+    segments and its positions with a nonzero segment id; an unpacked one
+    holds one record a row and counts its non-PAD tokens."""
+    seg = batch.get("segment_ids")
+    if seg is not None:
+        return int(seg.max(axis=1).sum()), int((seg != 0).sum())
+    toks = batch["tokens"]
+    return toks.shape[0], int((toks != tokenizer.PAD).sum())
 
 
 def _not_ported(what: str, item: str):
@@ -47,7 +70,8 @@ def _not_ported(what: str, item: str):
 
 class Trainer:
     def __init__(self, tcfg: TrainConfig, *, method: str | None = None,
-                 prefetch_depth: int = 0, mesh=None, device="cuda"):
+                 data_source=None, prefetch_depth: int = 0, mesh=None,
+                 device="cuda"):
         if mesh is not None:
             _not_ported("training on a mesh", "11, 'Distributed'")
         if prefetch_depth:
@@ -65,7 +89,7 @@ class Trainer:
         self.state = self.method.init_state(tcfg.model, tcfg.optimizer,
                                             tcfg.seed, device=self.device)
         self.step_fn = self.method.make_step(tcfg.model, tcfg.optimizer)
-        self.data = data_loader.make_source(
+        self.data = data_source or data_loader.make_source(
             "synthetic_math", seq_len=tcfg.seq_len,
             global_batch=tcfg.global_batch, seed=tcfg.seed)
         self.log = TrainLog()
@@ -87,6 +111,15 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _batch_stream(self, step0: int, steps: int):
+        """(host_batch, cursor_after) pairs for the next ``steps`` steps:
+        streaming pipelines (anything with ``batches``) iterate from their
+        committed cursor, pure ``batch_at`` sources through the
+        ``StepIndexedAdapter``."""
+        if hasattr(self.data, "batches"):
+            return self.data.batches(steps)
+        return StepIndexedAdapter(self.data, step0).batches(steps)
+
     def train(self, steps: int | None = None) -> TrainLog:
         """Run ``steps`` steps (default ``tcfg.steps``) from the state's
         step; returns the log, which accumulates across calls."""
@@ -96,9 +129,15 @@ class Trainer:
         last = step0 + steps - 1
         pending = []  # (step, device-scalar loss) since the last boundary
         t0 = time.perf_counter()
+        stream = self._batch_stream(step0, steps)
+        cursor = None   # the cursor after the last batch trained on
         try:
             for step in range(step0, step0 + steps):
-                batch = self._device_batch(self.data.batch_at(step))
+                host, cursor = next(stream)
+                records, real = batch_counts(host)
+                self.log.records.append(records)
+                self.log.real_tokens.append(real)
+                batch = self._device_batch(host)
                 if not pending:
                     t0 = time.perf_counter()
                 self.state, metrics = self.step_fn(self.state, batch)
@@ -125,4 +164,8 @@ class Trainer:
             planner = getattr(self.step_fn, "swap_planner", None)
             if planner is not None:
                 planner.quiesce()
+            # commit consumption: the stream resumes after the last batch
+            # the loop trained on
+            if cursor is not None and hasattr(self.data, "restore_cursor"):
+                self.data.restore_cursor(cursor)
         return self.log

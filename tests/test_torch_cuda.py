@@ -13,7 +13,12 @@ bit-reproducible norms, on inputs whose outputs are large beside the
 tolerance. The banked masked AdamW (row 9) is held against its plain
 version and, bit for bit, against row 8 on the same rows. Tied scores in
 ``topk_mask`` go to the lower index on the card too, and three dense
-training steps with their batch uploads make no host sync.
+training steps with their batch uploads make no host sync. The flash
+attention kernels (rows 4-6) are swept over the S of the JAX package's
+flash tests (128/256/384), its packed segment layout, a ragged S and head
+dim 128, with bit-reproducible dk/dv; three packed training steps make no
+host sync either. The smoke config runs at head dim 64 here: the flash
+kernels take 64 and 128.
 """
 import numpy as np
 import pytest
@@ -302,17 +307,22 @@ def test_topk_mask_ties_go_to_the_lower_index(cuda_device, scores, k, want):
     assert mask.nonzero()[:, 0].tolist() == want
 
 
+def _card_smoke():
+    """The smoke qwen2.5-0.5b at head dim 64, which the flash kernels take
+    (its own 16 they refuse)."""
+    from repro_torch.configs import get_smoke_config
+    return get_smoke_config("qwen2.5-0.5b").replace(head_dim=64)
+
+
 @pytest.mark.cuda
 def test_dense_steps_and_batch_uploads_never_sync(cuda_device):
     """Three dense training steps of the smoke config, batch uploads
     included, under ``set_sync_debug_mode("error")``: no host sync outside
     the log boundary (which the loop is not asked for here)."""
-    from repro_torch.configs import get_smoke_config
     from repro_torch.configs.base import TrainConfig
     from repro_torch.train.trainer import Trainer
-    tr = Trainer(TrainConfig(model=get_smoke_config("qwen2.5-0.5b"),
-                             seq_len=48, global_batch=4, steps=4),
-                 device="cuda")
+    tr = Trainer(TrainConfig(model=_card_smoke(), seq_len=48,
+                             global_batch=4, steps=4), device="cuda")
     tr.train(1)     # first launches: builds and compiles the kernels
     torch.cuda.synchronize()
     state = tr.state
@@ -335,11 +345,10 @@ def test_banked_step_syncs_the_host_once(cuda_device, async_swap):
     ``set_sync_debug_mode("warn")``, batch uploads included."""
     import warnings
 
-    from repro_torch.configs import get_smoke_config
     from repro_torch.configs.base import OptimizerConfig, TrainConfig
     from repro_torch.train.trainer import Trainer
     tr = Trainer(TrainConfig(
-        model=get_smoke_config("qwen2.5-0.5b"), seq_len=48, global_batch=4,
+        model=_card_smoke(), seq_len=48, global_batch=4,
         steps=5, optimizer=OptimizerConfig(moment_residency="banked",
                                            offload="host",
                                            async_swap=async_swap)),
@@ -359,3 +368,154 @@ def test_banked_step_syncs_the_host_once(cuda_device, async_swap):
     syncs = [w for w in caught if "synchronizing" in str(w.message)]
     assert len(syncs) == 4, [str(w.message) for w in caught]
     assert tr.step_fn.swap_stats.steps == 5
+
+
+# ------------------------------------------------ flash attention (rows 4-6)
+
+
+def _packed_segments(b, s):
+    """The variable-length packed layout of tests/test_kernels.py (a pad
+    tail, segments across the tile boundaries), rows repeated past 2."""
+    seg = np.zeros((b, s), np.int32)
+    seg[0::2, :s // 3] = 1
+    seg[0::2, s // 3:s - 40] = 2
+    seg[0::2, s - 40:s - 16] = 3
+    seg[1::2, :min(150, s)] = 1
+    seg[1::2, 150:] = 2
+    return seg
+
+
+def _flash_inputs(dev, dtype, b, s, h, kvh, d, segmented, seed=7):
+    """N(0, 1) keys, values and do. In bf16 q = 3 N(0, 1): peaked softmax
+    rows, so that the outputs stay large beside the 2e-2 tolerance. In f32
+    q = N(0, 1): with q = 3 N(0, 1) f32 itself cannot resolve 1e-5 (the
+    plain version's own dk/dv differ from an f64 evaluation by up to 3.3x
+    the tolerance at S 512, D 128, 16 heads), while at N(0, 1) every output
+    of it stays within 0.4x, and every row still has an RMS far above 10
+    atol."""
+    rng = np.random.default_rng(seed)
+    q = (3 if dtype == torch.bfloat16 else 1) * rng.standard_normal(
+        (b, s, h, d))
+    k, v = (rng.standard_normal((b, s, kvh, d)) for _ in range(2))
+    do = rng.standard_normal((b, s, h, d))
+    rep = max(1, h // kvh)
+    hmap = np.minimum(np.arange(h) // rep, kvh - 1)
+    f = [torch.tensor(a, dtype=dtype, device=dev) for a in (q, k, v, do)]
+    i32 = [torch.tensor(a, dtype=torch.int32, device=dev)
+           for a in (hmap, _packed_segments(b, s))]
+    return (*f, i32[0], i32[1] if segmented else None)
+
+
+def _check_flash(dev, dtype, b, s, h, kvh, d, segmented):
+    q, k, v, do, hm, seg = _flash_inputs(dev, dtype, b, s, h, kvh, d,
+                                         segmented)
+    before = dict(ops.LAUNCHES)
+    o, lse = ops.flash_attention_fwd(q, k, v, hm, segment_ids=seg)
+    grads = ops.flash_attention_bwd(q, k, v, o, lse, do, hm,
+                                    segment_ids=seg)
+    again = ops.flash_attention_bwd(q, k, v, o, lse, do, hm,
+                                    segment_ids=seg)
+    torch.cuda.synchronize()
+    for name, n in (("flash_attention_fwd", 1), ("flash_attention_bwd_dq", 2),
+                    ("flash_attention_bwd_dkv", 2)):
+        assert ops.LAUNCHES[name] == before[name] + n
+    assert o.dtype == dtype and lse.shape == (b, h, s)
+    po, plse = ref.flash_attention_fwd(q, k, v, hm, seg)
+    _close(o, po, dtype)
+    _close(lse, plse, torch.float32)
+    plain = ref.flash_attention_bwd(q, k, v, o, lse, do, hm, seg)
+    for got, want in zip(grads, plain):
+        assert got.dtype == dtype
+        if s > 1:
+            _close(got, want, dtype)
+        else:   # one key: p = 1, so dq = dk = 0 exactly
+            torch.testing.assert_close(got.float(), want.float(),
+                                       **TOL[dtype])
+    # dk, dv are summed in a fixed order with no atomics
+    assert _bits_equal(grads[1], again[1]) and _bits_equal(grads[2], again[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("segmented", [False, True])
+@pytest.mark.parametrize("s", [128, 256, 384])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_matches_plain(cuda_device, s, dtype, segmented):
+    """o, lse, dq, dk, dv of the kernels against the plain versions with a
+    GQA map (4 q heads on 2 kv heads)."""
+    _check_flash(cuda_device, dtype, 2, s, 4, 2, 64, segmented)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s, d", [(1, 64), (65, 64), (300, 64), (200, 128),
+                                  (512, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_ragged_and_head_dim_128(cuda_device, s, d, dtype):
+    """S that no tile divides, and head dim 128, segmented, with the
+    qwen2.5-0.5b head map (16 q heads, 2 kv heads, the padded two clamped
+    onto the last)."""
+    _check_flash(cuda_device, dtype, 2, s, 16, 2, d, True)
+
+
+@pytest.mark.cuda
+def test_flash_attention_autograd_and_refusals(cuda_device):
+    """The autograd Function runs one forward and one dq and dk/dv launch
+    each, and equals the plain versions; what the kernels do not take is
+    refused by name."""
+    q, k, v, do, hm, seg = _flash_inputs(cuda_device, torch.float32, 2, 96,
+                                         4, 2, 64, True)
+    qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+    before = dict(ops.LAUNCHES)
+    out = ops.flash_attention(qq, kk, vv, hm, segment_ids=seg)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert {n: ops.LAUNCHES[n] - before[n] for n in before} == {
+        n: int(n.startswith("flash")) for n in before}
+    po, plse = ref.flash_attention_fwd(q, k, v, hm, seg)
+    _close(out.detach(), po, torch.float32)
+    for got, want in zip((qq.grad, kk.grad, vv.grad),
+                         ref.flash_attention_bwd(q, k, v, po, plse, do, hm,
+                                                 seg)):
+        _close(got, want, torch.float32)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                            v[..., :32].contiguous(), hm)
+    with pytest.raises(ValueError, match="softcap"):
+        ops.flash_attention(q, k, v, hm, softcap=50.0)
+    with pytest.raises(ValueError, match="int32"):
+        ops.flash_attention(q, k, v, hm, segment_ids=seg.long())
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ops.flash_attention(q.half(), k.half(), v.half(), hm)
+
+
+@pytest.mark.cuda
+def test_packed_steps_never_sync(cuda_device):
+    """Three packed training steps (segment ids and positions uploaded
+    with the batch, attention through the segment-masked kernels) under
+    ``set_sync_debug_mode("error")``."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import loader
+    from repro_torch.train.trainer import Trainer
+    tr = Trainer(TrainConfig(model=_card_smoke(), seq_len=128,
+                             global_batch=2, steps=4),
+                 data_source=loader.make_source("packed_math", seq_len=128,
+                                                global_batch=2),
+                 device="cuda")
+    tr.train(1)
+    torch.cuda.synchronize()
+    state = tr.state
+    stream = tr.data.batches(3)
+    before = dict(ops.LAUNCHES)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for host, _ in stream:
+            assert "segment_ids" in host
+            state, metrics = tr.step_fn(state, tr._device_batch(host))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    nl = tr.tcfg.model.num_layers
+    assert ops.LAUNCHES["flash_attention_fwd"] - before[
+        "flash_attention_fwd"] == 3 * 2 * nl
+    assert ops.LAUNCHES["flash_attention_bwd_dkv"] - before[
+        "flash_attention_bwd_dkv"] == 3 * nl
+    assert state["step"] == 4
+    assert torch.isfinite(metrics["loss"]).item()

@@ -8,6 +8,7 @@
   tensor whose kernel cannot be built they raise, and count no launch.
 """
 import ast
+import json
 import sys
 from pathlib import Path
 
@@ -18,8 +19,10 @@ import torch
 from repro_torch import convert
 from repro_torch.configs import get_smoke_config
 from repro_torch.configs.base import TrainConfig
+from repro_torch.data import loader
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import block_grad_norm as bgn
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import masked_adamw as madamw
 from repro_torch.kernels import paged_decode_attention as pda
 from repro_torch.kernels import rmsnorm as rn
@@ -95,9 +98,14 @@ def _tcfg(**kw):
     lambda: Trainer(_tcfg()),
     lambda: launch_train.main(["--arch", "qwen2.5-0.5b", "--smoke",
                                "--steps", "2"]),
+    lambda: Trainer(_tcfg(), data_source=loader.make_source(
+        "packed_math", seq_len=48, global_batch=2)),
+    lambda: launch_train.main(["--arch", "qwen2.5-0.5b", "--smoke",
+                               "--steps", "2", "--pack"]),
 ], ids=["init", "init-cuda", "init_cache", "init_paged_cache", "convert",
         "engine", "launcher", "convert-train-state", "init_train_state",
-        "init_train_state-banked", "trainer", "train-launcher"])
+        "init_train_state-banked", "trainer", "train-launcher",
+        "trainer-packed", "train-launcher-packed"])
 def test_entry_points_need_cuda_by_default(no_cuda, call):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()
@@ -134,14 +142,15 @@ def test_entry_points_run_on_cpu_when_asked(no_cuda, capsys):
     (lambda: Trainer(_tcfg(), prefetch_depth=2, device="cpu"), "item 8"),
     (lambda: Trainer(_tcfg(), mesh=object(), device="cpu"), "item 11"),
     (lambda: launch_train.main(["--arch", "qwen2.5-0.5b", "--smoke",
-                                "--device", "cpu", "--pack"]), "item 8"),
+                                "--device", "cpu", "--data", "jsonl"]),
+     "item 8"),
     (lambda: launch_train.main(["--arch", "qwen2.5-0.5b", "--smoke",
                                 "--device", "cpu", "--trace", "t.json"]),
      "item 10"),
     (lambda: launch_train.main(["--arch", "qwen2.5-0.5b", "--smoke",
                                 "--device", "cpu", "--moment-residency",
                                 "banked", "--offload", "zero1"]), "item 11"),
-], ids=["lora", "checkpoint", "eval", "prefetch", "mesh", "pack", "trace",
+], ids=["lora", "checkpoint", "eval", "prefetch", "mesh", "jsonl", "trace",
         "banked-zero1"])
 def test_training_features_not_ported_raise(call, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -158,6 +167,25 @@ def test_banked_launcher_runs_on_cpu(offload, capsys):
     out = capsys.readouterr().out
     assert "final loss" in out and "resident moment bytes" in out
     assert '"dispatches": 4' in out
+
+
+@pytest.mark.parametrize("data", ["synthetic_math", "jsonl_sft"])
+def test_packed_launcher_runs_on_cpu(data, tmp_path, capsys):
+    """``--pack`` trains on packed records (the synthetic corpus, or a
+    prompt/completion jsonl) and prints tokens/s beside the non-pad tokens
+    and records a step."""
+    path = tmp_path / "c.jsonl"
+    path.write_text("\n".join(json.dumps({"prompt": f"{i} + {i} =",
+                                          "completion": str(2 * i)})
+                              for i in range(40)))
+    assert launch_train.main(["--arch", "qwen2.5-0.5b", "--smoke",
+                              "--device", "cpu", "--pack", "--data", data,
+                              "--data-path", str(path), "--steps", "4",
+                              "--seq-len", "96", "--global-batch", "2"]) == 0
+    out = capsys.readouterr().out
+    assert "final loss" in out and "records a step" in out
+    assert "non-pad tokens/s" in out and "nan" not in out.split(
+        "tokens/s:")[1].split("\n")[0]
 
 
 class _FakeCuda(torch.Tensor):
@@ -182,6 +210,7 @@ def missing_builds(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "_LIBS", {})
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(pda, "_fn", None)
+    monkeypatch.setattr(fa, "_fn", None)
     for mod in (rn, bgn, madamw):
         monkeypatch.setattr(mod, "_compiled", None)
     monkeypatch.setitem(sys.modules, "triton", None)
@@ -264,3 +293,33 @@ def test_banked_wrapper_raises_and_rejects(missing_builds):
     with pytest.raises(ValueError, match=r"\[cap=2\]"):
         ops.banked_masked_adamw(p, p, bank, bank, slots,
                                 _fake(torch.ones(3)), row, *args)
+
+
+def test_flash_wrapper_raises_and_rejects(missing_builds):
+    """Rows 4-6 on CUDA tensors: no build raises and counts nothing; fp16,
+    a head dim other than 64 or 128, a softcap and ids that are not int32
+    are refused by name."""
+    before = dict(ops.LAUNCHES)
+    q, kv = _fake(torch.zeros(2, 8, 4, 64)), _fake(torch.zeros(2, 8, 2, 64))
+    hm = _fake(torch.tensor([0, 0, 1, 1], dtype=torch.int32))
+    seg = _fake(torch.ones(2, 8, dtype=torch.int32))
+    with pytest.raises(_build.KernelBuildFailure, match="nvcc"):
+        ops.flash_attention(q, kv, kv, hm, segment_ids=seg)
+    with pytest.raises(_build.KernelBuildFailure, match="nvcc"):
+        ops.flash_attention_bwd(q, kv, kv, q, _fake(torch.zeros(2, 4, 8)), q,
+                                hm)
+    assert ops.LAUNCHES == before
+    f16 = _fake(torch.zeros(2, 8, 4, 64, dtype=torch.float16))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ops.flash_attention(f16, f16[:, :, :2].contiguous(),
+                            f16[:, :, :2].contiguous(), hm)
+    q32, kv32 = _fake(torch.zeros(2, 8, 4, 32)), _fake(torch.zeros(2, 8, 2,
+                                                                  32))
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention(q32, kv32, kv32, hm)
+    with pytest.raises(ValueError, match="softcap"):
+        ops.flash_attention(q, kv, kv, hm, softcap=30.0)
+    with pytest.raises(ValueError, match="segment_ids must be int32"):
+        ops.flash_attention(q, kv, kv, hm, segment_ids=_fake(seg.long()))
+    with pytest.raises(ValueError, match="hmap must be int32"):
+        ops.flash_attention(q, kv, kv, _fake(hm.long()))
