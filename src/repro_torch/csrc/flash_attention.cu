@@ -14,16 +14,18 @@
 //            sentinel, where exp(s - m) would be 1);
 //   dq:      p = exp(s*scale - lse), ds = p (do.v - delta) scale, dq = ds k;
 //   dk, dv:  dv = p^T do, dk = ds^T q, summed over the q heads of the kv
-//            head in a fixed order (q heads ascending, then q tiles, then
-//            rows), with no atomics: the same inputs give the same bits.
+//            head in a fixed order (q heads ascending, then q tiles, each
+//            tile's rows summed first), with no atomics: the same inputs
+//            give the same bits.
 // delta = rowsum(do * o) is computed by the caller.
 //
 // Layout: q, o, dq, do are [B, S, H, D] (the layer's layout); k, v, dk, dv
 // [B, S, KVH, D], NOT head-expanded: q head h reads kv head hmap[h]. lse and
 // delta are [B, H, S] f32; segment ids [B, S] int32. S is any length >= 1:
 // rows and keys past S are zero-filled and masked. D is 64 or 128. Inputs
-// are f32 or bf16; all math is f32 on the CUDA cores (no TF32, no tensor
-// cores), and outputs are written in the input dtype.
+// are f32 or bf16; the math is f32 on the CUDA cores (no TF32, no tensor
+// cores), but for f32 inputs the score dot products q.k and do.v sum in f64
+// (see DotAcc), and outputs are written in the input dtype.
 //
 // What bounds it: operations. At the training shape (B 8, S 512, 16 q
 // heads, D 64) a forward does ~4.3 GFLOP on ~25 MB, ~170 flops a byte; in
@@ -123,13 +125,32 @@ __device__ __forceinline__ void load_seg(int* dst, const int* __restrict__ seg,
     dst[i] = r0 + i >= S ? fill : (seg ? seg[(size_t)b * S + r0 + i] : 0);
 }
 
-// acc[i][j] += sum_d A[row_i][d] * B[col_j][d] for the thread's rows
-// ty + 16 i of A and columns tx + 16 j (rows of B); both [64, D + 4]
-template <int D>
-__device__ __forceinline__ void dot_tile(float (&acc)[4][4],
+// The accumulator of the score dot products q.k and do.v: f64 for f32
+// inputs, whose products are exact in f64. The rounding of these D-long
+// sums is most of what separates an f32 evaluation from an f64 one: with a
+// peaked softmax (q = 3 N(0, 1)) it goes through exp into p and puts dk and
+// dv up to ~3x the 1e-5 tolerance away from f64; summed in f64, every
+// output comes within it. bf16 inputs keep f32, which their 2e-2 tolerance
+// allows.
+template <typename T> struct DotAcc { using type = float; };
+template <> struct DotAcc<float> { using type = double; };
+
+__device__ __forceinline__ float fma_acc(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+__device__ __forceinline__ double fma_acc(double a, double b, double c) {
+  return fma(a, b, c);
+}
+
+// out[i][j] = sum_d A[row_i][d] * B[col_j][d] for the thread's rows ty + 16
+// i of A and columns tx + 16 j (rows of B); both [64, D + 4]. Summed in Acc,
+// rounded once to f32.
+template <int D, typename Acc>
+__device__ __forceinline__ void dot_tile(float (&out)[4][4],
                                          const float* A, const float* B,
                                          int ty, int tx) {
   constexpr int kLD = D + 4;
+  Acc acc[4][4] = {};
 #pragma unroll 4
   for (int d = 0; d < D; d += 4) {
     float4 a[4], b[4];
@@ -141,12 +162,17 @@ __device__ __forceinline__ void dot_tile(float (&acc)[4][4],
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        acc[i][j] = fmaf(a[i].x, b[j].x, acc[i][j]);
-        acc[i][j] = fmaf(a[i].y, b[j].y, acc[i][j]);
-        acc[i][j] = fmaf(a[i].z, b[j].z, acc[i][j]);
-        acc[i][j] = fmaf(a[i].w, b[j].w, acc[i][j]);
+        Acc x = acc[i][j];
+        x = fma_acc(Acc(a[i].x), Acc(b[j].x), x);
+        x = fma_acc(Acc(a[i].y), Acc(b[j].y), x);
+        x = fma_acc(Acc(a[i].z), Acc(b[j].z), x);
+        acc[i][j] = fma_acc(Acc(a[i].w), Acc(b[j].w), x);
       }
   }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) out[i][j] = static_cast<float>(acc[i][j]);
 }
 
 // out[i][4u + e] += sum_c P[row_i][c] * V[c][64 u + 4 tx + e] for the
@@ -180,6 +206,21 @@ __device__ __forceinline__ void mul_tile(float (&out)[4][D / 16],
       }
     }
   }
+}
+
+// out += mul_tile's product, summed over this tile first: a total over many
+// tiles then rounds a chain of 64 terms a tile and one add a tile, not one
+// chain over every row of every tile
+template <int D>
+__device__ __forceinline__ void add_tile(float (&out)[4][D / 16],
+                                         const float* P, const float* V,
+                                         int ty, int tx) {
+  float part[4][D / 16] = {};
+  mul_tile<D>(part, P, V, ty, tx);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < D / 16; ++c) out[i][c] += part[i][c];
 }
 
 // write the thread's rows ty + 16 i (those below S) of a [64, D] register
@@ -258,8 +299,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     load_tile<T, D>(Vs, v, b, k0, g, KVH, S, 1.f);
     load_seg(kseg, seg, b, k0, S, -2);
     __syncthreads();
-    float s[4][4] = {};
-    dot_tile<D>(s, Qs, Ks, ty, tx);
+    float s[4][4];
+    dot_tile<D, typename DotAcc<T>::type>(s, Qs, Ks, ty, tx);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = ty + 16 * i;
@@ -345,9 +386,9 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     load_tile<T, D>(Vs, v, b, k0, g, KVH, S, 1.f);
     load_seg(kseg, seg, b, k0, S, -2);
     __syncthreads();
-    float s[4][4] = {}, dp[4][4] = {};
-    dot_tile<D>(s, Qs, Ks, ty, tx);
-    dot_tile<D>(dp, dOs, Vs, ty, tx);
+    float s[4][4], dp[4][4];
+    dot_tile<D, typename DotAcc<T>::type>(s, Qs, Ks, ty, tx);
+    dot_tile<D, typename DotAcc<T>::type>(dp, dOs, Vs, ty, tx);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = ty + 16 * i;
@@ -418,9 +459,9 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
       __syncthreads();
       // transposed tiles: rows are keys ty + 16 i, columns queries tx + 16 j
-      float st[4][4] = {}, dpt[4][4] = {};
-      dot_tile<D>(st, Ks, Qs, ty, tx);
-      dot_tile<D>(dpt, Vs, dOs, ty, tx);
+      float st[4][4], dpt[4][4];
+      dot_tile<D, typename DotAcc<T>::type>(st, Ks, Qs, ty, tx);
+      dot_tile<D, typename DotAcc<T>::type>(dpt, Vs, dOs, ty, tx);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int c = ty + 16 * i;
@@ -434,8 +475,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
       }
       __syncthreads();
-      mul_tile<D>(dv_acc, Pt, dOs, ty, tx);
-      mul_tile<D>(dk_acc, dSt, Qs, ty, tx);
+      add_tile<D>(dv_acc, Pt, dOs, ty, tx);
+      add_tile<D>(dk_acc, dSt, Qs, ty, tx);
     }
   }
   store_tile<T, D>(dk, dk_acc, b, k0, g, KVH, S, ty, tx);

@@ -128,17 +128,24 @@ def _flash_mask(s, device, segment_ids, causal):
     return ok
 
 
+def _flash_acc(q):
+    """The plain versions' arithmetic: f32, or f64 for f64 inputs."""
+    return torch.promote_types(q.dtype, torch.float32)
+
+
 def flash_attention_fwd(q, k, v, hmap, segment_ids=None, causal=True):
     """q: [B, S, H, D]; k, v: [B, S, KVH, D] (not head-expanded); hmap:
     [H] int q-head -> kv-head map; segment_ids: optional [B, S] int packed
     segment ids (0 = pad; attention stays within equal ids). -> (o
     [B, S, H, D] in the dtype of q, lse [B, H, S] f32). The forward kernel's
     math in one tile: q scaled before q.k, f32 softmax with masked entries
-    zeroed, ``lse = m + log(max(l, 1e-30))``."""
+    zeroed, ``lse = m + log(max(l, 1e-30))``. f64 inputs are evaluated in
+    f64 (lse too): the accuracy reference of the tests."""
     b, s, h, d = q.shape
     hm = hmap.long()
-    qf = q.float() * (d ** -0.5)
-    kf, vf = k.float()[:, :, hm], v.float()[:, :, hm]
+    acc = _flash_acc(q)
+    qf = q.to(acc) * (d ** -0.5)
+    kf, vf = k.to(acc)[:, :, hm], v.to(acc)[:, :, hm]
     ok = _flash_mask(s, q.device, segment_ids, causal)
     scores = torch.where(ok, torch.einsum("bqhd,bkhd->bhqk", qf, kf),
                          NEG_INF)
@@ -155,13 +162,14 @@ def flash_attention_bwd(q, k, v, o, lse, do, hmap, segment_ids=None,
     for the output gradient do, from its saved (o, lse). The backward
     kernels' math in one tile: ``delta = rowsum(do * o)``, p = exp(s - lse)
     with s = (q.k) * scale, ds = p (do.v - delta) scale; dk and dv summed
-    over each kv head's q heads."""
+    over each kv head's q heads. f64 inputs are evaluated in f64."""
     b, s, h, d = q.shape
     scale = d ** -0.5
     hm = hmap.long()
-    qf, dof = q.float(), do.float()
-    kf, vf = k.float()[:, :, hm], v.float()[:, :, hm]
-    delta = (dof * o.float()).sum(dim=-1).transpose(1, 2)    # [B, H, S]
+    acc = _flash_acc(q)
+    qf, dof = q.to(acc), do.to(acc)
+    kf, vf = k.to(acc)[:, :, hm], v.to(acc)[:, :, hm]
+    delta = (dof * o.to(acc)).sum(dim=-1).transpose(1, 2)    # [B, H, S]
     ok = _flash_mask(s, q.device, segment_ids, causal)
     scores = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
     p = torch.where(ok, torch.exp(scores - lse[..., None]), 0.0)
@@ -171,6 +179,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, hmap, segment_ids=None,
     dk_h = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
     dv_h = torch.einsum("bhqk,bqhd->bkhd", p, dof)
     kvh = k.shape[2]
-    dk = torch.zeros(b, s, kvh, d, device=q.device).index_add_(2, hm, dk_h)
-    dv = torch.zeros(b, s, kvh, d, device=q.device).index_add_(2, hm, dv_h)
+    dk = torch.zeros(b, s, kvh, d, dtype=acc,
+                     device=q.device).index_add_(2, hm, dk_h)
+    dv = torch.zeros(b, s, kvh, d, dtype=acc,
+                     device=q.device).index_add_(2, hm, dv_h)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

@@ -113,6 +113,26 @@ def test_plain_flash_matches_pallas_kernels(hmap_name, segmented, dtype):
 
 
 @pytest.mark.parametrize("segmented", [False, True])
+def test_plain_flash_in_f64_matches_pallas_kernels(segmented):
+    """f64 inputs are evaluated in f64 (the card tests' accuracy reference
+    for peaked f32 inputs), and agree with the JAX f32 kernels."""
+    hmap = HMAPS["gqa"]
+    q, k, v, do = _inputs(hmap, seed=11)
+    seg = _segments(B, S) if segmented else None
+    want = _jax_kernels(q, k, v, do, hmap, seg, "float32")
+    tq, tk, tv, tdo = (_t(x, "float64") for x in (q, k, v, do))
+    hm = _t(hmap).int()
+    tseg = None if seg is None else _t(seg).int()
+    o, lse = ref.flash_attention_fwd(tq, tk, tv, hm, tseg)
+    got = (o, lse, *ref.flash_attention_bwd(tq, tk, tv, o, lse, tdo, hm,
+                                            tseg))
+    for name, g, w in zip(("o", "lse", "dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.float64, name
+        np.testing.assert_allclose(g.numpy(), w, err_msg=name,
+                                   **TOL["float32"])
+
+
+@pytest.mark.parametrize("segmented", [False, True])
 def test_ops_flash_attention_grads_match_jax(segmented):
     """The port's ``ops.flash_attention`` and its autograd against the JAX
     ``ops.flash_attention`` and ``jax.grad`` with respect to the
