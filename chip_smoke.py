@@ -25,8 +25,11 @@ Phases, each of which makes the run exit non-zero if it fails:
    and where the device time went (``torch.profiler``) in a second run;
 5. consistency at full width in f32: the engine's greedy tokens equal the
    argmax of one teacher-forced ``prefill`` (a path without the decode
-   kernel) at every generated position, with the kernels' launch counts of
-   that run checked as in phase 4;
+   kernels) at every generated position, on the paged layout and on the
+   dense one (the engine's default), with the kernels' launch counts of
+   each run checked as in phase 4: the dense decode kernel (row 3) once per
+   layer and decode step and the paged one never on the dense layout, and
+   the other way round on the paged layout;
 6. the training kernels against their plain versions, bf16 and f32, at the
    training path's shapes: the block gradient norms and the masked AdamW
    step (Triton) on the stacked leaves wg [24, 896*4864], wq [24, 896*1024]
@@ -95,7 +98,28 @@ Phases, each of which makes the run exit non-zero if it fails:
    each gradient leaf within 1e-5 of its largest magnitude; (b) 3 packed
    ``topk_grad`` steps on the card and on the CPU from one state: losses
    within 1e-4 relative, masks equal, each parameter leaf's card update
-   within ``PACKED_UPDATE_RTOL`` of the largest entry of its CPU update.
+   within ``PACKED_UPDATE_RTOL`` of the largest entry of its CPU update;
+15. the dense decode attention kernel (CUDA, row 3) against its plain
+   version, bf16 and f32, on one layer's unexpanded [B, S, KVH, D] cache
+   read through the qwen2.5-0.5b head map: the eval shape (16 rows, S 512,
+   valid_len mixed over 1, 9, 300 and 512), the S and valid_len of
+   ``tests/test_kernels.py::TestDecodeAttention`` (S 512/1024/2048, per-row
+   vectors), ragged S (1, 300) and head dim 128; two launches give the same
+   bits; in f32 with a peaked softmax the kernel's and the plain f32
+   version's outputs against the plain version in f64; row 3 against row 1
+   (the paged kernel) on the gathered view of one pool; times as in phase
+   3 beside the bytes bound, the plain version's and
+   ``scaled_dot_product_attention``'s (``enable_gqa``, a boolean valid-
+   length mask; timed only);
+16. the paper's greedy eval at full width: ``train.evaluate`` (zero-shot,
+   greedy, exact match; ``math_accuracy`` is its accuracy) in bf16 on the
+   params of phase 7's adagradselect run (``method.eval_params``), on the
+   task phase 7 trained on (seq_len 512), 32 held-out problems in chunks of
+   16 slots on the engine's dense layout; accuracy, generated tokens,
+   tokens/s, decode steps, launches (row 3 once per layer and decode step,
+   nothing else but the RMSNorm forward), peak device memory; a second call
+   gives the same accuracy and tokens; each call under 60 s; a short
+   profile of 16 problems' first 33 tokens with the idle share.
 
 Then it prints the kernel summary as one JSON line and, last, the device
 line ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
@@ -134,6 +158,9 @@ BANK_SLOTS = (16, 3, 24, 9, 21)      # 4 rows out of order, a free slot (24)
 BANK_SEL = (1.0, 1.0, 0.0, 0.0, 1.0)  # row 9 held but unselected
 FLASH_NAMES = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
 PACKED_UPDATE_RTOL = 0.1  # phase 14(b): of each leaf's largest CPU update
+DECODE_EVAL_VL = (1, 9, 300, 512) * 4  # phase 15's eval shape: 16 rows
+EVAL = dict(num_problems=32, batch_size=16)   # phase 16
+EVAL_CALL_S = 60.0        # phase 16: the most one eval call may take
 
 
 class PhaseFailed(RuntimeError):
@@ -346,8 +373,11 @@ def _requests(Request, vocab):
             for i, n in enumerate(PROMPT_LENS)]
 
 
-def _serve_once(torch, cfg, params, ServeEngine, ServeConfig, Request):
-    eng = ServeEngine(cfg, params, ServeConfig(**SERVE), device="cuda")
+def _serve_once(torch, cfg, params, ServeEngine, ServeConfig, Request,
+                layout="paged"):
+    eng = ServeEngine(cfg, params, ServeConfig(**{**SERVE,
+                                                  "kv_layout": layout}),
+                      device="cuda")
     t0 = time.perf_counter()
     res = eng.run(_requests(Request, cfg.vocab_size))
     torch.cuda.synchronize()
@@ -393,18 +423,23 @@ def phase_serving(torch, ops, lm, cfg, ServeEngine, ServeConfig,
     return {"launches": launches, "tok_s": gen / dt}
 
 
-def _check_launches(launches: dict, cfg, stats: dict) -> None:
+def _check_launches(launches: dict, cfg, stats: dict,
+                    layout="paged") -> None:
     """Each kernel of the path ran, as often as the path calls it (and so
-    at least once): one paged decode per layer and decode step, one RMSNorm
-    per norm (two per block and the final one) and forward (prefill or
-    decode step), and no training kernel."""
+    at least once): one decode attention per layer and decode step (the
+    paged kernel on the paged layout, the dense one on the dense layout),
+    one RMSNorm per norm (two per block and the final one) and forward
+    (prefill or decode step), and no other kernel."""
     steps = stats["decode_chunks"] * SERVE["decode_chunk"]
     want = {k: 0 for k in launches}   # the training kernels: off this path
+    attn = {"paged": "paged_decode_attention",
+            "dense": "decode_attention"}[layout]
     want.update({
-        "paged_decode_attention": cfg.num_layers * steps,
+        attn: cfg.num_layers * steps,
         "rmsnorm": (2 * cfg.num_layers + 1) * (steps + stats["prefills"])})
-    check(launches == want, f"launch counts {launches} != the path's "
-          f"{want} ({steps} decode steps, {stats['prefills']} prefills)")
+    check(launches == want, f"launch counts {launches} != the {layout} "
+          f"path's {want} ({steps} decode steps, {stats['prefills']} "
+          f"prefills)")
 
 
 def _leaves(tree):
@@ -441,44 +476,52 @@ def _profile(torch, cfg, params, ServeEngine, ServeConfig, Request):
 
 
 def phase_consistency(torch, ops, lm, cfg, ServeEngine, ServeConfig,
-                      Request):
+                      Request) -> dict:
     """f32 engine tokens == argmax of one teacher-forced prefill per request
-    (rows = the request's prompt + generated tokens, lengths = prompt + i)."""
+    (rows = the request's prompt + generated tokens, lengths = prompt + i),
+    on the paged layout and on the dense one. Returns the launches of the
+    dense run."""
     cfg = cfg.replace(dtype="float32")
     params = lm.init(cfg, torch.Generator(device="cuda").manual_seed(0),
                      device="cuda")
-    ops.reset_launches()
-    eng, res, _ = _serve_once(torch, cfg, params, ServeEngine, ServeConfig,
-                              Request)
-    launches = dict(ops.LAUNCHES)
-    _check_launches(launches, cfg, eng.stats)
     reqs = {r.uid: r for r in _requests(Request, cfg.vocab_size)}
-    checked = 0
-    for uid, toks in sorted(res.items()):
-        prompt = reqs[uid].tokens
-        full = torch.as_tensor(list(prompt) + list(toks), device="cuda")
-        rows = full[None, :].expand(NEW_TOKENS, -1).contiguous()
-        lengths = torch.arange(NEW_TOKENS, device="cuda") + len(prompt)
-        logits, _ = lm.prefill(params, cfg, {"tokens": rows}, rows.shape[1],
-                               lengths=lengths)
-        check(tuple(logits.shape) == (NEW_TOKENS, cfg.padded_vocab_size)
-              and torch.isfinite(logits[:, :cfg.vocab_size]).all().item(),
-              f"request {uid}: prefill logits {tuple(logits.shape)} not "
-              f"finite or misshapen")
-        want = torch.argmax(logits, dim=-1).cpu().numpy()
-        bad = (want != toks).nonzero()[0]
-        if bad.size:
-            i = int(bad[0])
-            top = torch.topk(logits[i].float(), 2).values.tolist()
-            raise PhaseFailed(
-                f"request {uid} (prompt {len(prompt)}): first mismatch at "
-                f"generated position {i}: engine {int(toks[i])}, "
-                f"teacher-forced prefill {int(want[i])} (top-2 logits "
-                f"{top})")
-        checked += len(toks)
-    print(f"consistency (f32, full width): {checked} greedy tokens of "
-          f"{len(res)} requests equal the teacher-forced prefill argmax; "
-          f"kernel launches in the f32 serving run: {json.dumps(launches)}")
+    out = {}
+    for layout in ("paged", "dense"):
+        ops.reset_launches()
+        eng, res, _ = _serve_once(torch, cfg, params, ServeEngine,
+                                  ServeConfig, Request, layout)
+        launches = dict(ops.LAUNCHES)
+        _check_launches(launches, cfg, eng.stats, layout)
+        checked = 0
+        for uid, toks in sorted(res.items()):
+            prompt = reqs[uid].tokens
+            full = torch.as_tensor(list(prompt) + list(toks), device="cuda")
+            rows = full[None, :].expand(NEW_TOKENS, -1).contiguous()
+            lengths = torch.arange(NEW_TOKENS, device="cuda") + len(prompt)
+            logits, _ = lm.prefill(params, cfg, {"tokens": rows},
+                                   rows.shape[1], lengths=lengths)
+            check(tuple(logits.shape) == (NEW_TOKENS, cfg.padded_vocab_size)
+                  and torch.isfinite(logits[:, :cfg.vocab_size]).all()
+                  .item(), f"{layout} request {uid}: prefill logits "
+                  f"{tuple(logits.shape)} not finite or misshapen")
+            want = torch.argmax(logits, dim=-1).cpu().numpy()
+            bad = (want != toks).nonzero()[0]
+            if bad.size:
+                i = int(bad[0])
+                top = torch.topk(logits[i].float(), 2).values.tolist()
+                raise PhaseFailed(
+                    f"{layout} request {uid} (prompt {len(prompt)}): first "
+                    f"mismatch at generated position {i}: engine "
+                    f"{int(toks[i])}, teacher-forced prefill {int(want[i])} "
+                    f"(top-2 logits {top})")
+            checked += len(toks)
+        print(f"consistency (f32, full width, {layout} KV): {checked} greedy "
+              f"tokens of {len(res)} requests equal the teacher-forced "
+              f"prefill argmax; kernel launches in that serving run "
+              f"({eng.stats['decode_chunks'] * SERVE['decode_chunk']} decode "
+              f"steps): {json.dumps(launches)}")
+        out[layout] = launches
+    return {"dense_launches": out["dense"]}
 
 
 # ------------------------------------------------------------ training
@@ -675,8 +718,9 @@ def phase_training(torch, ops, cfg, Trainer) -> dict:
           f"{mask_sum.tolist()}")
     per_step = {name: n / steps for name, n in launches.items()}
     nl = cfg.num_layers
-    want = {"paged_decode_attention": 0, "block_grad_sq_norms": 12,
-            "masked_adamw": 12, "banked_masked_adamw": 0,
+    want = {"paged_decode_attention": 0, "decode_attention": 0,
+            "block_grad_sq_norms": 12, "masked_adamw": 12,
+            "banked_masked_adamw": 0,
             # forward, and the recompute of each layer's two norms
             # (remat="full"), then the backward of every norm
             "rmsnorm": 2 * nl + 1 + 2 * nl, "rmsnorm_bwd": 2 * nl + 1,
@@ -695,8 +739,13 @@ def phase_training(torch, ops, cfg, Trainer) -> dict:
           f"{mask_sum.int().tolist()}")
     print(f"  launches per step: {json.dumps(per_step)}")
     _profile_training(torch, tr)
+    # phase 16 evaluates these params; they wait on the host, so that the
+    # peaks measured in between are those of the phases' own runs
+    eval_params = _to(tr.method.eval_params(cfg, tcfg.optimizer, tr.state),
+                      "cpu")
     return {"launches": launches, "step_ms": med * 1e3, "peak": peak,
-            "tokens_s": tokens / med}
+            "tokens_s": tokens / med, "eval_params": eval_params,
+            "task": tr.data.cfg}
 
 
 def _profile_training(torch, tr) -> None:
@@ -972,8 +1021,9 @@ def phase_banked_training(torch, ops, cfg, Trainer, dense) -> dict:
               f"losses {log.losses}")
         n = steps - warm
         per_step = {name: c / n for name, c in launches.items()}
-        want = {"paged_decode_attention": 0, "block_grad_sq_norms": 12,
-                "masked_adamw": 0, "banked_masked_adamw": 12,
+        want = {"paged_decode_attention": 0, "decode_attention": 0,
+                "block_grad_sq_norms": 12, "masked_adamw": 0,
+                "banked_masked_adamw": 12,
                 "rmsnorm": 2 * nl + 1 + 2 * nl, "rmsnorm_bwd": 2 * nl + 1,
                 **_flash_per_step(nl)}
         check(per_step == want, f"launches per step {per_step} != the "
@@ -1438,9 +1488,10 @@ def phase_packed_training(torch, ops, cfg, Trainer, loader, dense) -> dict:
     check(n_sel == [k] * steps, f"num_selected per step {n_sel}, want {k}")
     per_step = {name: n / steps for name, n in launches.items()}
     nl = cfg.num_layers
-    want = {"paged_decode_attention": 0, "block_grad_sq_norms": 12,
-            "masked_adamw": 12, "banked_masked_adamw": 0,
-            "rmsnorm": 4 * nl + 1, "rmsnorm_bwd": 2 * nl + 1,
+    want = {"paged_decode_attention": 0, "decode_attention": 0,
+            "block_grad_sq_norms": 12, "masked_adamw": 12,
+            "banked_masked_adamw": 0, "rmsnorm": 4 * nl + 1,
+            "rmsnorm_bwd": 2 * nl + 1,
             **_flash_per_step(nl)}
     check(per_step == want, f"launches per step {per_step} != the packed "
           f"path's {want}")
@@ -1556,6 +1607,273 @@ def phase_packed_consistency(torch, ops, cfg, Trainer, loader, lm,
           f"largest entry > {PACKED_UPDATE_RTOL}")
 
 
+# ------------------------------------------------------- dense decode
+
+
+def _decode_case(torch, dtype, b, s, vlens, d=64, seed=0):
+    """One layer's dense cache [B, S, 2, D] and q [B, 1, 16, D] through
+    qwen2.5-0.5b's head map (7 q heads on kv head 0, 9 on kv head 1: the
+    two padded ones clamp onto the last); q = 3 N(0, 1) against N(0, 1)
+    keys and values: a peaked softmax whose outputs stay large beside the
+    tolerance."""
+    h, kvh = 16, 2
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dt = getattr(torch, dtype)
+    q = (3 * torch.randn(b, 1, h, d, generator=g, device="cuda")).to(dt)
+    k = torch.randn(b, s, kvh, d, generator=g, device="cuda").to(dt)
+    v = torch.randn(b, s, kvh, d, generator=g, device="cuda").to(dt)
+    vl = torch.tensor(vlens, dtype=torch.int32, device="cuda")
+    hmap = torch.tensor([min(i // 7, kvh - 1) for i in range(h)],
+                        dtype=torch.int32, device="cuda")
+    return q, k, v, vl, hmap
+
+
+def phase_decode_kernel(torch, ops, ref, timer) -> dict:
+    """Row 3 against its plain version; returns the summary entry at the
+    eval shape (bf16)."""
+    cases = [("eval", 16, 512, 64, DECODE_EVAL_VL),
+             ("S=512", 2, 512, 64, (100, 100)),
+             ("S=1024", 2, 1024, 64, (1024, 1024)),
+             ("S=2048", 2, 2048, 64, (7, 7)),
+             ("vec S=512", 3, 512, 64, (1, 100, 512)),
+             ("vec S=1024", 3, 1024, 64, (7, 1024, 333)),
+             ("S=1", 2, 1, 64, (1, 1)),
+             ("S=300", 2, 300, 64, (1, 300)),
+             ("D=128", 2, 512, 128, (100, 512))]
+    rows, main = [], {}
+    print("dense decode attention (row 3) vs its plain version, 16 q heads "
+          "on 2 kv heads (qwen2.5-0.5b map), q = 3 N(0, 1):")
+    for dtype in ("bfloat16", "float32"):
+        for label, b, s, d, vlens in cases:
+            q, k, v, vl, hm = _decode_case(torch, dtype, b, s, vlens, d)
+            n0 = ops.LAUNCHES["decode_attention"]
+            out = ops.decode_attention(q, k, v, vl, hm)
+            again = ops.decode_attention(q, k, v, vl, hm)
+            torch.cuda.synchronize()
+            check(ops.LAUNCHES["decode_attention"] == n0 + 2,
+                  "decode_attention did not count its launches")
+            check(out.shape == q.shape and out.dtype == q.dtype,
+                  f"decode_attention {label}: {tuple(out.shape)} "
+                  f"{out.dtype}")
+            check(_bits_equal(torch, out, again),
+                  f"decode_attention {label} {dtype}: two launches differ")
+            plain = ref.decode_attention_cache(q[:, 0], k, v, vl, hm)
+            err = _check_close(torch, out[:, 0], plain, dtype,
+                               f"decode_attention {label}")
+            print(f"  {label:<11} {dtype:<9} B={b} S={s} D={d} valid_len "
+                  f"{list(vlens[:4])}{'...' if len(vlens) > 4 else ''}: max "
+                  f"|err| {err:.2e} (rtol=atol {TOL[dtype]:.0e}); "
+                  f"bit-identical over two launches")
+            if label == "eval":
+                rows.append(_decode_times(torch, ops, ref, timer, dtype,
+                                          q, k, v, vl, hm, err))
+                if dtype == "bfloat16":
+                    main["decode_attention"] = rows[-1]
+            del q, k, v, out, again, plain
+    for label, b, s, d, vlens in (cases[0], cases[-1]):
+        _decode_f64(torch, ops, ref, label, b, s, d, vlens)
+    for dtype in ("bfloat16", "float32"):
+        _decode_vs_paged(torch, ops, dtype)
+    print("dense decode at the eval shape (CUDA events, L2 flushed, ms per "
+          "call):")
+    for r in rows:
+        print(f"  {r['kernel']:<17} {r['dtype']:<9} err "
+              f"{r['max_abs_err']:.2e}  kernel {r['ms']:.4f}  plain "
+              f"{r['plain_ms']:.4f}  library {r['library_ms']:.4f}  bound "
+              f"{r['bound_ms']:.5f} ({r['bound_by']})  {r['shape']}")
+    print("  library: F.scaled_dot_product_attention(enable_gqa=True) on "
+          "[B, H, 1, D] and [B, KVH, S, D] with a boolean [B, 1, 1, S] "
+          "valid-length mask (its GQA map is h // 8, which moves no work; "
+          "timed only)")
+    return main
+
+
+def _decode_times(torch, ops, ref, timer, dtype, q, k, v, vl, hm,
+                  err) -> dict:
+    F = torch.nn.functional
+    b, _, h, d = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    es = q.element_size()
+    kv_pos = sum(min(x, s) for x in vl.tolist())
+    # the valid K/V rows, q and o, the lengths and the map
+    nbytes = 2 * kv_pos * kvh * d * es + 2 * b * h * d * es + 4 * (b + h)
+    bms, by = bound_ms(nbytes, 4 * kv_pos * h * d, dtype)
+    ql = q.transpose(1, 2).contiguous()               # [B, H, 1, D]
+    kl, vl_ = (t.transpose(1, 2).contiguous() for t in (k, v))
+    mask = (torch.arange(s, device="cuda")[None, :]
+            < vl[:, None])[:, None, None, :]          # [B, 1, 1, S]
+    return dict(
+        kernel="decode_attention", case="eval", dtype=dtype,
+        shape=f"B={b} S={s} H={h} KVH={kvh} D={d}, {kv_pos} valid "
+        f"positions", max_abs_err=err, tol=TOL[dtype],
+        ms=timer.ms(lambda: ops.decode_attention(q, k, v, vl, hm)),
+        plain_ms=timer.ms(lambda: ref.decode_attention_cache(q[:, 0], k, v,
+                                                             vl, hm)),
+        library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
+            ql, kl, vl_, attn_mask=mask, enable_gqa=True)),
+        bound_ms=bms, bound_by=by)
+
+
+def _decode_f64(torch, ops, ref, label, b, s, d, vlens) -> None:
+    """f32 at q = 3 N(0, 1): the kernel's output and the plain f32
+    version's against the plain version in f64 on the same inputs, each as
+    max |err| / (tol + tol |f64|) (at most 1 is within the f32 tolerance).
+    Fails unless the kernel is within the tolerance of f64 or no further
+    from it than the plain f32 version."""
+    q, k, v, vl, hm = _decode_case(torch, "float32", b, s, vlens, d, seed=1)
+    got = ops.decode_attention(q, k, v, vl, hm)[:, 0]
+    plain = ref.decode_attention_cache(q[:, 0], k, v, vl, hm)
+    exact = ref.decode_attention_cache(q[:, 0].double(), k.double(),
+                                       v.double(), vl, hm)
+    check(exact.dtype == torch.float64, f"decode f64: {exact.dtype}")
+    tol = TOL["float32"]
+    ek, ep = ((t.double() - exact).abs().div(tol + tol * exact.abs()).max()
+              .item() for t in (got, plain))
+    print(f"  {label:<11} f32 B={b} S={s} D={d}: max |err| / (tol + tol "
+          f"|f64|) against the f64 plain version, kernel {ek:.3g}, plain "
+          f"f32 {ep:.3g} (kernel must be <= max(1, plain))")
+    check(ek <= max(1.0, ep), f"decode {label} f32 peaked: the kernel is "
+          f"further from f64 ({ek:.3g}) than the plain version ({ep:.3g}) "
+          f"and than the tolerance")
+
+
+def _decode_vs_paged(torch, ops, dtype) -> None:
+    """Row 3 on the dense view gathered from a pool through its page
+    tables against row 1 on the pool (tests/test_kernels.py::
+    test_matches_dense_kernel_on_gathered_view; f32 at its 2e-5)."""
+    q, kp, vp, tbl, vl, hm = _paged_inputs(torch, dtype, 4, [1, 17, 300, 512])
+    paged = ops.paged_decode_attention(q, kp, vp, tbl, vl, hm)
+    rows = tbl.long().clamp(max=kp.shape[0] - 1)
+    kd, vd = (p[rows].reshape(q.shape[0], -1, *p.shape[2:]).contiguous()
+              for p in (kp, vp))
+    dense = ops.decode_attention(q, kd, vd, vl, hm)
+    torch.cuda.synchronize()
+    tol = 2e-5 if dtype == "float32" else TOL[dtype]
+    diff = (dense.float() - paged.float()).abs()
+    ok = bool((diff <= tol + tol * paged.float().abs()).all())
+    print(f"  row 3 on the gathered view vs row 1 on the pool, {dtype}, B=4 "
+          f"page 16, valid_len [1, 17, 300, 512]: max |diff| "
+          f"{diff.max().item():.2e} (rtol=atol {tol:.0e})")
+    check(ok, f"row 3 and row 1 differ on one pool ({dtype}): max |diff| "
+          f"{diff.max().item()}")
+
+
+# ------------------------------------------------------------ greedy eval
+
+
+def phase_eval(torch, ops, cfg, evaluate, training) -> dict:
+    """The paper's greedy eval on phase 7's trained params."""
+    import numpy as np
+
+    from repro_torch.data import synthetic
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = _to(training["eval_params"], "cuda")
+    task = training["task"]
+    nl = cfg.num_layers
+    max_new = task.seq_len - synthetic.prompt_len(task)
+    print(f"greedy eval of {cfg.name} ({cfg.dtype}) after phase 7's "
+          f"adagradselect run: {EVAL['num_problems']} held-out problems of "
+          f"the task it trained on ({task}), chunks of {EVAL['batch_size']} "
+          f"slots on the dense KV layout, up to {max_new} new tokens each")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runs, secs = [], []
+    for i in range(2):
+        if i == 0:
+            ops.reset_launches()             # the main path's run
+        t0 = time.perf_counter()
+        runs.append(evaluate.greedy_eval(params, cfg, task, **EVAL,
+                                         device="cuda"))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        if i == 0:
+            launches = dict(ops.LAUNCHES)
+    run = runs[0]
+    st = run.stats
+    steps = st["decode_chunks"] * SERVE["decode_chunk"]
+    _check_launches(launches, cfg, st, "dense")
+    check(len(run.tokens) == EVAL["num_problems"]
+          and all(1 <= len(t) <= max_new and (t >= 0).all()
+                  and (t < cfg.vocab_size).all() for t in run.tokens),
+          f"generated lengths {[len(t) for t in run.tokens]}")
+    check(0.0 <= run.accuracy <= 1.0, f"accuracy {run.accuracy}")
+    again = runs[1]
+    same = [bool(np.array_equal(a, b)) for a, b in zip(run.tokens,
+                                                          again.tokens)]
+    check(again.accuracy == run.accuracy and all(same),
+          f"a second eval call differs: accuracy {again.accuracy} vs "
+          f"{run.accuracy}, tokens equal per problem {same}")
+    check(max(secs) <= EVAL_CALL_S, f"an eval call took {max(secs):.1f} s "
+          f"(limit {EVAL_CALL_S} s)")
+    gen = sum(len(t) for t in run.tokens)
+    answered = sum(p is not None for p in run.predictions)
+    print(f"  accuracy {run.accuracy} ({answered} of {len(run.tokens)} "
+          f"generations carry an answer; problem 0 asks "
+          f"{run.answers[0]} and begins {run.tokens[0][:12].tolist()}); "
+          f"{gen} tokens generated in "
+          f"{secs[0]:.3f} s = {gen / secs[0]:.1f} tok/s (prefill included); "
+          f"{steps} decode steps in {st['decode_chunks']} chunks, "
+          f"{st['prefills']} prefills")
+    print(f"  kernel launches in that run: {json.dumps(launches)} (row 3 = "
+          f"{nl} layers x {steps} decode steps; no plain decode attention)")
+    print(f"  peak device memory: "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"  second call: same accuracy and the same tokens for all "
+          f"{len(run.tokens)} problems, {secs[1]:.3f} s = "
+          f"{gen / secs[1]:.1f} tok/s")
+    t0 = time.perf_counter()
+    _profile_eval(torch, cfg, params, task)
+    print(f"  phase time {time.perf_counter() - t_phase:.1f} s (the eval "
+          f"calls {secs[0]:.1f} + {secs[1]:.1f} s, the profile "
+          f"{time.perf_counter() - t0:.1f} s)")
+    return {"launches": launches, "accuracy": run.accuracy,
+            "tok_s": gen / secs[0]}
+
+
+def _profile_eval(torch, cfg, params, task) -> None:
+    """The eval's engine on its first 16 problems, 33 new tokens each (4
+    decode chunks), under the profiler, which records the device's
+    activity only (the host's ops would take it longer to process than the
+    run takes)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data import synthetic as syn
+    from repro_torch.serve import Request, ServeConfig, ServeEngine
+    p_len = syn.prompt_len(task)
+    reqs = [Request(uid=i, tokens=syn.sample_problem(
+        task, task.eval_offset + i)[0][:p_len], max_new_tokens=33)
+        for i in range(EVAL["batch_size"])]
+    eng = ServeEngine(cfg, params, ServeConfig(
+        max_len=task.seq_len, num_slots=EVAL["batch_size"], eos_id=syn.EOS),
+        device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0   # the run, not the trace's upkeep
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_time_total", 0) > 0
+              and e.device_type.name == "CUDA"]
+    if not events:
+        print("  profile: the profiler saw no device time (not measured)")
+        return
+    busy_us = sum(e.device_time_total for e in events)
+    dec = sum(e.device_time_total for e in events
+              if "decode_kernel<" in e.key and "paged" not in e.key) / 1e3
+    print(f"  profile (16 problems, 33 new tokens each, profiler on): wall "
+          f"{wall * 1e3:.1f} ms, {eng.stats['decode_chunks']} decode chunks,"
+          f" device kernels {busy_us / 1e3:.1f} ms in "
+          f"{sum(e.count for e in events)} launches, device idle share "
+          f"{max(0.0, 1 - busy_us / 1e6 / wall):.3f}; row 3 {dec:.3f} ms = "
+          f"{dec / (busy_us / 1e3):.3f} of device time")
+    for e in sorted(events, key=lambda e: -e.device_time_total)[:10]:
+        print(f"    {e.device_time_total / 1e3:9.2f} ms {e.count:7d}x  "
+              f"{e.key[:90]}")
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -1576,7 +1894,7 @@ def main() -> int:
         from repro_torch.kernels import flash_attention as _fa
         from repro_torch.models import lm
         from repro_torch.serve import Request, ServeConfig, ServeEngine
-        from repro_torch.train import step
+        from repro_torch.train import evaluate, step
         from repro_torch.train.trainer import Trainer
     except ImportError as e:
         print(f"chip_smoke: the repro_torch package is not beside this "
@@ -1597,8 +1915,8 @@ def main() -> int:
         serving = phase_serving(torch, ops, lm, cfg, ServeEngine,
                                 ServeConfig, Request)
         phase = "consistency"
-        phase_consistency(torch, ops, lm, cfg, ServeEngine, ServeConfig,
-                          Request)
+        consistency = phase_consistency(torch, ops, lm, cfg, ServeEngine,
+                                        ServeConfig, Request)
         phase = "train kernels"
         main_rows.update(phase_train_kernels(torch, ops, ref, Timer(torch)))
         phase = "training"
@@ -1619,6 +1937,10 @@ def main() -> int:
                                        training)
         phase = "packed consistency"
         phase_packed_consistency(torch, ops, cfg, Trainer, loader, lm, step)
+        phase = "decode kernel"
+        main_rows.update(phase_decode_kernel(torch, ops, ref, Timer(torch)))
+        phase = "eval"
+        evaluation = phase_eval(torch, ops, cfg, evaluate, training)
     except Exception:   # the boundary: report the failed phase, exit non-zero
         traceback.print_exc()
         print(f"chip_smoke: phase {phase!r} FAILED", file=sys.stderr)
@@ -1626,6 +1948,9 @@ def main() -> int:
     sources = {"paged_decode_attention": (
         "cuda", "src/repro_torch/csrc/paged_decode_attention.cu",
         "src/repro/kernels/decode_attention.py:95"),
+        "decode_attention": (
+            "cuda", "src/repro_torch/csrc/decode_attention.cu",
+            "src/repro/kernels/decode_attention.py:24"),
         "rmsnorm": ("triton", "src/repro_torch/kernels/rmsnorm.py",
                     "src/repro/kernels/rmsnorm.py:13"),
         # no TPU kernel: the JAX package differentiates norms.apply in XLA;
@@ -1654,8 +1979,12 @@ def main() -> int:
         # launches of the main-path runs: serving (phase 4) + training (7),
         # the banked training window (phase 10) for the banked kernel, and
         # training (7), banked training (10) and packed training (13) for
-        # the flash kernels
-        if name == "banked_masked_adamw":
+        # the flash kernels, the dense serving run of phase 5 and the eval
+        # (16) for the dense decode kernel
+        if name == "decode_attention":
+            launches = (consistency["dense_launches"][name]
+                        + evaluation["launches"][name])
+        elif name == "banked_masked_adamw":
             launches = banked["launches"][name]
         elif name.startswith("flash"):
             launches = (training["launches"][name]

@@ -1,7 +1,6 @@
 """Synthetic math-reasoning dataset — the offline proxy for MetaMathQA-40K
-(a copy of the JAX package's ``data/synthetic.py`` without its answer
-parsers ``answer_of``/``decode_answer``, which follow with the greedy eval,
-ROADMAP Queue A item 5).
+(a copy of the JAX package's ``data/synthetic.py``, with the answer parsers
+``answer_of``/``decode_answer`` that the greedy eval reads).
 
 Problems are multi-digit additions with a column-by-column chain-of-thought
 and a final answer, emitted as token sequences with a loss mask covering only
@@ -73,3 +72,25 @@ def batch_at(cfg: MathTaskConfig, step: int, batch_size: int,
     base = step * batch_size + (cfg.eval_offset if eval_split else 0)
     toks, masks = zip(*(sample_problem(cfg, base + i) for i in range(batch_size)))
     return {"tokens": np.stack(toks), "loss_mask": np.stack(masks)}
+
+
+def answer_of(cfg: MathTaskConfig, index: int, eval_split: bool = True) -> int:
+    rng = np.random.default_rng((cfg.seed, (cfg.eval_offset if eval_split else 0) + index))
+    hi = 10 ** cfg.digits
+    a, b = int(rng.integers(0, hi)), int(rng.integers(0, hi))
+    return a + b
+
+
+def decode_answer(tokens: np.ndarray) -> int | None:
+    """Parse the digits following the ANS token of a generated sequence."""
+    toks = list(np.asarray(tokens))
+    if ANS not in toks:
+        return None
+    i = toks.index(ANS) + 1
+    digits = []
+    while i < len(toks) and D0 <= toks[i] <= D0 + 9:
+        digits.append(toks[i] - D0)
+        i += 1
+    if not digits:
+        return None
+    return int("".join(map(str, digits)))

@@ -15,13 +15,15 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import block_grad_norm as _bgn
+from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import masked_adamw as _ma
 from repro_torch.kernels import paged_decode_attention as _pda
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as _rn
 
-LAUNCHES = {"paged_decode_attention": 0, "rmsnorm": 0, "rmsnorm_bwd": 0,
+LAUNCHES = {"paged_decode_attention": 0, "decode_attention": 0,
+            "rmsnorm": 0, "rmsnorm_bwd": 0,
             "block_grad_sq_norms": 0, "masked_adamw": 0,
             "banked_masked_adamw": 0, "flash_attention_fwd": 0,
             "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
@@ -107,6 +109,62 @@ def paged_decode_attention(q, k_pool, v_pool, page_tables, valid_len, hmap):
     out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
     _pda.launch(q.view(b, h, d), k_pool, v_pool, page_tables, valid_len,
                 hmap, out)
+    LAUNCHES[name] += 1
+    return out.view(b, 1, h, d)
+
+
+def decode_attention(q, k_cache, v_cache, valid_len, hmap, *, softcap=0.0):
+    """q: [B, 1, H, D]; k_cache/v_cache: one layer's dense cache [B, S, KVH,
+    D] (not head-expanded); valid_len: [B] int32 per-row cache length (>= 1
+    on the serving path; a CPU call also takes a scalar); hmap: [H] int32
+    q-head -> kv-head map -> [B, 1, H, D] in the dtype of q. One launch of
+    the dense decode kernel (row 3). ``valid_len`` is not read on the host.
+    A logit softcap is not implemented by the kernel and raises."""
+    name = "decode_attention"
+    if softcap:
+        _fail(name, f"softcap = {softcap}: the kernel implements no logit "
+              f"softcap (0 only)")
+    b, one, h, d = q.shape
+    if one != 1:
+        _fail(name, f"q must be [B, 1, H, D], got {tuple(q.shape)}")
+    vl = (valid_len,) if isinstance(valid_len, torch.Tensor) else ()
+    if not _on_card(name, q, k_cache, v_cache, hmap, *vl):
+        out = ref.decode_attention_cache(q.reshape(b, h, d), k_cache,
+                                         v_cache, valid_len, hmap)
+        return out.reshape(b, 1, h, d)
+    # messages are formatted only on failure: this runs on every decode step
+    if not vl:
+        _fail(name, "valid_len must be an int32 [B] tensor on the card")
+    if q.dtype not in _FLOATS or k_cache.dtype != q.dtype \
+            or v_cache.dtype != q.dtype:
+        _fail(name, f"q and the caches must share a dtype of float32 or "
+              f"bfloat16, got {q.dtype}/{k_cache.dtype}/{v_cache.dtype}")
+    if k_cache.ndim != 4 or k_cache.shape[0] != b or k_cache.shape[3] != d \
+            or v_cache.shape != k_cache.shape:
+        _fail(name, f"k_cache and v_cache must be [B={b}, S, KVH, D={d}], "
+              f"got {tuple(k_cache.shape)} and {tuple(v_cache.shape)}")
+    if d not in _dec.HEAD_DIMS:
+        _fail(name, f"the kernel takes head dim {_dec.HEAD_DIMS}, got {d}")
+    if h > _dec.MAX_HEADS:
+        _fail(name, f"the kernel takes at most {_dec.MAX_HEADS} q heads, "
+              f"got {h}")
+    if valid_len.shape != (b,) or hmap.shape != (h,):
+        _fail(name, f"valid_len must be [B={b}] and hmap [H={h}], got "
+              f"{tuple(valid_len.shape)} and {tuple(hmap.shape)}")
+    if valid_len.dtype != torch.int32 or hmap.dtype != torch.int32:
+        _fail(name, f"valid_len and hmap must be int32, got "
+              f"{valid_len.dtype} and {hmap.dtype}")
+    for t in (q, k_cache, v_cache, valid_len, hmap):
+        if not t.is_contiguous():
+            _fail(name, "every operand must be contiguous")
+        if t.data_ptr() % 16:
+            _fail(name, "every operand must be 16-byte aligned")
+    s, kvh = k_cache.shape[1], k_cache.shape[2]
+    if not (0 < b <= 65535 and kvh > 0 and s > 0):
+        _fail(name, f"grid out of range (B={b}, KVH={kvh}, S={s})")
+    _dec.load()   # a missing build raises here, before any allocation
+    out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
+    _dec.launch(q.view(b, h, d), k_cache, v_cache, valid_len, hmap, out)
     LAUNCHES[name] += 1
     return out.view(b, 1, h, d)
 

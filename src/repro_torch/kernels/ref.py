@@ -2,13 +2,16 @@
 
 Ports of ``decode_attention``, ``paged_decode_attention``, ``rmsnorm``,
 ``block_grad_sq_norms`` and ``masked_adamw`` from the JAX package's
-``kernels/ref.py``; ``flash_attention_fwd`` and ``flash_attention_bwd``,
-the math of the JAX package's flash kernels (``kernels/flash_attention.py``)
-in one tile, on unexpanded K/V; ``rmsnorm_bwd``, the autograd of ``rmsnorm`` (the
-JAX package differentiates its RMSNorm in XLA and has no kernel or oracle
-for it); and ``banked_masked_adamw``, the gather, ``masked_adamw`` and
-scatter that the reference's banked step runs around its kernel. ``ops.py`` takes these for tensors on the CPU; ``chip_smoke.py``
-holds the CUDA and Triton kernels against them on the card.
+``kernels/ref.py``; ``decode_attention_cache``, the dense decode on one
+layer's unexpanded cache read through a head map; ``flash_attention_fwd``
+and ``flash_attention_bwd``, the math of the JAX package's flash kernels
+(``kernels/flash_attention.py``) in one tile, on unexpanded K/V;
+``rmsnorm_bwd``, the autograd of ``rmsnorm`` (the JAX package
+differentiates its RMSNorm in XLA and has no kernel or oracle for it); and
+``banked_masked_adamw``, the gather, ``masked_adamw`` and scatter that the
+reference's banked step runs around its kernel. ``ops.py`` takes these for
+tensors on the CPU; ``chip_smoke.py`` holds the CUDA and Triton kernels
+against them on the card.
 """
 from __future__ import annotations
 
@@ -19,10 +22,12 @@ NEG_INF = -1e30
 
 def decode_attention(q, k, v, valid_len):
     """q: [B, H, D]; k, v: [B, H, S, D]; valid_len: scalar or per-row [B]
-    tensor — masked single-query attention, f32 softmax."""
+    tensor — masked single-query attention, f32 softmax (f64 for f64
+    inputs, the exact evaluation the f32 kernels are held against)."""
     s = k.shape[2]
     scale = q.shape[-1] ** -0.5
-    scores = torch.einsum("bhd,bhkd->bhk", q.float(), k.float()) * scale
+    ct = torch.float64 if q.dtype == torch.float64 else torch.float32
+    scores = torch.einsum("bhd,bhkd->bhk", q.to(ct), k.to(ct)) * scale
     vl = torch.as_tensor(valid_len, device=q.device)
     kpos = torch.arange(s, device=q.device)
     if vl.ndim:
@@ -31,8 +36,21 @@ def decode_attention(q, k, v, valid_len):
         mask = (kpos < vl)[None, None, :]
     scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhk,bhkd->bhd", probs, v.float())
+    out = torch.einsum("bhk,bhkd->bhd", probs, v.to(ct))
     return out.to(q.dtype)
+
+
+def decode_attention_cache(q, k_cache, v_cache, valid_len, hmap):
+    """q: [B, H, D]; k_cache/v_cache: one layer's unexpanded dense cache
+    [B, S, KVH, D]; valid_len: scalar or per-row [B]; hmap: [H] int q-head
+    -> kv-head map. Expands the cache through hmap and defers to
+    ``decode_attention``."""
+    hm = hmap.long()
+
+    def dense(cache):  # [B, S, KVH, D] -> [B, H, S, D]
+        return cache[:, :, hm, :].transpose(1, 2)
+
+    return decode_attention(q, dense(k_cache), dense(v_cache), valid_len)
 
 
 def paged_decode_attention(q, k_pool, v_pool, page_tables, valid_len, hmap):

@@ -31,10 +31,12 @@ tokens and the records a step.
 
 Flags of the reference whose feature is not ported raise
 ``NotImplementedError`` naming its ROADMAP Queue A item: ``--method lora``
-(4), ``--checkpoint-dir``/``--checkpoint-every`` (3), ``--eval-every`` (5),
-``--data jsonl`` and ``--prefetch-depth`` (8),
+(4), ``--checkpoint-dir``/``--checkpoint-every`` (3), ``--data jsonl`` and
+``--prefetch-depth`` (8),
 ``--trace``/``--metrics-json``/``--report`` (10), ``--mesh``, ``--offload
 zero1`` and ``--offload`` under ``--moment-residency device`` (11).
+``--eval-every`` raises as well: the reference trainer has no eval hook;
+evaluate after training with ``repro_torch.train.evaluate.math_accuracy``.
 """
 from __future__ import annotations
 

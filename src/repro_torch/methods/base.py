@@ -3,9 +3,8 @@
 
 A fine-tuning method owns what the paper varies between its compared
 approaches: the state a training run carries, how one step is built, and
-how many parameters it trains. The trainer is method-agnostic. (The
-reference's ``eval_params`` comes with the greedy eval, ROADMAP Queue A
-item 5.)
+how many parameters it trains, and which parameters the greedy eval
+(``train/evaluate.py``) decodes with. The trainer is method-agnostic.
 """
 from __future__ import annotations
 
@@ -46,6 +45,11 @@ class FinetuneMethod(Protocol):
 
     def make_step(self, model_cfg: ModelConfig, opt_cfg: OptimizerConfig):
         """-> ``(state, batch) -> (state, metrics)``."""
+        ...
+
+    def eval_params(self, model_cfg: ModelConfig, opt_cfg: OptimizerConfig,
+                    state: dict) -> dict:
+        """Inference-ready parameter tree for the current state."""
         ...
 
     def trainable_param_report(self, model_cfg: ModelConfig,

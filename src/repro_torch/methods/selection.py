@@ -190,6 +190,10 @@ class SelectionMethod:
         step_fn.swap_stats = stats
         return step_fn
 
+    def eval_params(self, model_cfg: ModelConfig, opt_cfg: OptimizerConfig,
+                    state: dict) -> dict:
+        return state["params"]
+
     def trainable_param_report(self, model_cfg: ModelConfig,
                                state: dict) -> TrainableReport:
         """The §3.3 memory model: P_selected = the k largest blocks (worst

@@ -32,10 +32,12 @@ def attn_block_prefill(params, cfg: ModelConfig, x, *, cache_len):
     return _mlp_residual(params, cfg, x + h), kv
 
 
-def attn_block_decode(params, cfg: ModelConfig, x, k_cache, v_cache, pos):
+def attn_block_decode(params, cfg: ModelConfig, x, k_cache, v_cache, step):
+    """Dense-KV decode; ``step`` is the per-step plan shared across layers
+    (see ``attention.DenseStep``)."""
     h = norms.apply(params["ln1"], x, cfg.norm_eps)
     h, k_cache, v_cache = attention.apply_decode(params["attn"], cfg, h,
-                                                 k_cache, v_cache, pos)
+                                                 k_cache, v_cache, step)
     return _mlp_residual(params, cfg, x + h), k_cache, v_cache
 
 

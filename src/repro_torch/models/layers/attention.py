@@ -1,8 +1,10 @@
 """GQA/MHA attention layer with RoPE, optional QKV bias and KV caching
 (port of the JAX package's ``attention.py``: the training forward, prefill,
 dense-cache decode and paged-pool decode). The training forward runs the
-flash kernels (``ops.flash_attention``) unless ``cfg.use_pallas ==
-"never"``; prefill and decode keep their paths.
+flash kernels (``ops.flash_attention``) and the dense decode the dense
+decode kernel (``ops.decode_attention``) unless ``cfg.use_pallas ==
+"never"``; the paged decode always runs the paged kernel, and prefill the
+plain ``chunked_attention``.
 
 The caches and pools are updated in place (JAX returns new arrays); the
 functions still return them, so call sites read like the reference.
@@ -110,25 +112,60 @@ def apply_prefill(params, cfg: ModelConfig, x, *, cache_len: int = 0):
     return out, (k, v)
 
 
-def apply_decode(params, cfg: ModelConfig, x, k_cache, v_cache, pos):
+@dataclass
+class DenseStep:
+    """Per-decode-step plan shared by every layer's dense-cache write and
+    attention call (the counterpart of ``PagedStep``): the write positions
+    and the kernel's small operands, built once per step on the device."""
+
+    rows: torch.Tensor       # [B] long row ids
+    pos: torch.Tensor        # [B] long write position (may be past the cache)
+    at: torch.Tensor         # [B] long write position clamped into the cache
+    inside: torch.Tensor     # [B, 1, 1] bool: the write lands in the cache
+    valid_len: torch.Tensor  # [B] int32 = pos + 1
+    hmap: torch.Tensor       # [H] int32 q-head -> kv-head map
+    angles: tuple            # RoPE (cos, sin) [B, 1, rot/2] of the positions
+
+
+def dense_step(cfg: ModelConfig, pos, max_len: int) -> DenseStep:
+    """``pos``: per-row [B] write positions on the device; ``max_len``: the
+    cache length."""
+    dev = pos.device
+    pos = pos.long()
+    return DenseStep(
+        rows=torch.arange(pos.shape[0], device=dev), pos=pos,
+        at=pos.clamp(max=max_len - 1),
+        inside=(pos < max_len)[:, None, None],
+        valid_len=(pos + 1).to(torch.int32), hmap=_hmap_tensor(cfg, dev),
+        angles=rotary_angles(pos[:, None], rotary_dims(
+            cfg.head_dim, cfg.partial_rotary_factor), cfg.rope_theta))
+
+
+def apply_decode(params, cfg: ModelConfig, x, k_cache, v_cache,
+                 step: DenseStep):
     """One-token decode against a dense cache. x: [B, 1, D]; caches
-    [B, Smax, KVH, Dh]; pos: per-row [B] write position. Rows whose pos is
-    past the cache (finished slots riding along) drop their write, as JAX's
-    out-of-bounds scatter does. Returns (out [B, 1, D], k_cache, v_cache)."""
-    b, smax = x.shape[0], k_cache.shape[1]
-    pos = torch.as_tensor(pos, device=x.device).long().expand(b)
-    q, k, v = _project_qkv(params, cfg, x, pos[:, None])
-    rows = torch.arange(b, device=x.device)
-    inside = (pos < smax)[:, None, None]
-    at = pos.clamp(max=smax - 1)
+    [B, Smax, KVH, Dh] (one layer's slice); ``step``: the step's plan from
+    ``dense_step``, shared by every layer. Rows whose pos is past the cache
+    (finished slots riding along) drop their write, as JAX's out-of-bounds
+    scatter does. Attention goes through ``ops.decode_attention`` (the CUDA
+    kernel of row 3 on the card, its plain version on the CPU) unless
+    ``cfg.use_pallas == "never"``, which keeps the reference's
+    ``core.decode_attention``. Returns (out [B, 1, D], k_cache, v_cache)."""
+    q, k, v = _project_qkv(params, cfg, x, step.pos[:, None], step.angles)
     # each row writes only its own cache row, so the clamped write-back of
     # the old value for a dropped row cannot collide with another row
     for cache, new in ((k_cache, k), (v_cache, v)):
-        cache[rows, at] = torch.where(inside, new[:, 0].to(cache.dtype),
-                                      cache[rows, at])
-    out = core.decode_attention(q, k_cache, v_cache, pos + 1,
-                                hmap=_hmap(cfg),
-                                softcap=cfg.attn_logit_softcap)
+        cache[step.rows, step.at] = torch.where(
+            step.inside, new[:, 0].to(cache.dtype),
+            cache[step.rows, step.at])
+    if cfg.use_pallas == "never":
+        out = core.decode_attention(q, k_cache, v_cache, step.valid_len,
+                                    hmap=_hmap(cfg),
+                                    softcap=cfg.attn_logit_softcap)
+    else:
+        out = ops.decode_attention(q.contiguous(), k_cache, v_cache,
+                                   step.valid_len, step.hmap,
+                                   softcap=cfg.attn_logit_softcap)
     return _out_proj(params, cfg, out, x.dtype), k_cache, v_cache
 
 

@@ -360,7 +360,8 @@ def decode_step(params: dict, cfg: ModelConfig, tokens, cache: dict):
     """tokens [B, 1] -> (logits [B, V], cache). Each row attends over and
     writes at its own ``cache["pos"]``; the cache is updated in place and
     ``pos`` advances by one. A cache with ``pages`` is the paged layout, and
-    its attention goes through the paged decode kernel."""
+    its attention goes through the paged decode kernel; the dense layout's
+    goes through the dense decode kernel (``attention.apply_decode``)."""
     b = tokens.shape[0]
     pos = cache["pos"].long().expand(b)
     x = _embed_tokens(params, cfg, tokens)
@@ -372,10 +373,11 @@ def decode_step(params: dict, cfg: ModelConfig, tokens, cache: dict):
                 layer_params(params["layers"], i), cfg, x, cache["k"][i],
                 cache["v"][i], step)
     else:
+        step = attention.dense_step(cfg, pos, cache["k"].shape[2])
         for i in range(cfg.num_layers):
             x, _, _ = blocks.attn_block_decode(
                 layer_params(params["layers"], i), cfg, x, cache["k"][i],
-                cache["v"][i], pos)
+                cache["v"][i], step)
     x = norms.apply(params["final_norm"], x, cfg.norm_eps)
     logits = _logits(params, cfg, x)[:, 0]
     cache["pos"] = (pos + 1).to(torch.int32)

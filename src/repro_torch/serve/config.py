@@ -161,7 +161,7 @@ class ServeConfig:
         _reject_unported(self)
 
 
-_SERVING = "ROADMAP Queue A, 'Full serving stack'"
+_SERVING = "ROADMAP Queue A item 7, 'Full serving stack'"
 
 
 def _reject_unported(c: ServeConfig) -> None:
@@ -176,7 +176,8 @@ def _reject_unported(c: ServeConfig) -> None:
         (c.temperature > 0, f"temperature={c.temperature} (sampling)",
          _SERVING),
         (c.on_complete is not None, "on_complete (stream-out)", _SERVING),
-        (c.mesh is not None, "mesh", "ROADMAP Queue A, 'Distributed'"),
+        (c.mesh is not None, "mesh",
+         "ROADMAP Queue A item 11, 'Distributed'"),
     )
     for on, what, item in unported:
         if on:

@@ -23,7 +23,11 @@ call continues the record stream. The log keeps each step's records and
 non-pad tokens.
 
 Not ported, and raising with their ROADMAP Queue A item: checkpoints (item
-3), eval (item 5), ``prefetch_depth > 0`` (item 8), ``mesh`` (item 11).
+3), ``prefetch_depth > 0`` (item 8), ``mesh`` (item 11). ``eval_every > 0``
+raises too: the reference trainer stores it and never reads it (it has no
+eval hook); its callers train, then evaluate
+``train.evaluate.math_accuracy`` on ``method.eval_params(...)``, as the
+port's do.
 The obs instruments and trace spans of the reference wait for item 10;
 its straggler watchdog, which no caller of the port uses yet, is left out.
 """
@@ -81,7 +85,11 @@ class Trainer:
             _not_ported("checkpointing", "3, 'Method registry, trainer and "
                         "launcher' (its checkpoint part)")
         if tcfg.eval_every:
-            _not_ported("eval during training", "5, 'Greedy eval'")
+            raise NotImplementedError(
+                f"eval_every={tcfg.eval_every}: the reference trainer has no "
+                f"eval hook (it never reads eval_every); train, then call "
+                f"repro_torch.train.evaluate.math_accuracy on "
+                f"method.eval_params(...)")
         self.tcfg = tcfg
         self.device = resolve_device(device)
         self.method = methods.build(method or tcfg.method, tcfg)

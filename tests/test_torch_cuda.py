@@ -18,8 +18,12 @@ attention kernels (rows 4-6) are swept over the S of the JAX package's
 flash tests (128/256/384), its packed segment layout, a ragged S and head
 dim 128, causal and not, with bit-reproducible dk/dv; in f32 a peaked
 softmax is held against an f64 evaluation. Three packed training steps
-make no host sync either. The smoke config runs at head dim 64 here: the flash
-kernels take 64 and 128.
+make no host sync either. The dense decode attention kernel (row 3) is held
+against its plain version at the shapes of ``chip_smoke.py`` phase 15 (the
+eval shape, the S and valid_len of ``tests/test_kernels.py``, ragged S,
+head dim 128), against row 1 on a gathered view, and in f32 against f64;
+a chunk of dense decode steps makes no host sync. The smoke config runs at
+head dim 64 here: the flash and decode kernels take 64 and 128.
 """
 import numpy as np
 import pytest
@@ -557,3 +561,115 @@ def test_packed_steps_never_sync(cuda_device):
         "flash_attention_bwd_dkv"] == 3 * nl
     assert state["step"] == 4
     assert torch.isfinite(metrics["loss"]).item()
+
+
+# ---------------------------------------- dense decode attention (row 3)
+
+
+def _decode_inputs(dev, dtype, b, s, vlens, d=64, seed=3):
+    """One layer's dense cache [B, S, 2, D] and q [B, 1, 16, D] through the
+    qwen2.5-0.5b head map; q = 3 N(0, 1): a peaked softmax (see _close)."""
+    rng = np.random.default_rng(seed)
+    q = 3 * rng.standard_normal((b, 1, 16, d))
+    k = rng.standard_normal((b, s, 2, d))
+    v = rng.standard_normal((b, s, 2, d))
+    f = [torch.tensor(a, dtype=dtype, device=dev) for a in (q, k, v)]
+    i32 = [torch.tensor(a, dtype=torch.int32, device=dev)
+           for a in (vlens, QWEN_HMAP)]
+    return (*f, *i32)
+
+
+DECODE_SHAPES = [(16, 512, 64, [1, 9, 300, 512] * 4), (2, 512, 64, [100] * 2),
+                 (2, 1024, 64, [1024] * 2), (2, 2048, 64, [7] * 2),
+                 (3, 512, 64, [1, 100, 512]), (3, 1024, 64, [7, 1024, 333]),
+                 (2, 1, 64, [1, 1]), (2, 300, 64, [1, 300]),
+                 (2, 512, 128, [100, 512])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b, s, d, vlens", DECODE_SHAPES,
+                         ids=["eval", "S512", "S1024", "S2048", "vec512",
+                              "vec1024", "S1", "S300", "D128"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_decode_matches_plain(cuda_device, b, s, d, vlens, dtype):
+    q, k, v, vl, hm = _decode_inputs(cuda_device, dtype, b, s, vlens, d)
+    n0 = ops.LAUNCHES["decode_attention"]
+    out = ops.decode_attention(q, k, v, vl, hm)
+    again = ops.decode_attention(q, k, v, vl, hm)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["decode_attention"] == n0 + 2
+    assert out.dtype == dtype and out.shape == q.shape
+    assert _bits_equal(out, again)
+    _close(out[:, 0], ref.decode_attention_cache(q[:, 0], k, v, vl, hm),
+           dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_decode_matches_paged_on_gathered_view(cuda_device, dtype):
+    """Row 3 on the dense view gathered from a pool through its tables
+    against row 1 on the pool (f32 at the 2e-5 of
+    tests/test_kernels.py::test_matches_dense_kernel_on_gathered_view)."""
+    q, k, v, tbl, vl, hm = _paged_inputs(cuda_device, dtype, 16,
+                                         [1, 19, 300, 512], 32)
+    paged = ops.paged_decode_attention(q, k, v, tbl, vl, hm)
+    rows = tbl.long().clamp(max=k.shape[0] - 1)
+    kd, vd = (p[rows].reshape(q.shape[0], -1, *p.shape[2:]).contiguous()
+              for p in (k, v))
+    dense = ops.decode_attention(q, kd, vd, vl, hm)
+    tol = (dict(rtol=2e-5, atol=2e-5) if dtype == torch.float32
+           else TOL[dtype])
+    torch.testing.assert_close(dense.float(), paged.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b, s, d, vlens", [DECODE_SHAPES[0],
+                                            DECODE_SHAPES[-1]],
+                         ids=["eval", "D128"])
+def test_dense_decode_f32_peaked_against_f64(cuda_device, b, s, d, vlens):
+    """f32 at q = 3 N(0, 1): the kernel's output and the plain f32
+    version's against the plain version in f64; the kernel is within the
+    f32 tolerance of f64, or no further from it than the plain version."""
+    q, k, v, vl, hm = _decode_inputs(cuda_device, torch.float32, b, s, vlens,
+                                     d, seed=4)
+    got = ops.decode_attention(q, k, v, vl, hm)[:, 0]
+    plain = ref.decode_attention_cache(q[:, 0], k, v, vl, hm)
+    exact = ref.decode_attention_cache(q[:, 0].double(), k.double(),
+                                       v.double(), vl, hm)
+    assert exact.dtype == torch.float64
+    e_kern, e_plain = _excess(got, exact), _excess(plain, exact)
+    assert e_kern <= max(1.0, e_plain), (e_kern, e_plain)
+
+
+@pytest.mark.cuda
+def test_dense_decode_chunk_never_syncs(cuda_device):
+    """A chunk of 8 dense-cache decode steps, as the engine runs them
+    (greedy tokens, finished flags on the device), under
+    ``set_sync_debug_mode("error")``: attention through row 3 once per
+    layer and step, and no host sync."""
+    from repro_torch.models import lm
+    cfg = _card_smoke()
+    params = lm.init(cfg, torch.Generator(device=cuda_device).manual_seed(0),
+                     device="cuda")
+    cache = lm.init_cache(cfg, 4, 64, device="cuda")
+    tok = torch.ones(4, dtype=torch.int32, device=cuda_device)
+    fin = torch.zeros(4, dtype=torch.bool, device=cuda_device)
+    lm.decode_step(params, cfg, tok[:, None], cache)   # builds the kernels
+    torch.cuda.synchronize()
+    before = dict(ops.LAUNCHES)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(8):
+            logits, cache = lm.decode_step(params, cfg, tok[:, None], cache)
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            nxt = torch.where(fin, 0, nxt).to(torch.int32)
+            fin = fin | (nxt == 2)
+            tok = nxt
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["decode_attention"] - before[
+        "decode_attention"] == 8 * cfg.num_layers
+    assert ops.LAUNCHES["paged_decode_attention"] == before[
+        "paged_decode_attention"]
+    assert cache["pos"].tolist() == [9] * 4

@@ -3,8 +3,9 @@
 On the CPU the port's wrappers run their plain PyTorch versions; those are
 held against the JAX oracles (``repro.kernels.ref``) and the Pallas kernels
 in interpret mode, over the sweep of ``tests/test_kernels.py`` (page sizes
-4/8/16, scrambled tables with sentinels, mixed valid_len, f32 and bf16;
-its block-norm and masked-AdamW shapes) at its tolerances. The RMSNorm
+4/8/16, scrambled tables with sentinels, mixed valid_len, f32 and bf16; the
+dense decode's S and valid_len, on an unexpanded cache and a head map; its
+block-norm and masked-AdamW shapes) at its tolerances. The RMSNorm
 backward, which has no Pallas kernel, is held against ``jax.vjp`` of the
 JAX package's ``norms.apply``. The CUDA/Triton kernels themselves are
 compared with the plain versions on the card by ``tests/test_torch_cuda.py``
@@ -117,6 +118,68 @@ def test_paged_decode_qwen_heads_vs_jax(dtype):
     _assert_strong(oracle, dtype)
     np.testing.assert_allclose(_as_np(out), _as_np(oracle), **_tol(dtype))
     np.testing.assert_allclose(_as_np(out), _as_np(pallas), **_tol(dtype))
+
+
+# 5 q heads on 2 kv heads, the last one a padded head clamped onto kv head 1
+DENSE_HMAP = np.asarray([0, 0, 1, 1, 1], np.int32)
+
+
+@pytest.mark.parametrize("s, valid", [
+    (512, 100), (1024, 1024), (2048, 7), (512, (1, 100, 512)),
+    (1024, (7, 1024, 333))])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dense_decode_vs_jax(s, valid, dtype):
+    """Row 3 at the shapes of tests/test_kernels.py::TestDecodeAttention,
+    scalar and per-row valid_len: the port's plain version on the
+    unexpanded [B, S, KVH, D] cache read through a GQA map with a padded
+    head, against the JAX oracle and the Pallas kernel (interpret mode) on
+    the head-expanded, folded [B*H, S, D] view of the same cache. q = 3
+    N(0, 1) against N(0, 1) keys: a peaked softmax (see ``_paged_case``)."""
+    per_row = isinstance(valid, tuple)
+    b, h, kvh, d = (len(valid) if per_row else 2), 5, 2, 64
+    rng = np.random.default_rng(11)
+    qj, qt = _pair(3 * rng.standard_normal((b, h, d)), dtype)
+    kj, kt = _pair(rng.standard_normal((b, s, kvh, d)), dtype)
+    vj, vt = _pair(rng.standard_normal((b, s, kvh, d)), dtype)
+    vl = (torch.tensor(valid, dtype=torch.int32) if per_row else valid)
+    out = ops.decode_attention(qt.view(b, 1, h, d), kt, vt, vl,
+                               torch.from_numpy(DENSE_HMAP))
+    assert out.dtype == TORCH[dtype] and out.shape == (b, 1, h, d)
+    out = out.view(b, h, d)
+
+    def expand(t):   # [B, S, KVH, D] -> [B, H, S, D]
+        return t[:, :, DENSE_HMAP].transpose(0, 2, 1, 3)
+    jvl = jnp.asarray(valid, jnp.int32)
+    oracle = jref.decode_attention(qj, expand(kj), expand(vj), jvl)
+    pallas = jdec.decode_attention(
+        qj.reshape(b * h, d), expand(kj).reshape(b * h, s, d),
+        expand(vj).reshape(b * h, s, d),
+        jnp.repeat(jvl, h) if per_row else jvl,
+        interpret=True).reshape(b, h, d)
+    _assert_strong(oracle, dtype)
+    np.testing.assert_allclose(_as_np(out), _as_np(oracle), **_tol(dtype))
+    np.testing.assert_allclose(_as_np(out), _as_np(pallas), **_tol(dtype))
+
+
+def test_dense_decode_plain_matches_the_paged_plain_version():
+    """On a gathered view: the dense plain version on the pool pages a
+    table points to, laid out as a dense cache, equals the paged plain
+    version on the pool (the CPU half of
+    tests/test_kernels.py::test_matches_dense_kernel_on_gathered_view)."""
+    hmap = np.minimum(np.arange(16) // 7, 1)
+    (_, qt), (_, kt), (_, vt), ints = _paged_case(
+        5, 3, 16, 2, 64, 16, 6, 30, [1, 40, 96], hmap, "float32")
+    tt = {n: torch.from_numpy(a) for n, a in ints.items()}
+    b, h, d = qt.shape
+    paged = ops.paged_decode_attention(qt.view(b, 1, h, d), kt, vt,
+                                       tt["tbl"], tt["vl"], tt["hmap"])
+    rows = tt["tbl"].long().clamp(max=kt.shape[0] - 1)
+
+    def gathered(pool):   # [B, max_pages * page_size, KVH, D]
+        return pool[rows].reshape(b, -1, *pool.shape[2:]).contiguous()
+    dense = ops.decode_attention(qt.view(b, 1, h, d), gathered(kt),
+                                 gathered(vt), tt["vl"], tt["hmap"])
+    torch.testing.assert_close(dense, paged, rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("shape", [(16, 64), (8, 896), (24, 100)])

@@ -20,8 +20,10 @@ from repro_torch import convert
 from repro_torch.configs import get_smoke_config
 from repro_torch.configs.base import TrainConfig
 from repro_torch.data import loader
+from repro_torch.data.synthetic import MathTaskConfig
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import block_grad_norm as bgn
+from repro_torch.kernels import decode_attention as dec
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import masked_adamw as madamw
 from repro_torch.kernels import paged_decode_attention as pda
@@ -30,6 +32,7 @@ from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import train as launch_train
 from repro_torch.models import lm
 from repro_torch.serve import ServeConfig, ServeEngine
+from repro_torch.train import evaluate
 from repro_torch.train.step import init_train_state
 from repro_torch.train.trainer import Trainer
 
@@ -63,6 +66,16 @@ def test_port_imports_nothing_of_jax(path):
     assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
 
 
+def test_import_scan_covers_the_port():
+    """Every module of the package is scanned, the greedy eval and the
+    dense decode launcher among them."""
+    scanned = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for rel in ("src/repro_torch/train/evaluate.py",
+                "src/repro_torch/kernels/decode_attention.py",
+                "src/repro_torch/data/synthetic.py", "chip_smoke.py"):
+        assert rel in scanned, rel
+
+
 def test_import_scan_sees_forbidden_imports(tmp_path):
     f = tmp_path / "m.py"
     f.write_text("import jax.numpy as jnp\nfrom repro.serve import x\n"
@@ -77,6 +90,9 @@ def no_cuda(monkeypatch):
 
 def _cfg():
     return get_smoke_config("qwen2.5-0.5b")
+
+
+_TASK = MathTaskConfig(digits=1, seq_len=24)
 
 
 def _tcfg(**kw):
@@ -102,10 +118,11 @@ def _tcfg(**kw):
         "packed_math", seq_len=48, global_batch=2)),
     lambda: launch_train.main(["--arch", "qwen2.5-0.5b", "--smoke",
                                "--steps", "2", "--pack"]),
+    lambda: evaluate.math_accuracy({}, _cfg(), _TASK, num_problems=2),
 ], ids=["init", "init-cuda", "init_cache", "init_paged_cache", "convert",
         "engine", "launcher", "convert-train-state", "init_train_state",
         "init_train_state-banked", "trainer", "train-launcher",
-        "trainer-packed", "train-launcher-packed"])
+        "trainer-packed", "train-launcher-packed", "math_accuracy"])
 def test_entry_points_need_cuda_by_default(no_cuda, call):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()
@@ -133,12 +150,15 @@ def test_entry_points_run_on_cpu_when_asked(no_cuda, capsys):
                               "--seq-len", "48", "--global-batch", "2"]) == 0
     out = capsys.readouterr().out
     assert "final loss" in out and "device: cpu" in out
+    acc = evaluate.math_accuracy(params, _cfg(), _TASK, num_problems=3,
+                                 batch_size=2, device="cpu")
+    assert 0.0 <= acc <= 1.0
 
 
 @pytest.mark.parametrize("call, item", [
     (lambda: Trainer(_tcfg(), method="lora", device="cpu"), "item 4"),
     (lambda: Trainer(_tcfg(checkpoint_dir="ckpt"), device="cpu"), "item 3"),
-    (lambda: Trainer(_tcfg(eval_every=1), device="cpu"), "item 5"),
+    (lambda: Trainer(_tcfg(eval_every=1), device="cpu"), "no eval hook"),
     (lambda: Trainer(_tcfg(), prefetch_depth=2, device="cpu"), "item 8"),
     (lambda: Trainer(_tcfg(), mesh=object(), device="cpu"), "item 11"),
     (lambda: launch_train.main(["--arch", "qwen2.5-0.5b", "--smoke",
@@ -210,6 +230,7 @@ def missing_builds(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "_LIBS", {})
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(pda, "_fn", None)
+    monkeypatch.setattr(dec, "_fn", None)
     monkeypatch.setattr(fa, "_fn", None)
     for mod in (rn, bgn, madamw):
         monkeypatch.setattr(mod, "_compiled", None)
@@ -323,3 +344,43 @@ def test_flash_wrapper_raises_and_rejects(missing_builds):
         ops.flash_attention(q, kv, kv, hm, segment_ids=_fake(seg.long()))
     with pytest.raises(ValueError, match="hmap must be int32"):
         ops.flash_attention(q, kv, kv, _fake(hm.long()))
+
+
+def test_dense_decode_wrapper_raises_and_rejects(missing_builds):
+    """Row 3 on CUDA tensors: no build raises and counts nothing; int64
+    operands, a head dim other than 64 or 128, more than 16 q heads, a
+    softcap and a scalar valid_len are refused by name."""
+    before = dict(ops.LAUNCHES)
+    q, kv = _fake(torch.zeros(2, 1, 16, 64)), _fake(torch.zeros(2, 8, 2, 64))
+    vl = _fake(torch.ones(2, dtype=torch.int32))
+    hm = _fake(torch.zeros(16, dtype=torch.int32))
+    with pytest.raises(_build.KernelBuildFailure, match="nvcc"):
+        ops.decode_attention(q, kv, kv, vl, hm)
+    assert ops.LAUNCHES == before
+    with pytest.raises(ValueError, match="int32"):
+        ops.decode_attention(q, kv, kv, _fake(vl.long()), hm)
+    with pytest.raises(ValueError, match="int32"):
+        ops.decode_attention(q, kv, kv, vl, _fake(hm.long()))
+    q32, kv32 = _fake(torch.zeros(2, 1, 16, 32)), _fake(torch.zeros(2, 8, 2,
+                                                                   32))
+    with pytest.raises(ValueError, match="head dim"):
+        ops.decode_attention(q32, kv32, kv32, vl, hm)
+    with pytest.raises(ValueError, match="at most 16 q heads"):
+        ops.decode_attention(_fake(torch.zeros(2, 1, 32, 64)), kv, kv, vl,
+                             _fake(torch.zeros(32, dtype=torch.int32)))
+    with pytest.raises(ValueError, match="softcap"):
+        ops.decode_attention(q, kv, kv, vl, hm, softcap=30.0)
+    with pytest.raises(ValueError, match="softcap"):   # on the CPU as well
+        ops.decode_attention(torch.zeros(2, 1, 16, 64),
+                             torch.zeros(2, 8, 2, 64),
+                             torch.zeros(2, 8, 2, 64),
+                             torch.ones(2, dtype=torch.int32),
+                             torch.zeros(16, dtype=torch.int32), softcap=1.0)
+    with pytest.raises(ValueError, match="valid_len must be"):
+        ops.decode_attention(q, kv, kv, 3, hm)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        f16 = _fake(torch.zeros(2, 8, 2, 64, dtype=torch.float16))
+        ops.decode_attention(_fake(torch.zeros(2, 1, 16, 64,
+                                               dtype=torch.float16)),
+                             f16, f16, vl, hm)
+    assert ops.LAUNCHES == before
