@@ -118,8 +118,9 @@ Phases, each of which makes the run exit non-zero if it fails:
    16 slots on the engine's dense layout; accuracy, generated tokens,
    tokens/s, decode steps, launches (row 3 once per layer and decode step,
    nothing else but the RMSNorm forward), peak device memory; a second call
-   gives the same accuracy and tokens; each call under 60 s; a short
-   profile of 16 problems' first 33 tokens with the idle share.
+   gives the same accuracy and tokens; each call under 48 s; two engine
+   steps (decode chunks) of the second call under the profiler, with the
+   device's idle share.
 
 Then it prints the kernel summary as one JSON line and, last, the device
 line ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
@@ -160,7 +161,8 @@ FLASH_NAMES = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
 PACKED_UPDATE_RTOL = 0.1  # phase 14(b): of each leaf's largest CPU update
 DECODE_EVAL_VL = (1, 9, 300, 512) * 4  # phase 15's eval shape: 16 rows
 EVAL = dict(num_problems=32, batch_size=16)   # phase 16
-EVAL_CALL_S = 60.0        # phase 16: the most one eval call may take
+EVAL_CALL_S = 48.0        # phase 16: the most one eval call may take
+EVAL_PROFILE = (8, 2)     # phase 16: engine steps of call 2 skipped, profiled
 
 
 class PhaseFailed(RuntimeError):
@@ -1779,18 +1781,15 @@ def phase_eval(torch, ops, cfg, evaluate, training) -> dict:
           f"slots on the dense KV layout, up to {max_new} new tokens each")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    runs, secs = [], []
-    for i in range(2):
-        if i == 0:
-            ops.reset_launches()             # the main path's run
-        t0 = time.perf_counter()
-        runs.append(evaluate.greedy_eval(params, cfg, task, **EVAL,
-                                         device="cuda"))
-        torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t0)
-        if i == 0:
-            launches = dict(ops.LAUNCHES)
-    run = runs[0]
+    ops.reset_launches()                     # the main path's run
+    t0 = time.perf_counter()
+    run = evaluate.greedy_eval(params, cfg, task, **EVAL, device="cuda")
+    torch.cuda.synchronize()
+    secs = [time.perf_counter() - t0]
+    launches = dict(ops.LAUNCHES)
+    again, sec, prof, wall = _eval_profiled(torch, evaluate, params, cfg,
+                                            task)
+    secs.append(sec)
     st = run.stats
     steps = st["decode_chunks"] * SERVE["decode_chunk"]
     _check_launches(launches, cfg, st, "dense")
@@ -1799,7 +1798,6 @@ def phase_eval(torch, ops, cfg, evaluate, training) -> dict:
                   and (t < cfg.vocab_size).all() for t in run.tokens),
           f"generated lengths {[len(t) for t in run.tokens]}")
     check(0.0 <= run.accuracy <= 1.0, f"accuracy {run.accuracy}")
-    again = runs[1]
     same = [bool(np.array_equal(a, b)) for a, b in zip(run.tokens,
                                                           again.tokens)]
     check(again.accuracy == run.accuracy and all(same),
@@ -1822,38 +1820,58 @@ def phase_eval(torch, ops, cfg, evaluate, training) -> dict:
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(f"  second call: same accuracy and the same tokens for all "
           f"{len(run.tokens)} problems, {secs[1]:.3f} s = "
-          f"{gen / secs[1]:.1f} tok/s")
+          f"{gen / secs[1]:.1f} tok/s (engine steps {EVAL_PROFILE[0]} to "
+          f"{sum(EVAL_PROFILE) - 1} under the profiler)")
     t0 = time.perf_counter()
-    _profile_eval(torch, cfg, params, task)
+    _print_eval_profile(prof, wall)
     print(f"  phase time {time.perf_counter() - t_phase:.1f} s (the eval "
-          f"calls {secs[0]:.1f} + {secs[1]:.1f} s, the profile "
+          f"calls {secs[0]:.1f} + {secs[1]:.1f} s, reading the profile "
           f"{time.perf_counter() - t0:.1f} s)")
     return {"launches": launches, "accuracy": run.accuracy,
             "tok_s": gen / secs[0]}
 
 
-def _profile_eval(torch, cfg, params, task) -> None:
-    """The eval's engine on its first 16 problems, 33 new tokens each (4
-    decode chunks), under the profiler, which records the device's
-    activity only (the host's ops would take it longer to process than the
-    run takes)."""
+def _eval_profiled(torch, evaluate, params, cfg, task):
+    """The second eval call, with engine steps EVAL_PROFILE[0] onwards
+    (EVAL_PROFILE[1] decode chunks of the first 16 problems) under the
+    profiler, which records the device's activity only (the host's ops
+    would take it longer to process than the run takes). The engine's
+    ``step`` is wrapped for this call only. Returns the run, its seconds,
+    the profiler and the wall time of the profiled steps."""
     from torch.profiler import ProfilerActivity, profile
+    engine = evaluate.ServeEngine
+    plain_step = engine.step
+    skip, n = EVAL_PROFILE
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    seen = {"steps": 0}
 
-    from repro_torch.data import synthetic as syn
-    from repro_torch.serve import Request, ServeConfig, ServeEngine
-    p_len = syn.prompt_len(task)
-    reqs = [Request(uid=i, tokens=syn.sample_problem(
-        task, task.eval_offset + i)[0][:p_len], max_new_tokens=33)
-        for i in range(EVAL["batch_size"])]
-    eng = ServeEngine(cfg, params, ServeConfig(
-        max_len=task.seq_len, num_slots=EVAL["batch_size"], eos_id=syn.EOS),
-        device="cuda")
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    def step(self):
+        i = seen["steps"]
+        seen["steps"] += 1
+        if i == skip:
+            torch.cuda.synchronize()
+            prof.start()
+            seen["t0"] = time.perf_counter()
+        out = plain_step(self)
+        if i == skip + n - 1:
+            torch.cuda.synchronize()
+            seen["wall"] = time.perf_counter() - seen["t0"]
+            prof.stop()
+        return out
+    engine.step = step
+    try:
         t0 = time.perf_counter()
-        eng.run(reqs)
+        run = evaluate.greedy_eval(params, cfg, task, **EVAL, device="cuda")
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0   # the run, not the trace's upkeep
+        sec = time.perf_counter() - t0
+    finally:
+        engine.step = plain_step
+    check("wall" in seen, f"the second eval call ran {seen['steps']} engine "
+          f"steps, fewer than the {skip + n} the profile needs")
+    return run, sec, prof, seen["wall"]
+
+
+def _print_eval_profile(prof, wall) -> None:
     events = [e for e in prof.key_averages()
               if getattr(e, "device_time_total", 0) > 0
               and e.device_type.name == "CUDA"]
@@ -1863,9 +1881,10 @@ def _profile_eval(torch, cfg, params, task) -> None:
     busy_us = sum(e.device_time_total for e in events)
     dec = sum(e.device_time_total for e in events
               if "decode_kernel<" in e.key and "paged" not in e.key) / 1e3
-    print(f"  profile (16 problems, 33 new tokens each, profiler on): wall "
-          f"{wall * 1e3:.1f} ms, {eng.stats['decode_chunks']} decode chunks,"
-          f" device kernels {busy_us / 1e3:.1f} ms in "
+    print(f"  profile ({EVAL_PROFILE[1]} engine steps of the second call, "
+          f"{EVAL_PROFILE[1] * SERVE['decode_chunk']} decode steps at "
+          f"{EVAL['batch_size']} slots, profiler on): wall "
+          f"{wall * 1e3:.1f} ms, device kernels {busy_us / 1e3:.1f} ms in "
           f"{sum(e.count for e in events)} launches, device idle share "
           f"{max(0.0, 1 - busy_us / 1e6 / wall):.3f}; row 3 {dec:.3f} ms = "
           f"{dec / (busy_us / 1e3):.3f} of device time")

@@ -12,7 +12,8 @@
 // above 512), and stops at valid_len instead of visiting and masking every
 // 512-wide block (the result is the same). valid_len[b] = 0 is not on the
 // serving path (the engine passes pos + 1 >= 1): such a row gets zeros here,
-// where the reference returns the mean of V.
+// where the reference returns the mean of V. A q head whose hmap entry is
+// outside [0, KVH) is served by no block; block (0, b) writes zeros to it.
 //
 // What bounds it: reading K and V. Each K/V element is used by the few q
 // heads of its group once, ~2 flops per byte read against the card's ~295
@@ -139,6 +140,12 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const unsigned mask = __ballot_sync(kFull, mine);
     if (mine) heads[__popc(mask & ((1u << lane) - 1u))] = lane;
     if (lane == 0) n_heads = __popc(mask);
+  }
+  if (kvh == 0) {  // a q head whose hmap entry no block serves: zeros
+    for (int i = tid; i < H * D; i += kThreads) {
+      const int g = hmap[i / D];
+      if (g < 0 || g >= KVH) store(out + (long long)b * H * D + i, 0.f);
+    }
   }
   __syncthreads();
   const int G = n_heads;

@@ -118,8 +118,10 @@ def decode_attention(q, k_cache, v_cache, valid_len, hmap, *, softcap=0.0):
     D] (not head-expanded); valid_len: [B] int32 per-row cache length (>= 1
     on the serving path; a CPU call also takes a scalar); hmap: [H] int32
     q-head -> kv-head map -> [B, 1, H, D] in the dtype of q. One launch of
-    the dense decode kernel (row 3). ``valid_len`` is not read on the host.
-    A logit softcap is not implemented by the kernel and raises."""
+    the dense decode kernel (row 3). ``valid_len`` is not read on the host,
+    nor is ``hmap``: on the card a q head whose entry is outside [0, KVH)
+    gets zeros (the plain version takes no such map). A logit softcap is
+    not implemented by the kernel and raises."""
     name = "decode_attention"
     if softcap:
         _fail(name, f"softcap = {softcap}: the kernel implements no logit "

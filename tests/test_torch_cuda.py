@@ -22,7 +22,7 @@ make no host sync either. The dense decode attention kernel (row 3) is held
 against its plain version at the shapes of ``chip_smoke.py`` phase 15 (the
 eval shape, the S and valid_len of ``tests/test_kernels.py``, ragged S,
 head dim 128), against row 1 on a gathered view, and in f32 against f64;
-a chunk of dense decode steps makes no host sync. The smoke config runs at
+q heads outside its head map get zeros; a chunk of dense decode steps makes no host sync. The smoke config runs at
 head dim 64 here: the flash and decode kernels take 64 and 128.
 """
 import numpy as np
@@ -602,6 +602,25 @@ def test_dense_decode_matches_plain(cuda_device, b, s, d, vlens, dtype):
     assert _bits_equal(out, again)
     _close(out[:, 0], ref.decode_attention_cache(q[:, 0], k, v, vl, hm),
            dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_decode_zeros_heads_outside_the_map(cuda_device, dtype):
+    """Heads whose hmap entry is outside [0, KVH) get zeros, not whatever
+    the output's memory held; the others match the plain version on the
+    mapped heads."""
+    q, k, v, vl, hm = _decode_inputs(cuda_device, dtype, 3, 512,
+                                     [1, 100, 512])
+    bad = hm.clone()
+    bad[3], bad[12] = 2, -1
+    garbage = torch.full_like(q, float("nan"))
+    del garbage   # the block the output is likely to reuse holds NaNs
+    out = ops.decode_attention(q, k, v, vl, bad)
+    assert (out[:, 0, [3, 12]] == 0).all()
+    keep = [h for h in range(16) if h not in (3, 12)]
+    want = ref.decode_attention_cache(q[:, 0, keep], k, v, vl, hm[keep])
+    _close(out[:, 0, keep], want, dtype)
 
 
 @pytest.mark.cuda
