@@ -76,10 +76,13 @@ Phases, each of which makes the run exit non-zero if it fails:
 12. the flash attention kernels (CUDA; forward, dq, dk/dv) against their
    plain versions, f32 and bf16: causal and segmented at the training shape
    (B 8, S 512, 16 q heads on 2 kv heads through the qwen2.5-0.5b head map,
-   D 64; the segment ids of a real ``pack_batch``), a ragged S of 300 and
-   head dim 128, and segmented but not causal; o, lse, dq, dk and dv
-   within the tolerance on inputs whose rows are large beside it, dk and
-   dv bit-identical over two launches; in f32 with a peaked softmax (q = 3
+   D 64; the segment ids of a real ``pack_batch``, and how many of its
+   causal 64 x 64 tiles hold an attending pair), ragged S (17, 300, 1000),
+   segment boundaries on the tile edges, head dim 128, and segmented but
+   not causal; o, lse, dq, dk and dv within the tolerance on inputs whose
+   rows are large beside it, dk and dv bit-identical over two launches; one
+   segment over each row bit-identical to no segments; in f32 with a
+   peaked softmax (q = 3
    N(0, 1)), the kernels' outputs and the plain f32 versions' against the
    plain version in f64, the kernels' no further from it than the plain
    version's or within the f32 tolerance; times as in phase 3 beside each kernel's bound (operations
@@ -158,6 +161,12 @@ TRAIN = dict(global_batch=8, seq_len=512, steps=10, warmup=2)
 BANK_SLOTS = (16, 3, 24, 9, 21)      # 4 rows out of order, a free slot (24)
 BANK_SEL = (1.0, 1.0, 0.0, 0.0, 1.0)  # row 9 held but unselected
 FLASH_NAMES = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
+# the device kernels of each row (bf16 forward and dk/dv: the tensor-core
+# bodies "..._tc", dk/dv's split sum included; each name a substring)
+FLASH_PARTS = {"flash_fwd_kernel": ("flash_fwd_kernel",),
+               "flash_dq_kernel": ("flash_dq_kernel",),
+               "flash_dkv_kernel": ("flash_dkv_kernel",
+                                    "flash_dkv_sum_kernel")}
 PACKED_UPDATE_RTOL = 0.1  # phase 14(b): of each leaf's largest CPU update
 DECODE_EVAL_VL = (1, 9, 300, 512) * 4  # phase 15's eval shape: 16 rows
 EVAL = dict(num_problems=32, batch_size=16)   # phase 16
@@ -779,7 +788,7 @@ def _profile_training(torch, tr) -> None:
             if e.key.startswith(fn):      # Triton: the name comes first
                 ours[fn] = ours.get(fn, 0.0) + e.device_time_total / 1e3
         for fn in FLASH_NAMES:            # CUDA C++: inside the signature
-            if fn in e.key:
+            if any(name in e.key for name in FLASH_PARTS[fn]):
                 ours[fn] = ours.get(fn, 0.0) + e.device_time_total / 1e3
     flash = sum(ours.get(fn, 0.0) for fn in FLASH_NAMES)
     print(f"  the port's kernels in that profile (ms): "
@@ -1260,12 +1269,28 @@ def _packed_segments(b, s, seed=0):
     return batch["segment_ids"]
 
 
-def _flash_case(torch, dtype, b, s, d, segmented, seed=0, q_scale=None):
+def _segment_ids(torch, kind, b, s):
+    """[B, S] int32 segment ids on the card: a real ``pack_batch``'s
+    ("packed"), boundaries on the 64-wide tile edges ("edges"), thirds of
+    the row ("thirds", for rows too short to pack), one segment ("single")
+    or none (None)."""
+    if kind is None:
+        return None
+    if kind == "packed":
+        return torch.as_tensor(_packed_segments(b, s), device="cuda")
+    pos = torch.arange(s, device="cuda", dtype=torch.int32)
+    ids = {"edges": 1 + pos // 64, "thirds": 1 + pos * 3 // s,
+           "single": torch.ones_like(pos)}[kind]
+    return ids[None].repeat(b, 1).contiguous()
+
+
+def _flash_case(torch, dtype, b, s, d, seg_kind, seed=0, q_scale=None):
     """qwen2.5-0.5b's head map (16 q heads, 7 on kv head 0, 9 on kv head
     1: the two padded ones clamp onto the last); N(0, 1) k, v and do; in
     bf16 q = 3 N(0, 1), a peaked softmax whose outputs stay large beside
     the 2e-2 tolerance, in f32 q = N(0, 1) unless ``q_scale`` says
-    otherwise (the peaked f32 case is held against f64: ``_flash_f64``)."""
+    otherwise (the peaked f32 case is held against f64: ``_flash_f64``).
+    ``seg_kind``: the segment ids' ``_segment_ids`` kind, or None."""
     h, kvh = 16, 2
     g = torch.Generator(device="cuda").manual_seed(seed)
     dt = getattr(torch, dtype)
@@ -1279,9 +1304,7 @@ def _flash_case(torch, dtype, b, s, d, segmented, seed=0, q_scale=None):
     k, v, do = rnd(b, s, kvh, d), rnd(b, s, kvh, d), rnd(b, s, h, d)
     hmap = torch.tensor([min(i // 7, kvh - 1) for i in range(h)],
                         dtype=torch.int32, device="cuda")
-    seg = (torch.as_tensor(_packed_segments(b, s), device="cuda")
-           if segmented else None)
-    return q, k, v, do, hmap, seg
+    return q, k, v, do, hmap, _segment_ids(torch, seg_kind, b, s)
 
 
 def _flash_work(torch, q, k, seg):
@@ -1296,20 +1319,65 @@ def _flash_work(torch, q, k, seg):
     return pairs, q.numel() * q.element_size(), k.numel() * k.element_size()
 
 
+def _flash_tiles(torch, seg, tile=64) -> tuple:
+    """(causal tiles that hold an attending pair, causal tiles): the
+    (q tile, k tile <= q tile) pairs of 64 x 64 positions, summed over the
+    rows, that the kernels visit against all that a causal kernel would
+    (the same for every head)."""
+    b, s = seg.shape
+    n = -(-s // tile)
+    pos = torch.arange(n * tile, device="cuda")
+    ids = torch.full((b, n * tile), -1, dtype=seg.dtype, device="cuda")
+    ids[:, :s] = seg
+    ok = ((pos[:, None] >= pos[None, :]) & (pos[:, None] < s))[None] & (
+        ids[:, :, None] == ids[:, None, :])
+    work = ok.view(b, n, tile, n, tile).any(dim=4).any(dim=2)
+    return int(work.sum().item()), b * n * (n + 1) // 2
+
+
+def _flash_single_segment(torch, ops, b, s, d) -> None:
+    """One segment over each whole row gives the bits of no segments: o,
+    lse, dq, dk and dv, bf16 and f32."""
+    for dtype in ("bfloat16", "float32"):
+        q, k, v, do, hm, _ = _flash_case(torch, dtype, b, s, d, None)
+        outs = []
+        for kind in (None, "single"):
+            seg = _segment_ids(torch, kind, b, s)
+            o, lse = ops.flash_attention_fwd(q, k, v, hm, segment_ids=seg)
+            outs.append((o, lse, *ops.flash_attention_bwd(
+                q, k, v, o, lse, do, hm, segment_ids=seg)))
+        torch.cuda.synchronize()
+        for name, a, c in zip(("o", "lse", "dq", "dk", "dv"), *outs):
+            check(_bits_equal(torch, a, c), f"flash {dtype}: one segment "
+                  f"over the row changes {name} from the causal result")
+    print(f"  flash one segment  B={b} S={s} D={d} causal: o, lse, dq, dk, "
+          f"dv bit-identical to no segments, bf16 and f32")
+
+
 def phase_flash_kernels(torch, ops, ref, _fa, timer) -> dict:
     """Rows 4-6 against their plain versions; returns the summary entries
     at the packed training shape (bf16)."""
     F = torch.nn.functional
-    cases = [("train causal", 8, 512, 64, False, True),
-             ("train packed", 8, 512, 64, True, True),
-             ("ragged S=300", 2, 300, 64, True, True),
-             ("D=128", 2, 512, 128, True, True),
-             ("non-causal", 2, 512, 64, True, False)]
+    cases = [("train causal", 8, 512, 64, None, True),
+             ("train packed", 8, 512, 64, "packed", True),
+             ("ragged S=300", 2, 300, 64, "packed", True),
+             ("S=17", 2, 17, 64, "thirds", True),
+             ("S=1000", 2, 1000, 64, "packed", True),
+             ("tile edges", 2, 512, 64, "edges", True),
+             ("D=128", 2, 512, 128, "packed", True),
+             ("D=128 nc", 2, 512, 128, "packed", False),
+             ("non-causal", 2, 512, 64, "packed", False)]
+    work, causal_tiles = _flash_tiles(
+        torch, _segment_ids(torch, "packed", 8, 512))
+    print(f"  packed training shape (B 8, S 512): {work} of the "
+          f"{causal_tiles} causal 64 x 64 tiles of the rows hold an "
+          f"attending pair ({work / causal_tiles:.3f}; the same for every "
+          f"head): the bf16 forward and dk/dv visit only those")
     rows, main = [], {}
     for dtype in ("bfloat16", "float32"):
-        for label, b, s, d, segmented, causal in cases:
+        for label, b, s, d, seg_kind, causal in cases:
             q, k, v, do, hm, seg = _flash_case(torch, dtype, b, s, d,
-                                               segmented)
+                                               seg_kind)
             mode = dict(causal=causal, segment_ids=seg)
             n0 = dict(ops.LAUNCHES)
             o, lse = ops.flash_attention_fwd(q, k, v, hm, **mode)
@@ -1341,13 +1409,14 @@ def phase_flash_kernels(torch, ops, ref, _fa, timer) -> dict:
                 if label == "train packed" and dtype == "bfloat16":
                     main.update({r["kernel"]: r for r in rows[-3:]})
             print(f"  flash {label:<13} {dtype:<9} B={b} S={s} H=16 KVH=2 "
-                  f"D={d}{' segmented' if segmented else ''}"
+                  f"D={d}{f' segmented ({seg_kind})' if seg_kind else ''}"
                   f"{' causal' if causal else ' non-causal'}: max "
                   f"|err| " + ", ".join(f"{n} {e:.2e}"
                                         for n, e in errs.items())
                   + f" (rtol=atol {TOL[dtype]:.0e}); dk/dv bit-identical "
                   f"over two launches")
             del q, k, v, do, o, lse, dq, dk, dv, dk2, dv2, po, pq, pk, pv
+    _flash_single_segment(torch, ops, 8, 512, 64)
     for label, b, s, d in (("train packed", 8, 512, 64), ("D=128", 2, 512,
                                                           128)):
         _flash_f64(torch, ops, ref, label, b, s, d)
@@ -1373,7 +1442,7 @@ def _flash_f64(torch, ops, ref, label, b, s, d) -> None:
     tol |f64|) (at most 1 is within the f32 tolerance). Fails unless each
     output of the kernels is within the tolerance of f64 or no further
     from it than the plain f32 version."""
-    q, k, v, do, hm, seg = _flash_case(torch, "float32", b, s, d, True,
+    q, k, v, do, hm, seg = _flash_case(torch, "float32", b, s, d, "packed",
                                        q_scale=3.0)
     o, lse = ops.flash_attention_fwd(q, k, v, hm, segment_ids=seg)
     kern = (o, lse, *ops.flash_attention_bwd(q, k, v, o, lse, do, hm,

@@ -19,7 +19,8 @@ def _module(arch: str):
         raise KeyError(
             f"unknown arch {arch!r} for the PyTorch port; ported: "
             f"{sorted(_ARCH_MODULES)}. Other archs follow ROADMAP Queue A "
-            f"(other families: item 'Other families')")
+            f"items 15 (the paper's other two models) and 12 (other "
+            f"families)")
     return importlib.import_module(
         f"repro_torch.configs.{_ARCH_MODULES[arch]}")
 

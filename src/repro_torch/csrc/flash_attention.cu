@@ -2,55 +2,93 @@
 // the forward with its saved log-sum-exp, and the two backward kernels.
 //
 // Replaces the TPU kernels of src/repro/kernels/flash_attention.py:
-//   flash_fwd_kernel  <- `_fwd_kernel`     (reached through flash_attention_fwd)
-//   flash_dq_kernel   <- `_bwd_dq_kernel`  (flash_attention_bwd)
-//   flash_dkv_kernel  <- `_bwd_dkv_kernel` (flash_attention_bwd)
+//   forward (row 4) <- `_fwd_kernel`     (reached through flash_attention_fwd)
+//   dq      (row 5) <- `_bwd_dq_kernel`  (flash_attention_bwd)
+//   dk, dv  (row 6) <- `_bwd_dkv_kernel` (flash_attention_bwd)
 // and `flash_attention_segmented`, which is the same three with segment ids.
 // Same functions, with scale = D^-1/2 and s = q.k masked to key <= query
 // (causal) and to equal segment ids (segmented; 0 = pad is a segment too):
-//   forward: o = softmax(s) v, lse = m + log(max(l, 1e-30)), q scaled
-//            before q.k, masked entries of p zeroed explicitly (a key tile
-//            can be fully masked for a row, so m may still be the -1e30
-//            sentinel, where exp(s - m) would be 1);
+//   forward: o = softmax(s scale) v, lse = m + log(max(l, 1e-30)), masked
+//            entries of p zeroed explicitly (a key tile can be fully masked
+//            for a row, so m may still be the -1e30 sentinel, where
+//            exp(s - m) would be 1);
 //   dq:      p = exp(s*scale - lse), ds = p (do.v - delta) scale, dq = ds k;
 //   dk, dv:  dv = p^T do, dk = ds^T q, summed over the q heads of the kv
-//            head in a fixed order (q heads ascending, then q tiles, each
-//            tile's rows summed first), with no atomics: the same inputs
-//            give the same bits.
+//            head in a fixed order with no atomics: the same inputs give
+//            the same bits.
 // delta = rowsum(do * o) is computed by the caller.
 //
 // Layout: q, o, dq, do are [B, S, H, D] (the layer's layout); k, v, dk, dv
 // [B, S, KVH, D], NOT head-expanded: q head h reads kv head hmap[h]. lse and
 // delta are [B, H, S] f32; segment ids [B, S] int32. S is any length >= 1:
-// rows and keys past S are zero-filled and masked. D is 64 or 128. Inputs
-// are f32 or bf16; the math is f32 on the CUDA cores (no TF32, no tensor
-// cores), but for f32 inputs the score dot products q.k and do.v sum in f64
-// (see DotAcc), and outputs are written in the input dtype.
+// rows and keys past S are zero-filled and masked. D is 64 or 128.
 //
-// What bounds it: operations. At the training shape (B 8, S 512, 16 q
-// heads, D 64) a forward does ~4.3 GFLOP on ~25 MB, ~170 flops a byte; in
-// f32 on the CUDA cores (67 TFLOP/s) the ridge is ~20 flops a byte, so the
-// kernels are bound by the FMA pipes and, behind them, by shared-memory
-// bandwidth. The design keeps every score tile out of device memory and
-// feeds the FMAs from shared memory with 16-byte reads:
-//   - a block of 256 threads (16 x 16) owns a 64-query (or, for dk/dv,
-//     64-key) tile; Q, K, V, dO tiles are staged in shared memory as f32
-//     rows of stride D + 4 floats (an odd number of 16-byte slots, so the
-//     16 threads of a half-warp reading 16 different rows hit 16 different
-//     bank groups);
-//   - each thread computes a 4 x 4 block of the 64 x 64 score tile (rows
-//     ty + 16 i, columns tx + 16 j): 8 16-byte shared reads per 64 FMAs;
-//     softmax statistics of a row are reduced over the half-warp that holds
-//     it with shuffles;
-//   - the products with V, K, Q or dO read the probability tile row by row
-//     (a broadcast) and 16-byte chunks of the value rows, the thread owning
-//     4 rows x D/16 output columns in registers;
-//   - the TPU's sequential grid axis (k tiles for forward and dq, q tiles
-//     for dk/dv) is a loop inside the block; forward and dq stop at the
-//     causal diagonal, dk/dv start at it, and the first dk/dv blocks take
-//     the first k tiles, which have the most q tiles to visit.
-// Tiles fully masked by segments are still visited (skipping them is the
-// next step), and the dk/dv grid is small (S/64 x B x KVH blocks).
+// Which body serves which dtype:
+//   - bf16 forward and dk/dv: `flash_fwd_kernel_tc`, `flash_dkv_kernel_tc`
+//     (+ `flash_dkv_sum_kernel`), on the tensor cores (below);
+//   - f32 (all three) and bf16 dq: `flash_fwd_kernel`, `flash_dq_kernel`,
+//     `flash_dkv_kernel`, f32 FMAs on the CUDA cores. For f32 inputs the
+//     score dot products q.k and do.v sum in f64 (DotAcc): they are the
+//     accuracy path held against f64, which TF32 or bf16 tensor cores would
+//     not meet at the f32 1e-5 tolerance.
+//
+// What bounds them: at the training shape (B 8, S 512, 16 q heads, D 64) a
+// causal forward does ~4.3 GFLOP on ~19 MB, ~220 flops a byte: far above
+// the CUDA cores' ridge (~20 flops a byte at 67 TFLOP/s f32), so the f32
+// bodies are bound by operations; just below the bf16 tensor cores' (~295
+// at 989 TFLOP/s), so the bf16 forward is bound by its bytes and the causal
+// dk/dv (4 products) by operations. Segments cut the operations further:
+// 8.3% of the causal pairs attend at the packed shape.
+//
+// The bf16 bodies (FlashAttention-2's shape, on mma.sync.m16n8k16, bf16 in,
+// f32 accumulate):
+//   - a block of 4 warps owns 64 rows of the fixed side (queries in the
+//     forward, keys of one kv head in dk/dv), 16 to a warp; its tiles and the
+//     moving side's tiles are staged in shared memory as bf16 rows of stride
+//     D + 8 (8 rows read by one ldmatrix hit 8 different 16-byte bank
+//     groups), the moving tiles in a ring of 3 cp.async stages (2 for the
+//     head-dim-128 forward, for its shared memory), rows past S zero-filled;
+//   - every product runs on the tensor cores, its operands taken with
+//     ldmatrix (.trans for the second product's B); the score tile stays in
+//     the accumulator registers: the online softmax (forward) or p and ds
+//     (dk/dv) are computed there, the scale applied to the f32 scores, the
+//     row statistics reduced over the 4 lanes of a quad, and p (ds) made
+//     the A operand of the next product in registers: in the forward p
+//     rounded to bf16; in dk/dv p and ds as a bf16 hi + lo pair, two
+//     products into the same sums (6 products a tile, not 4), since dk and
+//     dv sum p do and ds q over many queries and q heads, and one bf16
+//     rounding of p and ds put small entries past the 2e-2 tolerance (up to
+//     0.037 off on the card);
+//   - tiles with no attending pair are skipped, decided before any load or
+//     product of the tile: causal ones by the loop bounds; segment-masked
+//     ones by an exact test on the ids. A candidate tile that overlaps the
+//     fixed tile under the causal mask holds the pairs (p, p); any other
+//     lies wholly on one side of it, so that it attends iff one of its ids
+//     is among the fixed tile's ids (kept once per block as a list of runs;
+//     no order of the ids is assumed, pad 0 is a segment). The block votes
+//     on 32 candidate tiles at a time (warp OR, then 4 slots in shared
+//     memory: two barriers);
+//   - forward grid (B*H, S/64), the longest causal rows first. dk/dv grid
+//     (B*KVH*n_split, S/64), the first k tiles (the most q tiles) first: the
+//     (q tile, q head) pairs of a kv head, q tiles ascending and then its q
+//     heads ascending, are cut into n_split equal runs (the caller's
+//     `n_split`, up to 4, so that the grid holds ~4 blocks per SM where
+//     B*KVH*S/64 alone would not fill the card). Each block sums its run in
+//     that order in f32 registers (the MMA adds each pair's 64 rows into
+//     them); with n_split > 1 it writes f32 partials to the caller's
+//     workspace [2, n_split, B, S, KVH, D] and `flash_dkv_sum_kernel` adds
+//     them in split order 0, 1, .., n-1 and rounds once to bf16. Fixed
+//     order, no atomics: the same inputs give the same bits.
+// Registers and spills of every instance: phase 1 of chip_smoke.py prints
+// ptxas's lines (-Xptxas -v); PERF.md keeps them.
+//
+// The f32 bodies: a block of 256 threads (16 x 16) owns a 64-query (or,
+// for dk/dv, 64-key) tile; tiles are staged as f32 rows of stride D + 4;
+// each thread computes a 4 x 4 block of the score tile from 16-byte shared
+// reads, the products with V, K, Q or dO read the probability tile row by
+// row; the TPU's sequential grid axis is a loop inside the block; masked
+// tiles are visited; the dk/dv grid is S/64 x B x KVH blocks, each summing
+// q heads ascending, then q tiles, each tile's rows summed first.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -483,6 +521,717 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_tile<T, D>(dv, dv_acc, b, k0, g, KVH, S, ty, tx);
 }
 
+// ------------------------------------------------------------------------
+// bf16 bodies on the tensor cores (see the note at the top)
+
+using bf16 = __nv_bfloat16;
+constexpr int kTcThreads = 128;                 // 4 warps, 16 rows each
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// 16 (4) bytes global -> shared, asynchronously; unless `full`, zeros (and
+// `src`, a valid address, is not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(full ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(full ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// four 8 x 8 bf16 matrices from shared memory; lanes 8i..8i+7 give the row
+// addresses of matrix i (.trans: each transposed)
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+// c += a b: a 16 x 16 (row), b 16 x 8 (col), c 16 x 8 f32. Lane l holds
+// c[l/4][2(l%4) + {0,1}] in c[0..1] and row l/4 + 8 in c[2..3]
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&x);
+}
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Rows r0 .. r0+R-1 of head `head` of a [B, S, heads, D] bf16 tensor into a
+// [R, D + 8] tile, 16 bytes a copy; rows at or past S are zeros
+template <int R, int D>
+__device__ __forceinline__ void cp_tile(bf16* dst, const bf16* __restrict__ src,
+                                        int b, int r0, int head, int heads,
+                                        int S) {
+  constexpr int kLD = D + 8, kChunks = D / 8;
+#pragma unroll
+  for (int i = threadIdx.x; i < R * kChunks; i += kTcThreads) {
+    const int r = i / kChunks, c = (i % kChunks) * 8;
+    const bool in = r0 + r < S;
+    cp_async16(dst + r * kLD + c,
+               in ? src + (((size_t)b * S + r0 + r) * heads + head) * D + c
+                  : src,
+               in);
+  }
+}
+// n 4-byte values src[p0 ..] into dst (zeros past S)
+template <typename T>
+__device__ __forceinline__ void cp_vals(T* dst, const T* __restrict__ src,
+                                        int p0, int n, int S) {
+  if (threadIdx.x < n) {
+    const bool in = p0 + threadIdx.x < S;
+    cp_async4(dst + threadIdx.x, in ? src + p0 + threadIdx.x : src, in);
+  }
+}
+
+// The segment ids of the fixed tile (64 positions from fix0; queries in the
+// forward, keys in dk/dv) as a list of runs: one entry for each run of equal
+// neighbours below S, in `runs` (64 ints; `cnt` 2 ints of scratch). An id
+// that comes back after another run is listed again, which is harmless.
+// Returns the number of runs; every thread gets it.
+__device__ int tile_runs(const int* ids, int fix0, int S, int* runs,
+                         int* cnt) {
+  const int t = threadIdx.x, lane = t & 31, w = t >> 5;
+  const bool head = t < kTile && fix0 + t < S &&
+                    (t == 0 || ids[t] != ids[t - 1]);
+  const unsigned m = __ballot_sync(0xffffffffu, head);
+  if (t < kTile && lane == 0) cnt[w] = __popc(m);
+  __syncthreads();
+  if (head) runs[(w ? cnt[0] : 0) + __popc(m & ((1u << lane) - 1))] = ids[t];
+  const int n = cnt[0] + cnt[1];
+  __syncthreads();
+  return n;
+}
+
+// Bit i of the result is set if candidate tile t0 + i (i < n <= 32; tiles of
+// CAND positions) holds a (query, key) pair that attends against the fixed
+// tile. Exact: a candidate tile that overlaps the fixed tile's positions
+// under the causal mask (bits `diag`) holds the pairs (p, p) and attends;
+// every other candidate lies wholly on one side of the fixed tile, so that
+// causality holds for all its pairs or for none (the caller's bounds), and
+// it attends iff one of its ids below S is in the fixed tile's runs. The
+// threads split the candidate positions (t % CAND) and the runs (t / CAND,
+// strided), OR their bits over each warp and then over the block's 4 warps
+// through `slots` (4 ints): two barriers for up to 32 tiles.
+template <int CAND>
+__device__ uint32_t vote_tiles(const int* runs, int n_runs,
+                               const int* __restrict__ seg_row, int S, int t0,
+                               int n, uint32_t diag, int* slots) {
+  constexpr int kGroups = kTcThreads / CAND;
+  const int cpos = threadIdx.x % CAND, r0 = threadIdx.x / CAND;
+  uint32_t bits = 0;
+  for (int i0 = 0; i0 < n; i0 += 8) {
+    int id[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {   // the loads first, then the compares
+      const int pos = (t0 + i0 + j) * CAND + cpos;
+      id[j] = i0 + j < n && pos < S ? __ldg(seg_row + pos) : 0;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int pos = (t0 + i0 + j) * CAND + cpos;
+      bool hit = false;
+      if (i0 + j < n && pos < S)
+        for (int r = r0; r < n_runs; r += kGroups) hit |= runs[r] == id[j];
+      bits |= hit ? 1u << (i0 + j) : 0u;
+    }
+  }
+  bits = __reduce_or_sync(0xffffffffu, bits);
+  if ((threadIdx.x & 31) == 0) slots[threadIdx.x >> 5] = bits;
+  __syncthreads();
+  bits = slots[0] | slots[1] | slots[2] | slots[3];
+  __syncthreads();                  // slots are free for the next vote
+  return bits | diag;
+}
+
+// The tiles a block visits: candidates [t, hi) that hold an attending pair,
+// in order; without segment ids every one (the caller's bounds take the
+// causal cut). [dlo, dhi): the candidates that overlap the fixed tile
+// under the causal mask (empty if not causal). (base, bits): the last 32
+// candidates voted on.
+template <int CAND>
+struct TileScan {
+  const int* runs;
+  int n_runs;
+  const int* seg_row;
+  int S, hi, dlo, dhi;
+  int* slots;
+  int base = -64;
+  uint32_t bits = 0;
+
+  // the first visited tile >= t, or hi
+  __device__ __forceinline__ int next(int t) {
+    if (seg_row == nullptr) return min(t, hi);
+    while (t < hi) {
+      if (t >= base + 32) {
+        base = t;
+        const int n = min(32, hi - t);
+        uint32_t diag = 0;
+        for (int x = max(t, dlo); x < min(t + n, dhi); ++x)
+          diag |= 1u << (x - t);
+        bits = vote_tiles<CAND>(runs, n_runs, seg_row, S, t, n, diag, slots);
+      }
+      const uint32_t m = bits >> (t - base);
+      if (m) return t + __ffs(m) - 1;
+      t = base + 32;
+    }
+    return hi;
+  }
+};
+
+// A = the warp's 16 rows (16 w + l % 16) of a [., D + 8] tile at column kc
+template <int D>
+__device__ __forceinline__ void ld_a(uint32_t (&a)[4], const bf16* tile,
+                                     int kc) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  ldsm4(a, tile + (warp * 16 + (lane & 15)) * (D + 8) + kc * 16 +
+               (lane >> 4) * 8);
+}
+// B operands of two n tiles (rows j*16 .. j*16 + 15 of a [., D + 8] tile, as
+// the columns of B) at depth kc: r[0..1] n tile 2j, r[2..3] n tile 2j + 1
+template <int D>
+__device__ __forceinline__ void ld_b(uint32_t (&r)[4], const bf16* tile, int j,
+                                     int kc) {
+  const int lane = threadIdx.x & 31;
+  ldsm4(r, tile + (j * 16 + (lane & 7) + ((lane >> 4) << 3)) * (D + 8) +
+               kc * 16 + ((lane >> 3) & 1) * 8);
+}
+// B operands read across rows (rows kc*16 .. kc*16 + 15 are the depth,
+// columns dp*16 .. dp*16 + 15 two n tiles): r[0..1] n tile 2dp, r[2..3] 2dp+1
+template <int D>
+__device__ __forceinline__ void ld_bt(uint32_t (&r)[4], const bf16* tile,
+                                      int kc, int dp) {
+  const int lane = threadIdx.x & 31;
+  ldsm4_t(r, tile + (kc * 16 + (lane & 7) + (((lane >> 3) & 1) << 3)) *
+                        (D + 8) +
+                 dp * 16 + (lane >> 4) * 8);
+}
+// s[N tiles] = A(rows of `a_tile`) . B(rows of `b_tile`)^T over depth D
+template <int D, int NT>
+__device__ __forceinline__ void gemm_nt(float (&s)[NT][4], const bf16* a_tile,
+                                        const bf16* b_tile) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+  for (int kc = 0; kc < D / 16; ++kc) {
+    uint32_t a[4];
+    ld_a<D>(a, a_tile, kc);
+#pragma unroll
+    for (int j = 0; j < NT / 2; ++j) {
+      uint32_t b[4];
+      ld_b<D>(b, b_tile, j, kc);
+      mma16816(s[2 * j], a, b[0], b[1]);
+      mma16816(s[2 * j + 1], a, b[2], b[3]);
+    }
+  }
+}
+// (x0, x1) - their bf16 rounding, rounded to bf16: the low half of a
+// hi + lo pair that carries ~16 bits of x's mantissa
+__device__ __forceinline__ uint32_t pack_bf16_lo(float x0, float x1) {
+  const float2 hi = __bfloat1622float2(__floats2bfloat162_rn(x0, x1));
+  return pack_bf16(x0 - hi.x, x1 - hi.y);
+}
+
+// acc[D/8 tiles] += P . rows of `b_tile`, P the bf16 rounding of p (the
+// warp's 16 rows x NT*8 columns, in accumulator layout). kHiLo: P as a
+// bf16 hi + lo pair, two products into the same sums, hi first (p to ~2^-17
+// instead of 2^-9: dk and dv sum many such terms over the q heads)
+template <int D, int NT, bool kHiLo>
+__device__ __forceinline__ void gemm_pv(float (&acc)[D / 8][4],
+                                        const float (&p)[NT][4],
+                                        const bf16* b_tile) {
+#pragma unroll
+  for (int kc = 0; kc < NT / 2; ++kc) {
+    const uint32_t a[4] = {pack_bf16(p[2 * kc][0], p[2 * kc][1]),
+                           pack_bf16(p[2 * kc][2], p[2 * kc][3]),
+                           pack_bf16(p[2 * kc + 1][0], p[2 * kc + 1][1]),
+                           pack_bf16(p[2 * kc + 1][2], p[2 * kc + 1][3])};
+    uint32_t lo[4] = {};
+    if (kHiLo) {
+      lo[0] = pack_bf16_lo(p[2 * kc][0], p[2 * kc][1]);
+      lo[1] = pack_bf16_lo(p[2 * kc][2], p[2 * kc][3]);
+      lo[2] = pack_bf16_lo(p[2 * kc + 1][0], p[2 * kc + 1][1]);
+      lo[3] = pack_bf16_lo(p[2 * kc + 1][2], p[2 * kc + 1][3]);
+    }
+#pragma unroll
+    for (int dp = 0; dp < D / 16; ++dp) {
+      uint32_t b[4];
+      ld_bt<D>(b, b_tile, kc, dp);
+      mma16816(acc[2 * dp], a, b[0], b[1]);
+      mma16816(acc[2 * dp + 1], a, b[2], b[3]);
+      if (kHiLo) {
+        mma16816(acc[2 * dp], lo, b[0], b[1]);
+        mma16816(acc[2 * dp + 1], lo, b[2], b[3]);
+      }
+    }
+  }
+}
+
+// The block's [64, D] accumulator (rows 16 w + l/4 and + 8, times mul_lo and
+// mul_hi) through the [64, D + 8] shared tile to rows r0.. of head `head` of
+// a [B, S, heads, D] bf16 tensor (rows below S), 16 bytes a store. The
+// tile must be free: no thread reads it any more.
+template <int D>
+__device__ __forceinline__ void store_acc(const float (&acc)[D / 8][4],
+                                          float mul_lo, float mul_hi,
+                                          bf16* tile, bf16* __restrict__ dst,
+                                          int b, int r0, int head, int heads,
+                                          int S) {
+  constexpr int kLD = D + 8, kChunks = D / 8;
+  const int lane = threadIdx.x & 31, r = (threadIdx.x >> 5) * 16 + (lane >> 2);
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    const int c = n * 8 + ((lane & 3) << 1);
+    *reinterpret_cast<uint32_t*>(tile + r * kLD + c) =
+        pack_bf16(acc[n][0] * mul_lo, acc[n][1] * mul_lo);
+    *reinterpret_cast<uint32_t*>(tile + (r + 8) * kLD + c) =
+        pack_bf16(acc[n][2] * mul_hi, acc[n][3] * mul_hi);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < kTile * kChunks; i += kTcThreads) {
+    const int rr = i / kChunks, c = (i % kChunks) * 8;
+    if (r0 + rr < S)
+      *reinterpret_cast<uint4*>(
+          dst + (((size_t)b * S + r0 + rr) * heads + head) * D + c) =
+          *reinterpret_cast<const uint4*>(tile + rr * kLD + c);
+  }
+}
+
+// 2^x on the special function unit (relative error ~2^-22; 0 for -inf)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// cp.async stages of the moving side's tiles (the K/V ring of the forward,
+// the Q/dO ring of dk/dv): 3 where the shared memory leaves room for the
+// blocks that the registers allow on an SM, else 2
+template <int D>
+__host__ __device__ constexpr int fwd_stages() { return D == 64 ? 3 : 2; }
+constexpr int kDkvStages = 3;
+constexpr int kScanInts = kTile + 8;   // runs, 2 counts, 4 vote slots
+
+template <int D>
+constexpr int fwd_tc_smem() {
+  return (1 + 2 * fwd_stages<D>()) * kTile * (D + 8) * 2 +
+         ((1 + fwd_stages<D>()) * kTile + kScanInts) * 4;
+}
+
+// grid (B*H, S/64): one 64-query tile of one q head; the k tiles that hold
+// an attending pair, in order, through a ring of cp.async stages
+template <int D>
+__global__ void __launch_bounds__(kTcThreads)
+flash_fwd_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const int* __restrict__ seg,
+                    const int* __restrict__ hmap, bf16* __restrict__ o,
+                    float* __restrict__ lse, int S, int H, int KVH,
+                    float scale, int causal) {
+  constexpr int kLD = D + 8, kSt = fwd_stages<D>();
+  extern __shared__ float4 smem4[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem4);       // [64, kLD]
+  bf16* Ks = Qs + kTile * kLD;                     // [kSt][64, kLD]
+  bf16* Vs = Ks + kSt * kTile * kLD;               // [kSt][64, kLD]
+  int* qseg = reinterpret_cast<int*>(Vs + kSt * kTile * kLD);   // [64]
+  int* kseg = qseg + kTile;                        // [kSt][64]
+  int* scan = kseg + kSt * kTile;                  // kScanInts
+
+  const int lane = threadIdx.x & 31;
+  const int qt = gridDim.y - 1 - blockIdx.y;       // the longest rows first
+  const int q0 = qt * kTile;
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int g = hmap[h];
+  const int* seg_row = seg ? seg + (size_t)b * S : nullptr;
+
+  cp_tile<kTile, D>(Qs, q, b, q0, h, H, S);
+  cp_async_commit();
+  if (threadIdx.x < kTile)
+    qseg[threadIdx.x] = seg_row && q0 + (int)threadIdx.x < S
+                            ? seg_row[q0 + threadIdx.x] : 0;
+  __syncthreads();                                 // qseg, for the runs
+  const int hi = causal ? qt + 1 : (S + kTile - 1) / kTile;
+  TileScan<kTile> scan_k{scan, seg_row ? tile_runs(qseg, q0, S, scan,
+                                                   scan + kTile) : 0,
+                         seg_row, S, hi, causal ? qt : 0, causal ? qt + 1 : 0,
+                         scan + kTile + 4};
+  auto load_kv = [&](int kt, int buf) {
+    cp_tile<kTile, D>(Ks + buf * kTile * kLD, k, b, kt * kTile, g, KVH, S);
+    cp_tile<kTile, D>(Vs + buf * kTile * kLD, v, b, kt * kTile, g, KVH, S);
+    if (seg_row) cp_vals(kseg + buf * kTile, seg_row, kt * kTile, kTile, S);
+  };
+  // the thread's rows: r_lo = 16 w + l/4 and r_lo + 8 of the tile
+  const int r_lo = (threadIdx.x >> 5) * 16 + (lane >> 2);
+  const int qr[2] = {q0 + r_lo, q0 + r_lo + 8};
+  const int qs[2] = {qseg[r_lo], qseg[r_lo + 8]};
+  const float sl2 = scale * kLog2e;
+  // m: the row max of the raw scores q.k seen so far (-inf: none attended)
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  uint32_t qf[D / 16][4];
+
+  // cur: this iteration's tile; n1: the next (3 stages); each iteration
+  // issues the tile kSt - 1 ahead
+  int cur = scan_k.next(0), n1 = hi;
+  if (cur < hi) load_kv(cur, 0);
+  cp_async_commit();
+  if (kSt == 3) {
+    n1 = cur < hi ? scan_k.next(cur + 1) : hi;
+    if (n1 < hi) load_kv(n1, 1);
+    cp_async_commit();
+  }
+  for (int it = 0; cur < hi; ++it) {
+    const int buf = it % kSt;
+    cp_async_wait<kSt - 2>();
+    // tile cur (and Q) have landed, and every warp is done with iteration
+    // it - 1, whose buffer the next load overwrites
+    __syncthreads();
+    const int last = kSt == 3 ? n1 : cur;
+    const int nn = last < hi ? scan_k.next(last + 1) : hi;
+    if (nn < hi) load_kv(nn, (it + kSt - 1) % kSt);
+    cp_async_commit();
+    if (it == 0) {
+#pragma unroll
+      for (int kc = 0; kc < D / 16; ++kc) ld_a<D>(qf[kc], Qs, kc);
+    }
+    const bf16* Kb = Ks + buf * kTile * kLD;
+    const int* ks = kseg + buf * kTile;
+    const int k0 = cur * kTile;
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t kb[4];
+        ld_b<D>(kb, Kb, j, kc);
+        mma16816(s[2 * j], qf[kc], kb[0], kb[1]);
+        mma16816(s[2 * j + 1], qf[kc], kb[2], kb[3]);
+      }
+    if (seg_row != nullptr || (causal && cur == qt) || k0 + kTile > S) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = j * 8 + ((lane & 3) << 1);
+        const int2 kid = seg_row ? *reinterpret_cast<const int2*>(ks + c)
+                                 : make_int2(0, 0);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + c + (e & 1), r = e >> 1;
+          if (!(key < S && (!causal || key <= qr[r]) &&
+                (!seg_row || (e & 1 ? kid.y : kid.x) == qs[r])))
+            s[j][e] = -INFINITY;
+        }
+      }
+    }
+    float alpha[2], ms[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = m[r];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+      mx = quad_max(mx);
+      // a row with no attending key so far keeps p = 0 and its sums
+      alpha[r] = mx == -INFINITY ? 1.f : ex2((m[r] - mx) * sl2);
+      ms[r] = mx == -INFINITY ? 0.f : mx * sl2;
+      m[r] = mx;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = ex2(fmaf(s[j][e], sl2, -ms[e >> 1]));
+        s[j][e] = p;
+        l[e >> 1] += p;
+      }
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      acc[n][0] *= alpha[0]; acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1]; acc[n][3] *= alpha[1];
+    }
+    gemm_pv<D, 8, false>(acc, s, Vs + buf * kTile * kLD);
+    if (kSt == 3) {
+      cur = n1;
+      n1 = nn;
+    } else {
+      cur = nn;
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float lsum = fmaxf(quad_sum(l[r]), 1e-30f);
+    inv[r] = 1.f / lsum;
+    if ((lane & 3) == 0 && qr[r] < S)
+      lse[((size_t)b * H + h) * S + qr[r]] =
+          (m[r] == -INFINITY ? kNegInf : m[r] * scale) + logf(lsum);
+  }
+  store_acc<D>(acc, inv[0], inv[1], Qs, o, b, q0, h, H, S);
+}
+
+// dk/dv q tile: 64 queries at head dim 64; 32 at 128, which keeps the score
+// and dp tiles (2 x kBQ/2 registers) beside the two [16, D] accumulators
+template <int D>
+__host__ __device__ constexpr int dkv_bq() { return D == 64 ? 64 : 32; }
+template <int D>
+constexpr int dkv_tc_smem() {
+  return (2 * kTile + 2 * kDkvStages * dkv_bq<D>()) * (D + 8) * 2 +
+         (kTile + 3 * kDkvStages * dkv_bq<D>() + kScanInts) * 4;
+}
+
+// A (q tile, q head) pair of dk/dv's run: p = (qt - qt_lo) * nh + the head's
+// index among kv head g's q heads; valid while p < the run's end
+struct DkvPair {
+  int qt, h;
+  long long p;
+};
+
+// grid (B*KVH*n_split, S/64): dk, dv of one 64-key tile of one kv head over
+// the split's run of (q tile, q head) pairs; see the note at the top
+template <int D>
+__global__ void __launch_bounds__(kTcThreads)
+flash_dkv_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta,
+                    const int* __restrict__ seg, const int* __restrict__ hmap,
+                    bf16* __restrict__ dk, bf16* __restrict__ dv,
+                    float* __restrict__ part, int n_split, int S, int H,
+                    int KVH, float scale, int causal) {
+  constexpr int kBQ = dkv_bq<D>(), kLD = D + 8, kQN = kBQ / 8;
+  constexpr int kSt = kDkvStages;
+  extern __shared__ float4 smem4[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem4);       // [64, kLD]
+  bf16* Vs = Ks + kTile * kLD;                     // [64, kLD]
+  bf16* Qs = Vs + kTile * kLD;                     // [kSt][kBQ, kLD]
+  bf16* dOs = Qs + kSt * kBQ * kLD;                // [kSt][kBQ, kLD]
+  int* kseg = reinterpret_cast<int*>(dOs + kSt * kBQ * kLD);   // [64]
+  int* qseg = kseg + kTile;                        // [kSt][kBQ]
+  float* lse_s = reinterpret_cast<float*>(qseg + kSt * kBQ);   // [kSt][kBQ]
+  float* delta_s = lse_s + kSt * kBQ;              // [kSt][kBQ]
+  int* scan = reinterpret_cast<int*>(delta_s + kSt * kBQ);     // kScanInts
+
+  const int lane = threadIdx.x & 31;
+  const int kt = blockIdx.y, k0 = kt * kTile;      // the first k tiles first
+  const int sp = blockIdx.x % n_split, bg = blockIdx.x / n_split;
+  const int b = bg / KVH, g = bg % KVH;
+  const int* seg_row = seg ? seg + (size_t)b * S : nullptr;
+
+  cp_tile<kTile, D>(Ks, k, b, k0, g, KVH, S);
+  cp_tile<kTile, D>(Vs, v, b, k0, g, KVH, S);
+  cp_async_commit();
+  if (threadIdx.x < kTile)
+    kseg[threadIdx.x] = seg_row && k0 + (int)threadIdx.x < S
+                            ? seg_row[k0 + threadIdx.x] : 0;
+  __syncthreads();                                 // kseg, for the runs
+
+  // this block's run of the pairs (q tile, q head of g): q tiles ascending,
+  // then heads ascending
+  int nh = 0;
+  for (int i = 0; i < H; ++i) nh += __ldg(hmap + i) == g;
+  auto head_from = [&](int i) {        // the first head >= i on kv head g
+    while (i < H && __ldg(hmap + i) != g) ++i;
+    return i;
+  };
+  const int qt_lo = causal ? k0 / kBQ : 0, n_qt = (S + kBQ - 1) / kBQ;
+  const long long n_pairs = (long long)(n_qt - qt_lo) * nh;
+  const long long p_end = n_pairs * (sp + 1) / n_split;
+  TileScan<kBQ> scan_q{scan, seg_row ? tile_runs(kseg, k0, S, scan,
+                                                 scan + kTile) : 0,
+                       seg_row, S, n_qt, causal ? qt_lo : 0,
+                       causal ? (k0 + kTile) / kBQ : 0, scan + kTile + 4};
+  auto next_pair = [&](DkvPair c) {    // the pair after c (c valid)
+    c.h = head_from(c.h + 1);
+    ++c.p;
+    if (c.h >= H) {
+      c.qt = scan_q.next(c.qt + 1);
+      c.h = head_from(0);
+      c.p = (long long)(c.qt - qt_lo) * nh;
+    }
+    return c;
+  };
+  DkvPair cur{n_qt, H, p_end};
+  {
+    const long long p = n_pairs * sp / n_split;
+    if (p < p_end) {
+      cur.qt = qt_lo + (int)(p / nh);
+      int idx = (int)(p % nh);
+      cur.p = p;
+      const int a = scan_q.next(cur.qt);
+      if (a != cur.qt) {
+        cur.qt = a;
+        idx = 0;
+        cur.p = (long long)(a - qt_lo) * nh;
+      }
+      cur.h = head_from(0);
+      for (int i = 0; i < idx; ++i) cur.h = head_from(cur.h + 1);
+    }
+  }
+  auto load_pair = [&](DkvPair c, int buf) {
+    const int q0 = c.qt * kBQ;
+    cp_tile<kBQ, D>(Qs + buf * kBQ * kLD, q, b, q0, c.h, H, S);
+    cp_tile<kBQ, D>(dOs + buf * kBQ * kLD, dout, b, q0, c.h, H, S);
+    const size_t row = ((size_t)b * H + c.h) * S;
+    cp_vals(lse_s + buf * kBQ, lse + row, q0, kBQ, S);
+    cp_vals(delta_s + buf * kBQ, delta + row, q0, kBQ, S);
+    if (seg_row) cp_vals(qseg + buf * kBQ, seg_row, q0, kBQ, S);
+  };
+
+  const int kr = (threadIdx.x >> 5) * 16 + (lane >> 2);   // rows kr, kr + 8
+  const int kpos[2] = {k0 + kr, k0 + kr + 8};
+  const int ksg[2] = {kseg[kr], kseg[kr + 8]};
+  const float sl2 = scale * kLog2e;
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+
+  // cur: this iteration's pair, n1 the next; each iteration issues the
+  // pair kSt - 1 = 2 ahead
+  if (cur.p < p_end) load_pair(cur, 0);
+  cp_async_commit();
+  DkvPair n1 = cur.p < p_end ? next_pair(cur) : cur;
+  if (n1.p < p_end) load_pair(n1, 1);
+  cp_async_commit();
+  for (int it = 0; cur.p < p_end; ++it) {
+    const int buf = it % kSt;
+    cp_async_wait<kSt - 2>();
+    // the pair's tiles have landed, and every warp is done with iteration
+    // it - 1, whose buffer the next load overwrites
+    __syncthreads();
+    const DkvPair nn = n1.p < p_end ? next_pair(n1) : n1;
+    if (nn.p < p_end) load_pair(nn, (it + 2) % kSt);
+    cp_async_commit();
+    const bf16* Qb = Qs + buf * kBQ * kLD;
+    const bf16* dOb = dOs + buf * kBQ * kLD;
+    const float* ls = lse_s + buf * kBQ;
+    const float* dl = delta_s + buf * kBQ;
+    const int* qsg = qseg + buf * kBQ;
+    const int q0 = cur.qt * kBQ;
+    // p^T = exp(K Q^T scale - lse): the warp's 16 keys x kBQ queries
+    float st[kQN][4];
+    gemm_nt<D, kQN>(st, Ks, Qb);
+    const bool need_mask = seg_row != nullptr ||
+                           (causal && q0 < k0 + kTile - 1) ||
+                           q0 + kBQ > S || k0 + kTile > S;
+#pragma unroll
+    for (int j = 0; j < kQN; ++j) {
+      const int c = j * 8 + ((lane & 3) << 1);
+      const float2 lv = *reinterpret_cast<const float2*>(ls + c);
+      const int2 qid = seg_row ? *reinterpret_cast<const int2*>(qsg + c)
+                               : make_int2(0, 0);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        float pv = ex2(fmaf(st[j][e], sl2, -(e & 1 ? lv.y : lv.x) * kLog2e));
+        if (need_mask) {
+          const int qp = q0 + c + (e & 1);
+          if (!(qp < S && kpos[r] < S && (!causal || kpos[r] <= qp) &&
+                (!seg_row || (e & 1 ? qid.y : qid.x) == ksg[r])))
+            pv = 0.f;
+        }
+        st[j][e] = pv;
+      }
+    }
+    gemm_pv<D, kQN, true>(dv_acc, st, dOb);   // dv += p^T dO
+    float dpt[kQN][4];
+    gemm_nt<D, kQN>(dpt, Vs, dOb);            // dp^T = V dO^T
+#pragma unroll
+    for (int j = 0; j < kQN; ++j) {
+      const int c = j * 8 + ((lane & 3) << 1);
+      const float2 dv2 = *reinterpret_cast<const float2*>(dl + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)             // ds^T
+        st[j][e] = st[j][e] * (dpt[j][e] - (e & 1 ? dv2.y : dv2.x)) * scale;
+    }
+    gemm_pv<D, kQN, true>(dk_acc, st, Qb);    // dk += ds^T Q
+    cur = n1;
+    n1 = nn;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  if (n_split == 1) {
+    store_acc<D>(dk_acc, 1.f, 1.f, Ks, dk, b, k0, g, KVH, S);
+    store_acc<D>(dv_acc, 1.f, 1.f, Vs, dv, b, k0, g, KVH, S);
+    return;
+  }
+  // f32 partials: part[0 (dk) / 1 (dv)][sp][b][s][g][:]
+  const int B = gridDim.x / (n_split * KVH);
+  const size_t n = (size_t)B * S * KVH * D;
+  float* pk = part + (size_t)sp * n;
+  float* pv = part + (size_t)(n_split + sp) * n;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (kpos[r] >= S) continue;
+    const size_t at = (((size_t)b * S + kpos[r]) * KVH + g) * D +
+                      ((lane & 3) << 1);
+#pragma unroll
+    for (int nn = 0; nn < D / 8; ++nn) {
+      *reinterpret_cast<float2*>(pk + at + nn * 8) =
+          make_float2(dk_acc[nn][2 * r], dk_acc[nn][2 * r + 1]);
+      *reinterpret_cast<float2*>(pv + at + nn * 8) =
+          make_float2(dv_acc[nn][2 * r], dv_acc[nn][2 * r + 1]);
+    }
+  }
+}
+
+// dk, dv = the n_split f32 partials summed in split order, rounded once
+__global__ void __launch_bounds__(256)
+flash_dkv_sum_kernel(const float* __restrict__ part, bf16* __restrict__ dk,
+                     bf16* __restrict__ dv, int n_split, long long n) {
+  const long long i = (blockIdx.x * (long long)blockDim.x + threadIdx.x) * 4;
+  if (i >= 2 * n) return;
+  const int which = i >= n;
+  const long long j = i - which * n;
+  const float* src = part + which * n_split * n + j;
+  float4 s = load4(src);
+  for (int sp = 1; sp < n_split; ++sp) {
+    const float4 x = load4(src + sp * n);
+    s.x += x.x; s.y += x.y; s.z += x.z; s.w += x.w;
+  }
+  store4((which ? dv : dk) + j, s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -505,25 +1254,49 @@ const char* flash_attention_error_string(int code) {
   else { return static_cast<int>(cudaErrorInvalidValue); }                 \
   return static_cast<int>(cudaGetLastError());
 
+// the f32 bodies' dispatch (the bf16 ones are launched before it)
+#define FLASH_DISPATCH_F32(CALL)                                           \
+  if (dtype == 0 && head_dim == 64) { CALL(float, 64); }                   \
+  else if (dtype == 0 && head_dim == 128) { CALL(float, 128); }            \
+  else { return static_cast<int>(cudaErrorInvalidValue); }                 \
+  return static_cast<int>(cudaGetLastError());
+
+// KERN in parentheses (a template-id's comma); a kernel that takes more
+// than 48 KB of dynamic shared memory must be told
+#define FLASH_LAUNCH(KERN, GRID, THREADS, SMEM, ST, ...)                   \
+  {                                                                        \
+    auto kern = KERN;                                                      \
+    cudaError_t e = cudaFuncSetAttribute(                                  \
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);          \
+    if (e != cudaSuccess) return static_cast<int>(e);                      \
+    kern<<<GRID, THREADS, SMEM, ST>>>(__VA_ARGS__);                        \
+  }
+
 int flash_attention_fwd(const void* q, const void* k, const void* v,
                         const void* seg, const void* hmap, void* o, void* lse,
                         int B, int S, int H, int KVH, int head_dim,
                         float scale, int causal, int dtype, void* stream) {
-  const dim3 grid((S + kTile - 1) / kTile, B * H);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FWD(T, D)                                                          \
-  {                                                                        \
-    auto kern = flash_fwd_kernel<T, D>;                                    \
-    cudaError_t e = cudaFuncSetAttribute(                                  \
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, fwd_smem<D>()); \
-    if (e != cudaSuccess) return static_cast<int>(e);                      \
-    kern<<<grid, kThreads, fwd_smem<D>(), st>>>(                           \
-        static_cast<const T*>(q), static_cast<const T*>(k),                \
-        static_cast<const T*>(v), static_cast<const int*>(seg),            \
-        static_cast<const int*>(hmap), static_cast<T*>(o),                 \
-        static_cast<float*>(lse), S, H, KVH, scale, causal);               \
+  if (dtype == 1 && (head_dim == 64 || head_dim == 128)) {
+    const dim3 grid(B * H, (S + kTile - 1) / kTile);
+#define FWD_TC(D)                                                          \
+  FLASH_LAUNCH((flash_fwd_kernel_tc<D>), grid, kTcThreads, fwd_tc_smem<D>(), \
+               st, static_cast<const bf16*>(q), static_cast<const bf16*>(k), \
+               static_cast<const bf16*>(v), static_cast<const int*>(seg),  \
+               static_cast<const int*>(hmap), static_cast<bf16*>(o),       \
+               static_cast<float*>(lse), S, H, KVH, scale, causal)
+    if (head_dim == 64) FWD_TC(64) else FWD_TC(128)
+#undef FWD_TC
+    return static_cast<int>(cudaGetLastError());
   }
-  FLASH_DISPATCH(FWD)
+  const dim3 grid((S + kTile - 1) / kTile, B * H);
+#define FWD(T, D)                                                          \
+  FLASH_LAUNCH((flash_fwd_kernel<T, D>), grid, kThreads, fwd_smem<D>(), st,  \
+               static_cast<const T*>(q), static_cast<const T*>(k),         \
+               static_cast<const T*>(v), static_cast<const int*>(seg),     \
+               static_cast<const int*>(hmap), static_cast<T*>(o),          \
+               static_cast<float*>(lse), S, H, KVH, scale, causal)
+  FLASH_DISPATCH_F32(FWD)
 #undef FWD
 }
 
@@ -536,48 +1309,71 @@ int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
   const dim3 grid((S + kTile - 1) / kTile, B * H);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define DQ(T, D)                                                           \
-  {                                                                        \
-    auto kern = flash_dq_kernel<T, D>;                                     \
-    cudaError_t e = cudaFuncSetAttribute(                                  \
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem<D>());  \
-    if (e != cudaSuccess) return static_cast<int>(e);                      \
-    kern<<<grid, kThreads, dq_smem<D>(), st>>>(                            \
-        static_cast<const T*>(q), static_cast<const T*>(k),                \
-        static_cast<const T*>(v), static_cast<const T*>(dout),             \
-        static_cast<const float*>(lse), static_cast<const float*>(delta),  \
-        static_cast<const int*>(seg), static_cast<const int*>(hmap),       \
-        static_cast<T*>(dq), S, H, KVH, scale, causal);                    \
-  }
+  FLASH_LAUNCH((flash_dq_kernel<T, D>), grid, kThreads, dq_smem<D>(), st,    \
+               static_cast<const T*>(q), static_cast<const T*>(k),         \
+               static_cast<const T*>(v), static_cast<const T*>(dout),      \
+               static_cast<const float*>(lse),                             \
+               static_cast<const float*>(delta),                           \
+               static_cast<const int*>(seg), static_cast<const int*>(hmap), \
+               static_cast<T*>(dq), S, H, KVH, scale, causal)
   FLASH_DISPATCH(DQ)
 #undef DQ
 }
 
+// bf16: `n_split` blocks share each (k tile, kv head); with n_split > 1,
+// `part` is an f32 workspace of 2 * n_split * B * S * KVH * head_dim values
+// that the kernel fills and a second kernel sums into dk and dv. f32:
+// n_split and part are not read.
 int flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
                             const void* delta, const void* seg,
-                            const void* hmap, void* dk, void* dv, int B,
-                            int S, int H, int KVH, int head_dim, float scale,
-                            int causal, int dtype, void* stream) {
-  const dim3 grid((S + kTile - 1) / kTile, B * KVH);
+                            const void* hmap, void* dk, void* dv, void* part,
+                            int B, int S, int H, int KVH, int head_dim,
+                            float scale, int causal, int dtype, int n_split,
+                            void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define DKV(T, D)                                                          \
-  {                                                                        \
-    auto kern = flash_dkv_kernel<T, D>;                                    \
-    cudaError_t e = cudaFuncSetAttribute(                                  \
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, dkv_smem<D>()); \
-    if (e != cudaSuccess) return static_cast<int>(e);                      \
-    kern<<<grid, kThreads, dkv_smem<D>(), st>>>(                           \
-        static_cast<const T*>(q), static_cast<const T*>(k),                \
-        static_cast<const T*>(v), static_cast<const T*>(dout),             \
-        static_cast<const float*>(lse), static_cast<const float*>(delta),  \
-        static_cast<const int*>(seg), static_cast<const int*>(hmap),       \
-        static_cast<T*>(dk), static_cast<T*>(dv), S, H, KVH, scale,        \
-        causal);                                                           \
+  if (dtype == 1 && (head_dim == 64 || head_dim == 128)) {
+    if (n_split < 1 || (n_split > 1 && part == nullptr))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const dim3 grid(B * KVH * n_split, (S + kTile - 1) / kTile);
+#define DKV_TC(D)                                                          \
+  FLASH_LAUNCH((flash_dkv_kernel_tc<D>), grid, kTcThreads, dkv_tc_smem<D>(), \
+               st, static_cast<const bf16*>(q), static_cast<const bf16*>(k), \
+               static_cast<const bf16*>(v), static_cast<const bf16*>(dout), \
+               static_cast<const float*>(lse),                             \
+               static_cast<const float*>(delta),                           \
+               static_cast<const int*>(seg), static_cast<const int*>(hmap), \
+               static_cast<bf16*>(dk), static_cast<bf16*>(dv),             \
+               static_cast<float*>(part), n_split, S, H, KVH, scale, causal)
+    if (head_dim == 64) DKV_TC(64) else DKV_TC(128)
+#undef DKV_TC
+    if (n_split > 1) {
+      cudaError_t e = cudaGetLastError();
+      if (e != cudaSuccess) return static_cast<int>(e);
+      const long long n = (long long)B * S * KVH * head_dim;
+      const long long blocks = (2 * n / 4 + 255) / 256;
+      flash_dkv_sum_kernel<<<static_cast<unsigned>(blocks), 256, 0, st>>>(
+          static_cast<const float*>(part), static_cast<bf16*>(dk),
+          static_cast<bf16*>(dv), n_split, n);
+    }
+    return static_cast<int>(cudaGetLastError());
   }
-  FLASH_DISPATCH(DKV)
+  const dim3 grid((S + kTile - 1) / kTile, B * KVH);
+#define DKV(T, D)                                                          \
+  FLASH_LAUNCH((flash_dkv_kernel<T, D>), grid, kThreads, dkv_smem<D>(), st,  \
+               static_cast<const T*>(q), static_cast<const T*>(k),         \
+               static_cast<const T*>(v), static_cast<const T*>(dout),      \
+               static_cast<const float*>(lse),                             \
+               static_cast<const float*>(delta),                           \
+               static_cast<const int*>(seg), static_cast<const int*>(hmap), \
+               static_cast<T*>(dk), static_cast<T*>(dv), S, H, KVH, scale, \
+               causal)
+  FLASH_DISPATCH_F32(DKV)
 #undef DKV
 }
 
+#undef FLASH_LAUNCH
+#undef FLASH_DISPATCH_F32
 #undef FLASH_DISPATCH
 
 }  // extern "C"

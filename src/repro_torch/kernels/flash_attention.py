@@ -3,9 +3,11 @@
 The kernels (``csrc/flash_attention.cu``, sm_90a) replace the TPU kernels
 ``_fwd_kernel``, ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` of the JAX
 package's ``kernels/flash_attention.py``; the source note says what bounds
-them and how they are laid out. This module only binds the library (built
-at first use by ``_build``) and launches it; the checks, the device
-dispatch, the autograd and the launch counts live in ``ops.py``.
+them and how they are laid out (bf16 forward and dk/dv on the tensor cores,
+the rest on the CUDA cores). This module only binds the library (built at
+first use by ``_build``), allocates the bf16 dk/dv kernel's workspace and
+launches; the checks, the device dispatch, the autograd and the launch
+counts live in ``ops.py``.
 """
 from __future__ import annotations
 
@@ -18,6 +20,9 @@ from repro_torch.kernels import _build
 SOURCE = "flash_attention.cu"
 HEAD_DIMS = (64, 128)   # the kernels' instantiations
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+TILE = 64               # keys (queries) per tile
+DKV_BLOCKS = 4 * 132    # the bf16 dk/dv grid's aim: ~4 blocks per H100 SM
+DKV_MAX_SPLIT = 4
 
 _fn = None
 
@@ -28,16 +33,16 @@ def load():
     if _fn is None:
         lib = _build.load(SOURCE)
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        tail = [i32] * 5 + [ctypes.c_float, i32, i32, ptr]
-        fns = {"fwd": (lib.flash_attention_fwd, 7),
-               "dq": (lib.flash_attention_bwd_dq, 9),
-               "dkv": (lib.flash_attention_bwd_dkv, 10)}
-        for fn, n_ptrs in fns.values():
-            fn.argtypes = [ptr] * n_ptrs + tail
+        tail = [i32] * 5 + [ctypes.c_float, i32, i32]
+        fns = {"fwd": (lib.flash_attention_fwd, 7, []),
+               "dq": (lib.flash_attention_bwd_dq, 9, []),
+               "dkv": (lib.flash_attention_bwd_dkv, 11, [i32])}  # n_split
+        for fn, n_ptrs, more in fns.values():
+            fn.argtypes = [ptr] * n_ptrs + tail + more + [ptr]
             fn.restype = i32
         lib.flash_attention_error_string.argtypes = [i32]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
-        _fn = ({k: f for k, (f, _) in fns.items()},
+        _fn = ({k: f for k, (f, _, _) in fns.items()},
                lib.flash_attention_error_string)
     return _fn
 
@@ -46,13 +51,25 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _launch(which: str, q, ptrs, k, causal: bool) -> None:
+def dkv_splits(dtype, b: int, s: int, h: int, kvh: int) -> int:
+    """How many blocks share each (k tile, kv head) of the bf16 dk/dv
+    kernel: enough for ~``DKV_BLOCKS`` blocks, at most ``DKV_MAX_SPLIT`` and
+    at most the q heads a kv head serves on average. A function of the
+    shapes only, so the same inputs give the same bits. f32: 1 (its body
+    takes no split)."""
+    if dtype != torch.bfloat16:
+        return 1
+    tiles = -(-s // TILE) * b * kvh
+    return max(1, min(DKV_MAX_SPLIT, -(-h // kvh), -(-DKV_BLOCKS // tiles)))
+
+
+def _launch(which: str, q, ptrs, k, causal: bool, *more) -> None:
     fns, err_str = load()
     b, s, h, d = q.shape
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = fns[which](*ptrs, b, s, h, k.shape[2], d, d ** -0.5,
-                         int(causal), _DTYPE_CODE[q.dtype], stream)
+                         int(causal), _DTYPE_CODE[q.dtype], *more, stream)
     if err:
         raise RuntimeError(f"flash_attention {which} launch failed: CUDA "
                            f"error {err} ({err_str(err).decode()})")
@@ -77,7 +94,13 @@ def launch_bwd_dq(q, k, v, do, lse, delta, seg, hmap, causal, dq) -> None:
 
 def launch_bwd_dkv(q, k, v, do, lse, delta, seg, hmap, causal, dk,
                    dv) -> None:
-    """dk, dv [B, S, KVH, D], each summed over its kv head's q heads."""
+    """dk, dv [B, S, KVH, D], each summed over its kv head's q heads. In
+    bf16 with ``dkv_splits`` > 1 the kernel writes f32 partials to a
+    workspace allocated here, [2, n_split, B, S, KVH, D]."""
+    b, s, h, _ = q.shape
+    n = dkv_splits(q.dtype, b, s, h, k.shape[2])
+    part = (torch.empty((2, n, *k.shape), dtype=torch.float32,
+                        device=q.device) if n > 1 else None)
     _launch("dkv", q, (_ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse),
                        _ptr(delta), _ptr(seg), _ptr(hmap), _ptr(dk),
-                       _ptr(dv)), k, causal)
+                       _ptr(dv), _ptr(part)), k, causal, n)

@@ -64,7 +64,7 @@ def _check_opt(opt_cfg: OptimizerConfig) -> None:
     if opt_cfg.moment_dtype != "float32":
         raise NotImplementedError(
             "the port keeps f32 moments (the masked AdamW kernel takes f32 "
-            "m and v)")
+            "m and v); bf16 moments are ROADMAP Queue A item 17")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,7 +100,7 @@ class SelectionMethod:
         if model_cfg.gate_weight_grads:
             raise NotImplementedError(
                 "gate_weight_grads=True is not ported (the port computes "
-                "every layer's weight gradients)")
+                "every layer's weight gradients; ROADMAP Queue A item 16)")
         sel_cfg = self.sel_cfg
         partition = part_mod.build_partition(model_cfg)
         accum = lm.DTYPES[opt_cfg.accum_dtype]

@@ -15,9 +15,12 @@ version and, bit for bit, against row 8 on the same rows. Tied scores in
 ``topk_mask`` go to the lower index on the card too, and three dense
 training steps with their batch uploads make no host sync. The flash
 attention kernels (rows 4-6) are swept over the S of the JAX package's
-flash tests (128/256/384), its packed segment layout, a ragged S and head
-dim 128, causal and not, with bit-reproducible dk/dv; in f32 a peaked
-softmax is held against an f64 evaluation. Three packed training steps
+flash tests (128/256/384), its packed segment layout, ragged S (1, 17,
+65, 300, 1000) and head dim 128, causal and not, with bit-reproducible
+dk/dv; segment layouts that probe the skipped tiles (boundaries on tile
+edges, a segment over three tiles, all pad after the first tile, one
+segment over the row, which must give the bits of no segments); in f32 a
+peaked softmax is held against an f64 evaluation. Three packed training steps
 make no host sync either. The dense decode attention kernel (row 3) is held
 against its plain version at the shapes of ``chip_smoke.py`` phase 15 (the
 eval shape, the S and valid_len of ``tests/test_kernels.py``, ragged S,
@@ -390,12 +393,35 @@ def _packed_segments(b, s):
     return seg
 
 
+def _segment_layout(name, b, s):
+    """Segment ids that probe the kernels' tile skipping (64-wide tiles):
+    boundaries on tile edges; a segment over three tiles; a row that is all
+    pad (id 0) after its first tile; one segment over the whole row."""
+    pos = np.arange(s)
+    seg = np.zeros((b, s), np.int32)
+    if name == "tile_edges":
+        seg[0::2] = 1 + pos // 64
+        seg[1::2] = 1 + pos // 128
+    elif name == "three_tiles":
+        seg[:] = np.where(pos < 40, 1, np.where(pos < 190, 2, 3))
+        seg[1::2, s - 30:] = 0
+    elif name == "pad_after_first":
+        seg[:, :30], seg[:, 30:64] = 1, 2
+        seg[1::2, :64] = 5
+    elif name == "single":
+        seg[:] = 1
+    else:
+        raise ValueError(name)
+    return seg
+
+
 def _flash_inputs(dev, dtype, b, s, h, kvh, d, segmented, seed=7,
-                  q_scale=None):
+                  q_scale=None, layout=None):
     """N(0, 1) keys, values and do. In bf16 q = 3 N(0, 1): peaked softmax
     rows, so that the outputs stay large beside the 2e-2 tolerance. In f32
     q = N(0, 1) by default: the peaked q is held against an f64 evaluation
-    instead (``test_flash_attention_f32_peaked_against_f64``)."""
+    instead (``test_flash_attention_f32_peaked_against_f64``). Segment ids:
+    the packed layout, or ``_segment_layout(layout)``."""
     rng = np.random.default_rng(seed)
     if q_scale is None:
         q_scale = 3 if dtype == torch.bfloat16 else 1
@@ -404,15 +430,18 @@ def _flash_inputs(dev, dtype, b, s, h, kvh, d, segmented, seed=7,
     do = rng.standard_normal((b, s, h, d))
     rep = max(1, h // kvh)
     hmap = np.minimum(np.arange(h) // rep, kvh - 1)
+    ids = (_packed_segments(b, s) if layout is None
+           else _segment_layout(layout, b, s))
     f = [torch.tensor(a, dtype=dtype, device=dev) for a in (q, k, v, do)]
     i32 = [torch.tensor(a, dtype=torch.int32, device=dev)
-           for a in (hmap, _packed_segments(b, s))]
+           for a in (hmap, ids)]
     return (*f, i32[0], i32[1] if segmented else None)
 
 
-def _check_flash(dev, dtype, b, s, h, kvh, d, segmented, causal=True):
+def _check_flash(dev, dtype, b, s, h, kvh, d, segmented, causal=True,
+                 layout=None):
     q, k, v, do, hm, seg = _flash_inputs(dev, dtype, b, s, h, kvh, d,
-                                         segmented)
+                                         segmented, layout=layout)
     mode = dict(causal=causal, segment_ids=seg)
     before = dict(ops.LAUNCHES)
     o, lse = ops.flash_attention_fwd(q, k, v, hm, **mode)
@@ -436,6 +465,7 @@ def _check_flash(dev, dtype, b, s, h, kvh, d, segmented, causal=True):
                                        **TOL[dtype])
     # dk, dv are summed in a fixed order with no atomics
     assert _bits_equal(grads[1], again[1]) and _bits_equal(grads[2], again[2])
+    return (o, lse, *grads)
 
 
 @pytest.mark.cuda
@@ -451,14 +481,35 @@ def test_flash_attention_matches_plain(cuda_device, s, dtype, segmented,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("s, d", [(1, 64), (65, 64), (300, 64), (200, 128),
-                                  (512, 128)])
+@pytest.mark.parametrize("s, d", [(1, 64), (17, 64), (65, 64), (300, 64),
+                                  (1000, 64), (200, 128), (512, 128)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_ragged_and_head_dim_128(cuda_device, s, d, dtype):
     """S that no tile divides, and head dim 128, segmented, with the
     qwen2.5-0.5b head map (16 q heads, 2 kv heads, the padded two clamped
     onto the last)."""
     _check_flash(cuda_device, dtype, 2, s, 16, 2, d, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("layout", ["tile_edges", "three_tiles",
+                                    "pad_after_first", "single"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_segment_layouts(cuda_device, layout, d, causal,
+                                         dtype):
+    """Segment layouts against the tiles that the kernels skip when no
+    (query, key) pair of two tiles shares an id, with the qwen2.5-0.5b head
+    map (16 q heads, 7 and 9 on the 2 kv heads), S 384. One segment over
+    the whole row gives the bits of no segments."""
+    out = _check_flash(cuda_device, dtype, 2, 384, 16, 2, d, True, causal,
+                       layout=layout)
+    if layout == "single":
+        plain = _check_flash(cuda_device, dtype, 2, 384, 16, 2, d, False,
+                             causal)
+        for got, want in zip(out, plain):
+            assert _bits_equal(got, want)
 
 
 def _excess(got, exact):

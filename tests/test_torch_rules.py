@@ -18,7 +18,7 @@ import torch
 
 from repro_torch import convert
 from repro_torch.configs import get_smoke_config
-from repro_torch.configs.base import TrainConfig
+from repro_torch.configs.base import OptimizerConfig, TrainConfig
 from repro_torch.data import loader
 from repro_torch.data.synthetic import MathTaskConfig
 from repro_torch.kernels import _build, ops
@@ -170,11 +170,28 @@ def test_entry_points_run_on_cpu_when_asked(no_cuda, capsys):
     (lambda: launch_train.main(["--arch", "qwen2.5-0.5b", "--smoke",
                                 "--device", "cpu", "--moment-residency",
                                 "banked", "--offload", "zero1"]), "item 11"),
+    (lambda: Trainer(TrainConfig(
+        model=_cfg().replace(gate_weight_grads=True), seq_len=48,
+        global_batch=2, steps=2), device="cpu"), "item 16"),
+    (lambda: Trainer(_tcfg(optimizer=OptimizerConfig(
+        moment_dtype="bfloat16")), device="cpu"), "item 17"),
+    (lambda: Trainer(_tcfg(optimizer=OptimizerConfig(
+        moment_residency="banked", offload="host",
+        moment_dtype="bfloat16")), device="cpu"), "item 17"),
 ], ids=["lora", "checkpoint", "eval", "prefetch", "mesh", "jsonl", "trace",
-        "banked-zero1"])
+        "banked-zero1", "gate-weight-grads", "bf16-moments",
+        "bf16-moments-banked"])
 def test_training_features_not_ported_raise(call, item):
     with pytest.raises(NotImplementedError, match=item):
         call()
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "phi4-mini-3.8b"])
+def test_unknown_arch_names_its_items(arch):
+    """An arch the port has not registered raises with the Queue A items
+    that port it."""
+    with pytest.raises(KeyError, match="items 15 .* and 12"):
+        get_smoke_config(arch)
 
 
 @pytest.mark.parametrize("offload", ["host", "none"])
@@ -344,6 +361,21 @@ def test_flash_wrapper_raises_and_rejects(missing_builds):
         ops.flash_attention(q, kv, kv, hm, segment_ids=_fake(seg.long()))
     with pytest.raises(ValueError, match="hmap must be int32"):
         ops.flash_attention(q, kv, kv, _fake(hm.long()))
+
+
+@pytest.mark.parametrize("dtype, shape, want", [
+    (torch.bfloat16, (8, 512, 16, 2), 4),     # the training shape: 128 tiles
+    (torch.bfloat16, (2, 384, 16, 2), 4),
+    (torch.bfloat16, (8, 4096, 16, 2), 1),    # 1024 tiles fill the card
+    (torch.bfloat16, (1, 512, 4, 4), 1),      # one q head a kv head
+    (torch.bfloat16, (4, 512, 4, 2), 2),
+    (torch.float32, (8, 512, 16, 2), 1),      # the f32 body takes no split
+])
+def test_flash_dkv_split_follows_the_shapes(dtype, shape, want):
+    """How many blocks share each (k tile, kv head) of the bf16 dk/dv
+    kernel: a function of the shapes alone (so the same inputs give the
+    same bits), at most 4 and at most the q heads of a kv head."""
+    assert fa.dkv_splits(dtype, *shape) == want
 
 
 def test_dense_decode_wrapper_raises_and_rejects(missing_builds):
