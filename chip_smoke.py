@@ -135,6 +135,8 @@ import dataclasses
 import gc
 import json
 import math
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -246,9 +248,33 @@ def phase_build(_build) -> None:
     dt = time.perf_counter() - t0
     print(f"build: nvcc {dt:.2f} s for {libs} (sm_90a, in parallel)")
     for name, log in _build.BUILD_LOG.items():
-        for ln in log.splitlines():
-            if "registers" in ln or "spill" in ln:
-                print(f"  {name}: {ln.strip()}")
+        for fn, regs, spills in _ptxas_usage(log):
+            print(f"  {name}: {fn}: {regs}; {spills}")
+
+
+def _ptxas_usage(log: str) -> list:
+    """(kernel, registers line, spills line) of each entry function in
+    ptxas's -v output, the kernel's name demangled where c++filt is on the
+    PATH (templates and all, without the argument list)."""
+    out, fn, spills = [], "?", ""
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            fn = m.group(1)
+        elif "spill" in ln:
+            spills = ln.strip()
+        elif "Used" in ln and "registers" in ln:
+            out.append([fn, ln.split(":", 1)[-1].strip(), spills])
+            spills = ""
+    if shutil.which("c++filt") and out:
+        names = subprocess.run(["c++filt"], input="\n".join(
+            f for f, _, _ in out), capture_output=True, text=True,
+            timeout=60).stdout.splitlines()
+        if len(names) == len(out):
+            for row, nm in zip(out, names):
+                row[0] = nm.replace("(anonymous namespace)::", "").split(
+                    "(")[0].removeprefix("void ")
+    return out
 
 
 def _paged_inputs(torch, dtype, b, vlens, ps=16, maxp=32, h=16, kvh=2, d=64,
@@ -1354,6 +1380,65 @@ def _flash_single_segment(torch, ops, b, s, d) -> None:
           f"dv bit-identical to no segments, bf16 and f32")
 
 
+def _flash_dkv_splits(torch, ref, _fa, timer) -> None:
+    """The bf16 dk/dv kernel at every split of a kv head's q work (1: dk, dv
+    stored from the registers; 2-4: f32 partials and the sum kernel): each
+    against the plain version and bit-identical over two launches, then
+    timed at the training shapes and a large one, beside the split that
+    ``dkv_splits`` picks."""
+    def run(q, k, v, do, hm, seg, causal, n_split):
+        o, lse = torch.empty_like(q), torch.empty(
+            q.shape[0], q.shape[2], q.shape[1], device="cuda")
+        _fa.launch_fwd(q, k, v, seg, hm, causal, o, lse)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+
+        def launch():
+            _fa.launch_bwd_dkv(q, k, v, do, lse, delta, seg, hm, causal, dk,
+                               dv, n_split=n_split)
+        return o, lse, dk, dv, launch
+
+    for label, b, s, d, seg_kind, causal in (
+            ("ragged S=300", 2, 300, 64, "packed", True),
+            ("D=128 nc", 2, 512, 128, "packed", False)):
+        q, k, v, do, hm, seg = _flash_case(torch, "bfloat16", b, s, d,
+                                           seg_kind)
+        errs = []
+        for n_split in (1, 2, 3, 4):
+            o, lse, dk, dv, launch = run(q, k, v, do, hm, seg, causal,
+                                         n_split)
+            launch()
+            dk1, dv1 = dk.clone(), dv.clone()
+            launch()
+            torch.cuda.synchronize()
+            check(_bits_equal(torch, dk, dk1) and _bits_equal(torch, dv, dv1),
+                  f"flash dk/dv {label} split {n_split}: two launches differ")
+            _, pk, pv = ref.flash_attention_bwd(q, k, v, o, lse, do, hm, seg,
+                                                causal)
+            errs.append(max(_check_close(torch, dk, pk, "bfloat16",
+                                         f"flash {label} dk split {n_split}"),
+                            _check_close(torch, dv, pv, "bfloat16",
+                                         f"flash {label} dv split {n_split}")))
+        print(f"  flash dk/dv {label:<12} bfloat16 split 1/2/3/4: max |err| "
+              + "/".join(f"{e:.2e}" for e in errs) + f" (rtol=atol "
+              f"{TOL['bfloat16']:.0e}); each bit-identical over two launches")
+    print("  flash dk/dv bf16 by split (CUDA events, L2 flushed, ms per call;"
+          " * = dkv_splits' pick):")
+    for label, b, s, seg_kind in (("train causal", 8, 512, None),
+                                  ("train packed", 8, 512, "packed"),
+                                  ("large causal", 16, 2048, None)):
+        q, k, v, do, hm, seg = _flash_case(torch, "bfloat16", b, s, 64,
+                                           seg_kind)
+        pick = _fa.dkv_splits(q.dtype, 16, 2)
+        ms = [timer.ms(run(q, k, v, do, hm, seg, True, n)[-1], reps=10)
+              for n in (1, 2, 3, 4)]
+        print(f"    {label:<12} B={b} S={s} H=16 KVH=2 D=64, "
+              f"{-(-s // 64) * b * 2} (k tile, kv head) pairs: " + "  ".join(
+                  f"{n}{'*' if n == pick else ' '} {t:.4f}"
+                  for n, t in zip((1, 2, 3, 4), ms)))
+        del q, k, v, do
+
+
 def phase_flash_kernels(torch, ops, ref, _fa, timer) -> dict:
     """Rows 4-6 against their plain versions; returns the summary entries
     at the packed training shape (bf16)."""
@@ -1417,6 +1502,7 @@ def phase_flash_kernels(torch, ops, ref, _fa, timer) -> dict:
                   f"over two launches")
             del q, k, v, do, o, lse, dq, dk, dv, dk2, dv2, po, pq, pk, pv
     _flash_single_segment(torch, ops, 8, 512, 64)
+    _flash_dkv_splits(torch, ref, _fa, timer)
     for label, b, s, d in (("train packed", 8, 512, 64), ("D=128", 2, 512,
                                                           128)):
         _flash_f64(torch, ops, ref, label, b, s, d)

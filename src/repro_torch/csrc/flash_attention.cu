@@ -72,15 +72,22 @@
 //     (B*KVH*n_split, S/64), the first k tiles (the most q tiles) first: the
 //     (q tile, q head) pairs of a kv head, q tiles ascending and then its q
 //     heads ascending, are cut into n_split equal runs (the caller's
-//     `n_split`, up to 4, so that the grid holds ~4 blocks per SM where
-//     B*KVH*S/64 alone would not fill the card). Each block sums its run in
+//     `n_split`: the q heads a kv head serves, at most 4; 512 blocks at the
+//     training shape, against 128 with one). Each block sums its run in
 //     that order in f32 registers (the MMA adds each pair's 64 rows into
-//     them); with n_split > 1 it writes f32 partials to the caller's
-//     workspace [2, n_split, B, S, KVH, D] and `flash_dkv_sum_kernel` adds
-//     them in split order 0, 1, .., n-1 and rounds once to bf16. Fixed
-//     order, no atomics: the same inputs give the same bits.
-// Registers and spills of every instance: phase 1 of chip_smoke.py prints
-// ptxas's lines (-Xptxas -v); PERF.md keeps them.
+//     them); with n_split 1 it rounds them to bf16 and stores dk, dv; with
+//     n_split > 1 it writes f32 partials to the caller's workspace
+//     [2, n_split, B, S, KVH, D] and `flash_dkv_sum_kernel` adds them in
+//     split order 0, 1, .., n-1 and rounds once to bf16. Fixed order, no
+//     atomics: the same inputs give the same bits.
+// Registers a thread and spills (ptxas -v for sm_90a; phase 1 of
+// chip_smoke.py prints them for every instance):
+//   flash_fwd_kernel_tc<64>  162, none     flash_fwd_kernel_tc<128>  220, none
+//   flash_dkv_kernel_tc<64>  240, none     flash_dkv_kernel_tc<128>  255,
+//     292 bytes of spill stores, 368 of loads (112-byte stack frame)
+//   flash_dkv_sum_kernel 32, none
+//   f32: fwd 136 / 172, dq 184 / 188, dkv 180 / 254 (D 64 / 128), none;
+//   bf16 dq 128 at both, 4 bytes of spill stores at D 128.
 //
 // The f32 bodies: a block of 256 threads (16 x 16) owns a 64-query (or,
 // for dk/dv, 64-key) tile; tiles are staged as f32 rows of stride D + 4;

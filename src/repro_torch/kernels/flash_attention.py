@@ -20,8 +20,6 @@ from repro_torch.kernels import _build
 SOURCE = "flash_attention.cu"
 HEAD_DIMS = (64, 128)   # the kernels' instantiations
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-TILE = 64               # keys (queries) per tile
-DKV_BLOCKS = 4 * 132    # the bf16 dk/dv grid's aim: ~4 blocks per H100 SM
 DKV_MAX_SPLIT = 4
 
 _fn = None
@@ -51,16 +49,14 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def dkv_splits(dtype, b: int, s: int, h: int, kvh: int) -> int:
+def dkv_splits(dtype, h: int, kvh: int) -> int:
     """How many blocks share each (k tile, kv head) of the bf16 dk/dv
-    kernel: enough for ~``DKV_BLOCKS`` blocks, at most ``DKV_MAX_SPLIT`` and
-    at most the q heads a kv head serves on average. A function of the
-    shapes only, so the same inputs give the same bits. f32: 1 (its body
-    takes no split)."""
+    kernel: the q heads a kv head serves on average, at most
+    ``DKV_MAX_SPLIT``. A function of the shapes only, so the same inputs
+    give the same bits. f32: 1 (its body takes no split)."""
     if dtype != torch.bfloat16:
         return 1
-    tiles = -(-s // TILE) * b * kvh
-    return max(1, min(DKV_MAX_SPLIT, -(-h // kvh), -(-DKV_BLOCKS // tiles)))
+    return min(DKV_MAX_SPLIT, -(-h // kvh))
 
 
 def _launch(which: str, q, ptrs, k, causal: bool, *more) -> None:
@@ -92,13 +88,14 @@ def launch_bwd_dq(q, k, v, do, lse, delta, seg, hmap, causal, dq) -> None:
             causal)
 
 
-def launch_bwd_dkv(q, k, v, do, lse, delta, seg, hmap, causal, dk,
-                   dv) -> None:
+def launch_bwd_dkv(q, k, v, do, lse, delta, seg, hmap, causal, dk, dv,
+                   n_split: int | None = None) -> None:
     """dk, dv [B, S, KVH, D], each summed over its kv head's q heads. In
-    bf16 with ``dkv_splits`` > 1 the kernel writes f32 partials to a
+    bf16 ``n_split`` blocks (``dkv_splits`` unless given) share each k tile
+    of a kv head; with more than 1 the kernel writes f32 partials to a
     workspace allocated here, [2, n_split, B, S, KVH, D]."""
-    b, s, h, _ = q.shape
-    n = dkv_splits(q.dtype, b, s, h, k.shape[2])
+    n = (dkv_splits(q.dtype, q.shape[2], k.shape[2]) if n_split is None
+         else n_split)
     part = (torch.empty((2, n, *k.shape), dtype=torch.float32,
                         device=q.device) if n > 1 else None)
     _launch("dkv", q, (_ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse),

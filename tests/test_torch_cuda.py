@@ -17,9 +17,10 @@ training steps with their batch uploads make no host sync. The flash
 attention kernels (rows 4-6) are swept over the S of the JAX package's
 flash tests (128/256/384), its packed segment layout, ragged S (1, 17,
 65, 300, 1000) and head dim 128, causal and not, with bit-reproducible
-dk/dv; segment layouts that probe the skipped tiles (boundaries on tile
-edges, a segment over three tiles, all pad after the first tile, one
-segment over the row, which must give the bits of no segments); in f32 a
+dk/dv, the bf16 dk/dv at each split of its q work (1-4) and with one q
+head a kv head; segment layouts that probe the skipped tiles (boundaries
+on tile edges, a segment over three tiles, all pad after the first tile,
+one segment over the row, which must give the bits of no segments); in f32 a
 peaked softmax is held against an f64 evaluation. Three packed training steps
 make no host sync either. The dense decode attention kernel (row 3) is held
 against its plain version at the shapes of ``chip_smoke.py`` phase 15 (the
@@ -32,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 
 TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
@@ -510,6 +512,43 @@ def test_flash_attention_segment_layouts(cuda_device, layout, d, causal,
                              causal)
         for got, want in zip(out, plain):
             assert _bits_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_split", [1, 2, 3, 4])
+@pytest.mark.parametrize("s, d, causal", [(300, 64, True), (512, 128, False)])
+def test_flash_dkv_every_split(cuda_device, s, d, causal, n_split):
+    """The bf16 dk/dv kernel at each split of a kv head's q work (1 stores
+    dk, dv from the registers, 2-4 go through the f32 partials and the sum
+    kernel), segmented, with the qwen2.5-0.5b head map: against the plain
+    version, and bit-identical over two launches."""
+    q, k, v, do, hm, seg = _flash_inputs(cuda_device, torch.bfloat16, 2, s,
+                                         16, 2, d, True)
+    o, lse = ops.flash_attention_fwd(q, k, v, hm, causal=causal,
+                                     segment_ids=seg)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    outs = []
+    for _ in range(2):
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        fa.launch_bwd_dkv(q, k, v, do, lse, delta, seg, hm, causal, dk, dv,
+                          n_split=n_split)
+        outs.append((dk, dv))
+    torch.cuda.synchronize()
+    _, pk, pv = ref.flash_attention_bwd(q, k, v, o, lse, do, hm, seg, causal)
+    _close(outs[0][0], pk, torch.bfloat16)
+    _close(outs[0][1], pv, torch.bfloat16)
+    assert _bits_equal(outs[0][0], outs[1][0])
+    assert _bits_equal(outs[0][1], outs[1][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_one_q_head_per_kv_head(cuda_device, dtype, causal):
+    """4 q heads on 4 kv heads, segmented, S 300: in bf16 the dk/dv kernel
+    takes its one-split path (no q heads to share out)."""
+    assert fa.dkv_splits(torch.bfloat16, 4, 4) == 1
+    _check_flash(cuda_device, dtype, 2, 300, 4, 4, 64, True, causal)
 
 
 def _excess(got, exact):

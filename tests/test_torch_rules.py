@@ -364,17 +364,18 @@ def test_flash_wrapper_raises_and_rejects(missing_builds):
 
 
 @pytest.mark.parametrize("dtype, shape, want", [
-    (torch.bfloat16, (8, 512, 16, 2), 4),     # the training shape: 128 tiles
-    (torch.bfloat16, (2, 384, 16, 2), 4),
-    (torch.bfloat16, (8, 4096, 16, 2), 1),    # 1024 tiles fill the card
-    (torch.bfloat16, (1, 512, 4, 4), 1),      # one q head a kv head
-    (torch.bfloat16, (4, 512, 4, 2), 2),
-    (torch.float32, (8, 512, 16, 2), 1),      # the f32 body takes no split
+    (torch.bfloat16, (16, 2), 4),     # qwen2.5-0.5b: 8 q heads a kv head
+    (torch.bfloat16, (16, 1), 4),
+    (torch.bfloat16, (4, 4), 1),      # one q head a kv head
+    (torch.bfloat16, (4, 2), 2),
+    (torch.bfloat16, (6, 4), 2),      # 1.5 q heads a kv head on average
+    (torch.float32, (16, 2), 1),      # the f32 body takes no split
 ])
 def test_flash_dkv_split_follows_the_shapes(dtype, shape, want):
     """How many blocks share each (k tile, kv head) of the bf16 dk/dv
-    kernel: a function of the shapes alone (so the same inputs give the
-    same bits), at most 4 and at most the q heads of a kv head."""
+    kernel: a function of the head counts (q, kv) alone, so the same
+    inputs give the same bits; at most 4 and at most the q heads of a kv
+    head."""
     assert fa.dkv_splits(dtype, *shape) == want
 
 
