@@ -80,7 +80,7 @@ Phases, each of which makes the run exit non-zero if it fails:
    causal 64 x 64 tiles hold an attending pair), ragged S (17, 300, 1000),
    segment boundaries on the tile edges, head dim 128, and segmented but
    not causal; o, lse, dq, dk and dv within the tolerance on inputs whose
-   rows are large beside it, dk and dv bit-identical over two launches; one
+   rows are large beside it, dq, dk and dv bit-identical over two launches; one
    segment over each row bit-identical to no segments; in f32 with a
    peaked softmax (q = 3
    N(0, 1)), the kernels' outputs and the plain f32 versions' against the
@@ -110,8 +110,12 @@ Phases, each of which makes the run exit non-zero if it fails:
    vectors), ragged S (1, 300) and head dim 128; two launches give the same
    bits; in f32 with a peaked softmax the kernel's and the plain f32
    version's outputs against the plain version in f64; row 3 against row 1
-   (the paged kernel) on the gathered view of one pool; times as in phase
-   3 beside the bytes bound, the plain version's and
+   (the paged kernel) on the gathered view of one pool; the kernel forced
+   to every split of a row's positions (1-32 chunks) at the eval shape
+   and at S 300 with valid_len 0 and chunks past valid_len, each against
+   the plain version and bit-identical over two launches, and timed by
+   split at the eval shape and longer caches; times as in phase 3 beside
+   the bytes bound, the plain version's and
    ``scaled_dot_product_attention``'s (``enable_gqa``, a boolean valid-
    length mask; timed only);
 16. the paper's greedy eval at full width: ``train.evaluate`` (zero-shot,
@@ -148,6 +152,8 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
+SPIN_CYCLES = 2_000_000            # Timer: ~1 ms at the H100's clock
+LONG_SPIN_CYCLES = 20_000_000      # ~10 ms, for an autograd backward
 PEAK_OPS = {"bfloat16": 989e12,    # dense tensor-core bf16
             "float32": 67e12}      # f32 outside the tensor cores
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}   # tests/test_kernels.py::_tol
@@ -192,20 +198,24 @@ class Timer:
     """Device time of one call, from CUDA events, averaged over ``reps``
     launches. Before each launch the L2 cache is flushed (a 64 MiB write,
     more than the 50 MB L2) and the stream is held by a spin kernel, so the
-    events see the device work only and not the host's enqueue time."""
+    events see the device work only and not the host's enqueue time. The
+    spin (``SPIN_CYCLES``, ~1 ms) outlasts the enqueue of one kernel's
+    launch; an autograd backward's enqueue takes longer on a slow, shared
+    host (with 1 ms, SDPA's backward read 0.10 to 1.38 ms in one run), so
+    its timings pass ``spin=LONG_SPIN_CYCLES`` (~10 ms)."""
 
     def __init__(self, torch):
         self.torch = torch
         self.flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
 
-    def ms(self, fn, reps=20) -> float:
+    def ms(self, fn, reps=20, spin=SPIN_CYCLES) -> float:
         torch = self.torch
         fn()
         torch.cuda.synchronize()
         total = 0.0
         for _ in range(reps):
             self.flush.zero_()
-            torch.cuda._sleep(2_000_000)
+            torch.cuda._sleep(spin)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -680,7 +690,8 @@ def phase_train_kernels(torch, ops, ref, timer) -> dict:
                    plain_ms=timer.ms(lambda: ref.rmsnorm_bwd(dy, x, s,
                                                              1e-6)),
                    library_ms=timer.ms(lambda: torch.autograd.grad(
-                       yl, (xl, sl), dy, retain_graph=True)),
+                       yl, (xl, sl), dy, retain_graph=True),
+                       spin=LONG_SPIN_CYCLES),
                    bound_ms=bms, bound_by=by)
         rows.append(row)
         if dtype == "bfloat16":
@@ -1457,7 +1468,7 @@ def phase_flash_kernels(torch, ops, ref, _fa, timer) -> dict:
     print(f"  packed training shape (B 8, S 512): {work} of the "
           f"{causal_tiles} causal 64 x 64 tiles of the rows hold an "
           f"attending pair ({work / causal_tiles:.3f}; the same for every "
-          f"head): the bf16 forward and dk/dv visit only those")
+          f"head): the bf16 forward, dq and dk/dv visit only those")
     rows, main = [], {}
     for dtype in ("bfloat16", "float32"):
         for label, b, s, d, seg_kind, causal in cases:
@@ -1468,8 +1479,8 @@ def phase_flash_kernels(torch, ops, ref, _fa, timer) -> dict:
             o, lse = ops.flash_attention_fwd(q, k, v, hm, **mode)
             dq, dk, dv = ops.flash_attention_bwd(q, k, v, o, lse, do, hm,
                                                  **mode)
-            _, dk2, dv2 = ops.flash_attention_bwd(q, k, v, o, lse, do, hm,
-                                                  **mode)
+            dq2, dk2, dv2 = ops.flash_attention_bwd(q, k, v, o, lse, do, hm,
+                                                    **mode)
             torch.cuda.synchronize()
             check(all(ops.LAUNCHES[n] - n0[n] == w for n, w in (
                 ("flash_attention_fwd", 1), ("flash_attention_bwd_dq", 2),
@@ -1477,6 +1488,8 @@ def phase_flash_kernels(torch, ops, ref, _fa, timer) -> dict:
                 "the flash wrappers did not count their launches")
             check(_bits_equal(torch, dk, dk2) and _bits_equal(torch, dv, dv2),
                   f"flash {label} {dtype}: dk/dv differ between two launches")
+            check(_bits_equal(torch, dq, dq2),
+                  f"flash {label} {dtype}: dq differs between two launches")
             po, plse = ref.flash_attention_fwd(q, k, v, hm, seg, causal)
             pq, pk, pv = ref.flash_attention_bwd(q, k, v, o, lse, do, hm, seg,
                                                  causal)
@@ -1498,9 +1511,9 @@ def phase_flash_kernels(torch, ops, ref, _fa, timer) -> dict:
                   f"{' causal' if causal else ' non-causal'}: max "
                   f"|err| " + ", ".join(f"{n} {e:.2e}"
                                         for n, e in errs.items())
-                  + f" (rtol=atol {TOL[dtype]:.0e}); dk/dv bit-identical "
-                  f"over two launches")
-            del q, k, v, do, o, lse, dq, dk, dv, dk2, dv2, po, pq, pk, pv
+                  + f" (rtol=atol {TOL[dtype]:.0e}); dq, dk, dv "
+                  f"bit-identical over two launches")
+            del q, k, v, do, o, lse, dq, dk, dv, dq2, dk2, dv2, po, pq, pk, pv
     _flash_single_segment(torch, ops, 8, 512, 64)
     _flash_dkv_splits(torch, ref, _fa, timer)
     for label, b, s, d in (("train packed", 8, 512, 64), ("D=128", 2, 512,
@@ -1585,7 +1598,8 @@ def _flash_times(torch, F, ref, _fa, timer, dtype, label, q, k, v, do, o,
     out_l = sdpa()
     lib_fwd = timer.ms(lambda: sdpa().detach(), reps=10)
     lib_bwd = timer.ms(lambda: torch.autograd.grad(
-        out_l, (qg, kg, vg), dol, retain_graph=True), reps=10)
+        out_l, (qg, kg, vg), dol, retain_graph=True), reps=10,
+        spin=LONG_SPIN_CYCLES)
     plain_fwd = timer.ms(lambda: ref.flash_attention_fwd(q, k, v, hm, seg),
                          reps=5)
     plain_bwd = timer.ms(lambda: ref.flash_attention_bwd(
@@ -1785,7 +1799,7 @@ def _decode_case(torch, dtype, b, s, vlens, d=64, seed=0):
     return q, k, v, vl, hmap
 
 
-def phase_decode_kernel(torch, ops, ref, timer) -> dict:
+def phase_decode_kernel(torch, ops, ref, _dec, timer) -> dict:
     """Row 3 against its plain version; returns the summary entry at the
     eval shape (bf16)."""
     cases = [("eval", 16, 512, 64, DECODE_EVAL_VL),
@@ -1831,6 +1845,7 @@ def phase_decode_kernel(torch, ops, ref, timer) -> dict:
         _decode_f64(torch, ops, ref, label, b, s, d, vlens)
     for dtype in ("bfloat16", "float32"):
         _decode_vs_paged(torch, ops, dtype)
+    _decode_splits(torch, ref, _dec, timer)
     print("dense decode at the eval shape (CUDA events, L2 flushed, ms per "
           "call):")
     for r in rows:
@@ -1843,6 +1858,82 @@ def phase_decode_kernel(torch, ops, ref, timer) -> dict:
           "valid-length mask (its GQA map is h // 8, which moves no work; "
           "timed only)")
     return main
+
+
+def _decode_splits(torch, ref, _dec, timer) -> None:
+    """Row 3 forced to every split of a row's positions (1 .. MAX_SPLIT
+    chunks, one block each): at the eval shape and at S 300 (no chunk
+    length divides it) with valid_len 0, 1, 150 and 300 and two q heads
+    outside the head map, so that chunks lie wholly past valid_len or S.
+    Each against the plain version on the mapped heads of the rows with
+    valid_len >= 1, zeros elsewhere, and bit-identical over two launches;
+    then timed at the eval shape and at longer caches, bf16 and f32,
+    beside ``decode_splits``' pick."""
+    splits = range(1, _dec.MAX_SPLIT + 1)
+    for label, b, s, vlens, bad in (("eval", 16, 512, DECODE_EVAL_VL, False),
+                                    ("S=300", 4, 300, (0, 1, 150, 300),
+                                     True)):
+        for dtype in ("bfloat16", "float32"):
+            q, k, v, vl, hm = _decode_case(torch, dtype, b, s, vlens)
+            hmap = hm.clone()
+            if bad:
+                hmap[3], hmap[12] = 2, -1
+            keep = [h for h in range(16) if not (bad and h in (3, 12))]
+            rows = [i for i, n in enumerate(vlens) if n > 0]
+            plain = ref.decode_attention_cache(q[rows, 0][:, keep], k[rows],
+                                               v[rows], vl[rows], hm[keep])
+            errs = []
+            for n in splits:
+                outs = []
+                for _ in range(2):
+                    out = torch.full((b, 16, 64), float("nan"),
+                                     dtype=q.dtype, device="cuda")
+                    _dec.launch(q.view(b, 16, 64), k, v, vl, hmap, out,
+                                n_split=n)
+                    outs.append(out)
+                torch.cuda.synchronize()
+                check(_bits_equal(torch, outs[0], outs[1]),
+                      f"decode {label} {dtype} split {n}: two launches "
+                      f"differ")
+                out = outs[0]
+                zero = torch.ones(b, 16, dtype=torch.bool, device="cuda")
+                zero[torch.tensor(rows, device="cuda")[:, None],
+                     torch.tensor(keep, device="cuda")[None, :]] = False
+                check(bool((out[zero] == 0).all()), f"decode {label} "
+                      f"{dtype} split {n}: rows with valid_len 0 or heads "
+                      f"outside the map are not zeros")
+                errs.append(_check_close(torch, out[rows][:, keep], plain,
+                                         dtype, f"decode {label} split {n}"))
+            extra = " + 2 heads outside the map" if bad else ""
+            print(f"  row 3 {label:<6} {dtype:<9} B={b} S={s} valid_len "
+                  f"{list(vlens[:4])}{extra}, every split 1-{len(splits)}: "
+                  f"max |err| "
+                  f"{max(errs):.2e} (worst at split "
+                  f"{1 + errs.index(max(errs))}; rtol=atol "
+                  f"{TOL[dtype]:.0e}); each bit-identical over two launches")
+    print("  row 3 by split, 16 q / 2 kv heads, D 64 (CUDA events, L2 "
+          "flushed, ms per call; * = decode_splits' pick):")
+    for dtype, label, b, s, vlens in (
+            ("bfloat16", "eval", 16, 512, DECODE_EVAL_VL),
+            ("bfloat16", "full", 16, 512, (512,) * 16),
+            ("bfloat16", "full", 4, 512, (512,) * 4),
+            ("bfloat16", "long", 16, 2048, (2048,) * 16),
+            ("bfloat16", "long", 4, 2048, (2048,) * 4),
+            ("bfloat16", "longer", 1, 8192, (8192,)),
+            ("float32", "eval", 16, 512, DECODE_EVAL_VL),
+            ("float32", "long", 16, 2048, (2048,) * 16)):
+        q, k, v, vl, hm = _decode_case(torch, dtype, b, s, vlens)
+        out = torch.empty(b, 16, 64, dtype=q.dtype, device="cuda")
+        pick = _dec.decode_splits(q.dtype, s)
+        ms = {n: timer.ms(lambda n=n: _dec.launch(q.view(b, 16, 64), k, v,
+                                                  vl, hm, out, n_split=n),
+                          reps=10)
+              for n in sorted({1, 2, 4, 8, 16, 32, pick})}
+        print(f"    {dtype:<8} {label:<6} B={b:<2} S={s:<4} valid_len "
+              f"{list(vlens[:4])}: " + "  ".join(
+                  f"{n}{'*' if n == pick else ''} {t:.4f}"
+                  for n, t in ms.items()))
+        del q, k, v
 
 
 def _decode_times(torch, ops, ref, timer, dtype, q, k, v, vl, hm,
@@ -2035,7 +2126,7 @@ def _print_eval_profile(prof, wall) -> None:
         return
     busy_us = sum(e.device_time_total for e in events)
     dec = sum(e.device_time_total for e in events
-              if "decode_kernel<" in e.key and "paged" not in e.key) / 1e3
+              if "decode_kernel" in e.key and "paged" not in e.key) / 1e3
     print(f"  profile ({EVAL_PROFILE[1]} engine steps of the second call, "
           f"{EVAL_PROFILE[1] * SERVE['decode_chunk']} decode steps at "
           f"{EVAL['batch_size']} slots, profiler on): wall "
@@ -2065,6 +2156,7 @@ def main() -> int:
         from repro_torch.configs import get_config
         from repro_torch.data import loader
         from repro_torch.kernels import _build, ops, ref
+        from repro_torch.kernels import decode_attention as _dec
         from repro_torch.kernels import flash_attention as _fa
         from repro_torch.models import lm
         from repro_torch.serve import Request, ServeConfig, ServeEngine
@@ -2112,7 +2204,8 @@ def main() -> int:
         phase = "packed consistency"
         phase_packed_consistency(torch, ops, cfg, Trainer, loader, lm, step)
         phase = "decode kernel"
-        main_rows.update(phase_decode_kernel(torch, ops, ref, Timer(torch)))
+        main_rows.update(phase_decode_kernel(torch, ops, ref, _dec,
+                                             Timer(torch)))
         phase = "eval"
         evaluation = phase_eval(torch, ops, cfg, evaluate, training)
     except Exception:   # the boundary: report the failed phase, exit non-zero

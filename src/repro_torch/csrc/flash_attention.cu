@@ -24,13 +24,14 @@
 // rows and keys past S are zero-filled and masked. D is 64 or 128.
 //
 // Which body serves which dtype:
-//   - bf16 forward and dk/dv: `flash_fwd_kernel_tc`, `flash_dkv_kernel_tc`
-//     (+ `flash_dkv_sum_kernel`), on the tensor cores (below);
-//   - f32 (all three) and bf16 dq: `flash_fwd_kernel`, `flash_dq_kernel`,
-//     `flash_dkv_kernel`, f32 FMAs on the CUDA cores. For f32 inputs the
-//     score dot products q.k and do.v sum in f64 (DotAcc): they are the
-//     accuracy path held against f64, which TF32 or bf16 tensor cores would
-//     not meet at the f32 1e-5 tolerance.
+//   - bf16 (all three): `flash_fwd_kernel_tc`, `flash_dq_kernel_tc`,
+//     `flash_dkv_kernel_tc` (+ `flash_dkv_sum_kernel`), on the tensor cores
+//     (below);
+//   - f32 (all three): `flash_fwd_kernel`, `flash_dq_kernel`,
+//     `flash_dkv_kernel`, f32 FMAs on the CUDA cores. The score dot
+//     products q.k and do.v sum in f64 (DotAcc): they are the accuracy path
+//     held against f64, which TF32 or bf16 tensor cores would not meet at
+//     the f32 1e-5 tolerance.
 //
 // What bounds them: at the training shape (B 8, S 512, 16 q heads, D 64) a
 // causal forward does ~4.3 GFLOP on ~19 MB, ~220 flops a byte: far above
@@ -43,22 +44,33 @@
 // The bf16 bodies (FlashAttention-2's shape, on mma.sync.m16n8k16, bf16 in,
 // f32 accumulate):
 //   - a block of 4 warps owns 64 rows of the fixed side (queries in the
-//     forward, keys of one kv head in dk/dv), 16 to a warp; its tiles and the
-//     moving side's tiles are staged in shared memory as bf16 rows of stride
-//     D + 8 (8 rows read by one ldmatrix hit 8 different 16-byte bank
-//     groups), the moving tiles in a ring of 3 cp.async stages (2 for the
-//     head-dim-128 forward, for its shared memory), rows past S zero-filled;
+//     forward and dq, keys of one kv head in dk/dv), 16 to a warp; its
+//     tiles and the moving side's tiles are staged in shared memory as
+//     bf16 rows of stride D + 8 (8 rows read by one ldmatrix hit 8
+//     different 16-byte bank groups), the moving tiles in a ring of 3
+//     cp.async stages (2 for the head-dim-128 forward and dq, for their
+//     shared memory), rows past S zero-filled;
 //   - every product runs on the tensor cores, its operands taken with
 //     ldmatrix (.trans for the second product's B); the score tile stays in
-//     the accumulator registers: the online softmax (forward) or p and ds
-//     (dk/dv) are computed there, the scale applied to the f32 scores, the
-//     row statistics reduced over the 4 lanes of a quad, and p (ds) made
-//     the A operand of the next product in registers: in the forward p
-//     rounded to bf16; in dk/dv p and ds as a bf16 hi + lo pair, two
-//     products into the same sums (6 products a tile, not 4), since dk and
-//     dv sum p do and ds q over many queries and q heads, and one bf16
-//     rounding of p and ds put small entries past the 2e-2 tolerance (up to
-//     0.037 off on the card);
+//     the accumulator registers: the online softmax (forward), p and ds
+//     (dq, dk/dv) are computed there, the scale applied to the f32 scores,
+//     the row statistics reduced over the 4 lanes of a quad, and p (ds)
+//     made the A operand of the next product in registers: in the forward
+//     p and in dq ds rounded to bf16 once; in dk/dv p and ds as a bf16 hi +
+//     lo pair, two products into the same sums (6 products a tile, not 4),
+//     since dk and dv sum p do and ds q over many queries and q heads, and
+//     one bf16 rounding of p and ds put small entries past the 2e-2
+//     tolerance (up to 0.037 off on the card). dq sums ds k over the keys
+//     of one q head only, and one rounding holds the tolerance;
+//   - dq (the forward's twin: queries fixed, K and V tiles streaming past)
+//     does 3 products a visited tile: s = Q K^T and dp = dO V^T, then
+//     p = exp(s scale - lse) (ex2 of log2(e)-scaled arguments, masked
+//     entries zeroed), ds = p (dp - delta) scale, dq += ds K with K as the
+//     row-major B operand, as V is in the forward. At head dim 64 Q and dO
+//     stay in registers as A fragments across the k loop; at 128 they are
+//     read from shared memory each tile. lse and delta of the thread's two
+//     rows stay in registers. Every q tile is one block: no partials, no
+//     atomics, the same bits from the same inputs;
 //   - tiles with no attending pair are skipped, decided before any load or
 //     product of the tile: causal ones by the loop bounds; segment-masked
 //     ones by an exact test on the ids. A candidate tile that overlaps the
@@ -68,26 +80,26 @@
 //     no order of the ids is assumed, pad 0 is a segment). The block votes
 //     on 32 candidate tiles at a time (warp OR, then 4 slots in shared
 //     memory: two barriers);
-//   - forward grid (B*H, S/64), the longest causal rows first. dk/dv grid
-//     (B*KVH*n_split, S/64), the first k tiles (the most q tiles) first: the
-//     (q tile, q head) pairs of a kv head, q tiles ascending and then its q
-//     heads ascending, are cut into n_split equal runs (the caller's
-//     `n_split`: the q heads a kv head serves, at most 4; 512 blocks at the
-//     training shape, against 128 with one). Each block sums its run in
-//     that order in f32 registers (the MMA adds each pair's 64 rows into
-//     them); with n_split 1 it rounds them to bf16 and stores dk, dv; with
-//     n_split > 1 it writes f32 partials to the caller's workspace
+//   - forward and dq grid (B*H, S/64), the longest causal rows first. dk/dv
+//     grid (B*KVH*n_split, S/64), the first k tiles (the most q tiles)
+//     first: the (q tile, q head) pairs of a kv head, q tiles ascending and
+//     then its q heads ascending, are cut into n_split equal runs (the
+//     caller's `n_split`: the q heads a kv head serves, at most 4; 512
+//     blocks at the training shape, against 128 with one). Each block sums
+//     its run in that order in f32 registers (the MMA adds each pair's 64
+//     rows into them); with n_split 1 it rounds them to bf16 and stores dk,
+//     dv; with n_split > 1 it writes f32 partials to the caller's workspace
 //     [2, n_split, B, S, KVH, D] and `flash_dkv_sum_kernel` adds them in
 //     split order 0, 1, .., n-1 and rounds once to bf16. Fixed order, no
 //     atomics: the same inputs give the same bits.
 // Registers a thread and spills (ptxas -v for sm_90a; phase 1 of
 // chip_smoke.py prints them for every instance):
 //   flash_fwd_kernel_tc<64>  162, none     flash_fwd_kernel_tc<128>  220, none
+//   flash_dq_kernel_tc<64>   222, none     flash_dq_kernel_tc<128>   240, none
 //   flash_dkv_kernel_tc<64>  240, none     flash_dkv_kernel_tc<128>  255,
 //     292 bytes of spill stores, 368 of loads (112-byte stack frame)
 //   flash_dkv_sum_kernel 32, none
-//   f32: fwd 136 / 172, dq 184 / 188, dkv 180 / 254 (D 64 / 128), none;
-//   bf16 dq 128 at both, 4 bytes of spill stores at D 128.
+//   f32: fwd 136 / 172, dq 184 / 188, dkv 180 / 254 (D 64 / 128), none.
 //
 // The f32 bodies: a block of 256 threads (16 x 16) owns a 64-query (or,
 // for dk/dv, 64-key) tile; tiles are staged as f32 rows of stride D + 4;
@@ -1015,6 +1027,166 @@ flash_fwd_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_acc<D>(acc, inv[0], inv[1], Qs, o, b, q0, h, H, S);
 }
 
+template <int D>
+constexpr int dq_tc_smem() {
+  return (2 + 2 * fwd_stages<D>()) * kTile * (D + 8) * 2 +
+         ((1 + fwd_stages<D>()) * kTile + kScanInts) * 4;
+}
+
+// grid (B*H, S/64): dq of one 64-query tile of one q head over the k tiles
+// that hold an attending pair, in order, through the forward's ring of
+// cp.async stages. At head dim 64 Q and dO stay in registers as A
+// fragments across the k loop; at 128 they are read from shared memory each
+// tile (their 64 registers would crowd out the dq accumulator)
+template <int D>
+__global__ void __launch_bounds__(kTcThreads)
+flash_dq_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta,
+                   const int* __restrict__ seg, const int* __restrict__ hmap,
+                   bf16* __restrict__ dq, int S, int H, int KVH, float scale,
+                   int causal) {
+  constexpr int kLD = D + 8, kSt = fwd_stages<D>();
+  constexpr bool kRegA = D == 64;
+  extern __shared__ float4 smem4[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem4);       // [64, kLD]
+  bf16* dOs = Qs + kTile * kLD;                    // [64, kLD]
+  bf16* Ks = dOs + kTile * kLD;                    // [kSt][64, kLD]
+  bf16* Vs = Ks + kSt * kTile * kLD;               // [kSt][64, kLD]
+  int* qseg = reinterpret_cast<int*>(Vs + kSt * kTile * kLD);   // [64]
+  int* kseg = qseg + kTile;                        // [kSt][64]
+  int* scan = kseg + kSt * kTile;                  // kScanInts
+
+  const int lane = threadIdx.x & 31;
+  const int qt = gridDim.y - 1 - blockIdx.y;       // the longest rows first
+  const int q0 = qt * kTile;
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int g = hmap[h];
+  const int* seg_row = seg ? seg + (size_t)b * S : nullptr;
+
+  cp_tile<kTile, D>(Qs, q, b, q0, h, H, S);
+  cp_tile<kTile, D>(dOs, dout, b, q0, h, H, S);
+  cp_async_commit();
+  if (threadIdx.x < kTile)
+    qseg[threadIdx.x] = seg_row && q0 + (int)threadIdx.x < S
+                            ? seg_row[q0 + threadIdx.x] : 0;
+  __syncthreads();                                 // qseg, for the runs
+  const int hi = causal ? qt + 1 : (S + kTile - 1) / kTile;
+  TileScan<kTile> scan_k{scan, seg_row ? tile_runs(qseg, q0, S, scan,
+                                                   scan + kTile) : 0,
+                         seg_row, S, hi, causal ? qt : 0, causal ? qt + 1 : 0,
+                         scan + kTile + 4};
+  auto load_kv = [&](int kt, int buf) {
+    cp_tile<kTile, D>(Ks + buf * kTile * kLD, k, b, kt * kTile, g, KVH, S);
+    cp_tile<kTile, D>(Vs + buf * kTile * kLD, v, b, kt * kTile, g, KVH, S);
+    if (seg_row) cp_vals(kseg + buf * kTile, seg_row, kt * kTile, kTile, S);
+  };
+  // the thread's rows r_lo = 16 w + l/4 and r_lo + 8, their -lse log2(e)
+  // and delta (0 past S: those rows are not stored)
+  const int r_lo = (threadIdx.x >> 5) * 16 + (lane >> 2);
+  const int qr[2] = {q0 + r_lo, q0 + r_lo + 8};
+  const int qs[2] = {qseg[r_lo], qseg[r_lo + 8]};
+  float nl[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const size_t at = ((size_t)b * H + h) * S + qr[r];
+    nl[r] = qr[r] < S ? -__ldg(lse + at) * kLog2e : 0.f;
+    dl[r] = qr[r] < S ? __ldg(delta + at) : 0.f;
+  }
+  const float sl2 = scale * kLog2e;
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  uint32_t qf[kRegA ? D / 16 : 1][4], df[kRegA ? D / 16 : 1][4];
+
+  // cur: this iteration's tile; n1: the next (3 stages); each iteration
+  // issues the tile kSt - 1 ahead
+  int cur = scan_k.next(0), n1 = hi;
+  if (cur < hi) load_kv(cur, 0);
+  cp_async_commit();
+  if (kSt == 3) {
+    n1 = cur < hi ? scan_k.next(cur + 1) : hi;
+    if (n1 < hi) load_kv(n1, 1);
+    cp_async_commit();
+  }
+  for (int it = 0; cur < hi; ++it) {
+    const int buf = it % kSt;
+    cp_async_wait<kSt - 2>();
+    // tile cur (and Q, dO) have landed, and every warp is done with
+    // iteration it - 1, whose buffer the next load overwrites
+    __syncthreads();
+    const int last = kSt == 3 ? n1 : cur;
+    const int nn = last < hi ? scan_k.next(last + 1) : hi;
+    if (nn < hi) load_kv(nn, (it + kSt - 1) % kSt);
+    cp_async_commit();
+    const bf16* Kb = Ks + buf * kTile * kLD;
+    const bf16* Vb = Vs + buf * kTile * kLD;
+    const int* ks = kseg + buf * kTile;
+    const int k0 = cur * kTile;
+    // s = Q K^T, dp = dO V^T: the warp's 16 queries x 64 keys
+    float s[8][4], dp[8][4];
+    if constexpr (kRegA) {
+      if (it == 0) {
+#pragma unroll
+        for (int kc = 0; kc < D / 16; ++kc) {
+          ld_a<D>(qf[kc], Qs, kc);
+          ld_a<D>(df[kc], dOs, kc);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        s[j][0] = s[j][1] = s[j][2] = s[j][3] =
+            dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < D / 16; ++kc)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          uint32_t kb[4], vb[4];
+          ld_b<D>(kb, Kb, j, kc);
+          ld_b<D>(vb, Vb, j, kc);
+          mma16816(s[2 * j], qf[kc], kb[0], kb[1]);
+          mma16816(s[2 * j + 1], qf[kc], kb[2], kb[3]);
+          mma16816(dp[2 * j], df[kc], vb[0], vb[1]);
+          mma16816(dp[2 * j + 1], df[kc], vb[2], vb[3]);
+        }
+    } else {
+      gemm_nt<D, 8>(s, Qs, Kb);
+      gemm_nt<D, 8>(dp, dOs, Vb);
+    }
+    // p = exp(s scale - lse), zeroed where masked; ds = p (dp - delta) scale
+    // into s, the A operand of dq += ds K
+    const bool need_mask =
+        seg_row != nullptr || (causal && cur == qt) || k0 + kTile > S;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = j * 8 + ((lane & 3) << 1);
+      const int2 kid = seg_row ? *reinterpret_cast<const int2*>(ks + c)
+                               : make_int2(0, 0);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + c + (e & 1), r = e >> 1;
+        float p = ex2(fmaf(s[j][e], sl2, nl[r]));
+        if (need_mask && !(key < S && (!causal || key <= qr[r]) &&
+                           (!seg_row || (e & 1 ? kid.y : kid.x) == qs[r])))
+          p = 0.f;
+        s[j][e] = p * (dp[j][e] - dl[r]) * scale;
+      }
+    }
+    gemm_pv<D, 8, false>(acc, s, Kb);
+    if (kSt == 3) {
+      cur = n1;
+      n1 = nn;
+    } else {
+      cur = nn;
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  store_acc<D>(acc, 1.f, 1.f, Qs, dq, b, q0, h, H, S);
+}
+
 // dk/dv q tile: 64 queries at head dim 64; 32 at 128, which keeps the score
 // and dp tiles (2 x kBQ/2 registers) beside the two [16, D] accumulators
 template <int D>
@@ -1253,14 +1425,6 @@ const char* flash_attention_error_string(int code) {
 // 128. Each launches on `stream` without synchronising and returns the CUDA
 // error of the launch (0 on success).
 
-#define FLASH_DISPATCH(CALL)                                               \
-  if (dtype == 0 && head_dim == 64) { CALL(float, 64); }                   \
-  else if (dtype == 0 && head_dim == 128) { CALL(float, 128); }            \
-  else if (dtype == 1 && head_dim == 64) { CALL(__nv_bfloat16, 64); }      \
-  else if (dtype == 1 && head_dim == 128) { CALL(__nv_bfloat16, 128); }    \
-  else { return static_cast<int>(cudaErrorInvalidValue); }                 \
-  return static_cast<int>(cudaGetLastError());
-
 // the f32 bodies' dispatch (the bf16 ones are launched before it)
 #define FLASH_DISPATCH_F32(CALL)                                           \
   if (dtype == 0 && head_dim == 64) { CALL(float, 64); }                   \
@@ -1313,8 +1477,22 @@ int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                            const void* hmap, void* dq, int B, int S, int H,
                            int KVH, int head_dim, float scale, int causal,
                            int dtype, void* stream) {
-  const dim3 grid((S + kTile - 1) / kTile, B * H);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && (head_dim == 64 || head_dim == 128)) {
+    const dim3 grid(B * H, (S + kTile - 1) / kTile);
+#define DQ_TC(D)                                                           \
+  FLASH_LAUNCH((flash_dq_kernel_tc<D>), grid, kTcThreads, dq_tc_smem<D>(),  \
+               st, static_cast<const bf16*>(q), static_cast<const bf16*>(k), \
+               static_cast<const bf16*>(v), static_cast<const bf16*>(dout), \
+               static_cast<const float*>(lse),                             \
+               static_cast<const float*>(delta),                           \
+               static_cast<const int*>(seg), static_cast<const int*>(hmap), \
+               static_cast<bf16*>(dq), S, H, KVH, scale, causal)
+    if (head_dim == 64) DQ_TC(64) else DQ_TC(128)
+#undef DQ_TC
+    return static_cast<int>(cudaGetLastError());
+  }
+  const dim3 grid((S + kTile - 1) / kTile, B * H);
 #define DQ(T, D)                                                           \
   FLASH_LAUNCH((flash_dq_kernel<T, D>), grid, kThreads, dq_smem<D>(), st,    \
                static_cast<const T*>(q), static_cast<const T*>(k),         \
@@ -1323,7 +1501,7 @@ int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                static_cast<const float*>(delta),                           \
                static_cast<const int*>(seg), static_cast<const int*>(hmap), \
                static_cast<T*>(dq), S, H, KVH, scale, causal)
-  FLASH_DISPATCH(DQ)
+  FLASH_DISPATCH_F32(DQ)
 #undef DQ
 }
 
@@ -1381,6 +1559,5 @@ int flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
 
 #undef FLASH_LAUNCH
 #undef FLASH_DISPATCH_F32
-#undef FLASH_DISPATCH
 
 }  // extern "C"

@@ -3,8 +3,8 @@
 The kernels (``csrc/flash_attention.cu``, sm_90a) replace the TPU kernels
 ``_fwd_kernel``, ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` of the JAX
 package's ``kernels/flash_attention.py``; the source note says what bounds
-them and how they are laid out (bf16 forward and dk/dv on the tensor cores,
-the rest on the CUDA cores). This module only binds the library (built at
+them and how they are laid out (the bf16 bodies on the tensor cores, the
+f32 ones on the CUDA cores). This module only binds the library (built at
 first use by ``_build``), allocates the bf16 dk/dv kernel's workspace and
 launches; the checks, the device dispatch, the autograd and the launch
 counts live in ``ops.py``.

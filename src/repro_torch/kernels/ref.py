@@ -20,14 +20,18 @@ import torch
 NEG_INF = -1e30
 
 
-def decode_attention(q, k, v, valid_len):
+def decode_attention(q, k, v, valid_len, softcap=0.0):
     """q: [B, H, D]; k, v: [B, H, S, D]; valid_len: scalar or per-row [B]
     tensor — masked single-query attention, f32 softmax (f64 for f64
-    inputs, the exact evaluation the f32 kernels are held against)."""
+    inputs, the exact evaluation the f32 kernels are held against).
+    ``softcap`` > 0 caps the logits (cap tanh(s / cap)), as the model's
+    attention does; the kernels take 0 only."""
     s = k.shape[2]
     scale = q.shape[-1] ** -0.5
     ct = torch.float64 if q.dtype == torch.float64 else torch.float32
     scores = torch.einsum("bhd,bhkd->bhk", q.to(ct), k.to(ct)) * scale
+    if softcap and softcap > 0:
+        scores = torch.tanh(scores / softcap) * softcap
     vl = torch.as_tensor(valid_len, device=q.device)
     kpos = torch.arange(s, device=q.device)
     if vl.ndim:
@@ -40,17 +44,20 @@ def decode_attention(q, k, v, valid_len):
     return out.to(q.dtype)
 
 
-def decode_attention_cache(q, k_cache, v_cache, valid_len, hmap):
+def decode_attention_cache(q, k_cache, v_cache, valid_len, hmap,
+                           softcap=0.0):
     """q: [B, H, D]; k_cache/v_cache: one layer's unexpanded dense cache
     [B, S, KVH, D]; valid_len: scalar or per-row [B]; hmap: [H] int q-head
     -> kv-head map. Expands the cache through hmap and defers to
-    ``decode_attention``."""
+    ``decode_attention``. The port's one plain dense decode: the model's
+    ``attention_core.decode_attention`` calls it too."""
     hm = hmap.long()
 
     def dense(cache):  # [B, S, KVH, D] -> [B, H, S, D]
         return cache[:, :, hm, :].transpose(1, 2)
 
-    return decode_attention(q, dense(k_cache), dense(v_cache), valid_len)
+    return decode_attention(q, dense(k_cache), dense(v_cache), valid_len,
+                            softcap)
 
 
 def paged_decode_attention(q, k_pool, v_pool, page_tables, valid_len, hmap):

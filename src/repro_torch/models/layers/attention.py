@@ -149,8 +149,9 @@ def apply_decode(params, cfg: ModelConfig, x, k_cache, v_cache,
     (finished slots riding along) drop their write, as JAX's out-of-bounds
     scatter does. Attention goes through ``ops.decode_attention`` (the CUDA
     kernel of row 3 on the card, its plain version on the CPU) unless
-    ``cfg.use_pallas == "never"``, which keeps the reference's
-    ``core.decode_attention``. Returns (out [B, 1, D], k_cache, v_cache)."""
+    ``cfg.use_pallas == "never"``, which takes ``core.decode_attention``
+    (that plain version, on any device). Returns (out [B, 1, D], k_cache,
+    v_cache)."""
     q, k, v = _project_qkv(params, cfg, x, step.pos[:, None], step.angles)
     # each row writes only its own cache row, so the clamped write-back of
     # the old value for a dropped row cannot collide with another row
@@ -160,7 +161,7 @@ def apply_decode(params, cfg: ModelConfig, x, k_cache, v_cache,
             cache[step.rows, step.at])
     if cfg.use_pallas == "never":
         out = core.decode_attention(q, k_cache, v_cache, step.valid_len,
-                                    hmap=_hmap(cfg),
+                                    hmap=step.hmap,
                                     softcap=cfg.attn_logit_softcap)
     else:
         out = ops.decode_attention(q.contiguous(), k_cache, v_cache,

@@ -7,12 +7,15 @@ index map (``head2group`` / ``attention._hmap``). ``full_attention`` and
 takes it always, and the training forward when ``cfg.use_pallas ==
 "never"``; otherwise the training forward calls the flash kernels through
 ``kernels.ops.flash_attention`` (``attention.apply``). Decode against a
-dense cache is ``decode_attention``.
+dense cache is ``decode_attention``, which is the plain version of the
+dense decode kernel (``kernels.ref.decode_attention_cache``).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.kernels import ref
 
 NEG_INF = -1e30
 
@@ -109,8 +112,13 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, hmap=None,
                      softcap=0.0):
     """q: [B, 1, H, Dh]; caches [B, Smax, KVH, D*]; cache_len: per-row [B]
     tensor — number of valid cache slots per row (the new token's k/v
-    already written)."""
-    sk = k_cache.shape[1]
-    valid = torch.arange(sk, device=q.device)[None, :] < cache_len[:, None]
-    return full_attention(q, k_cache, v_cache, hmap=hmap, causal=False,
-                          kv_len_mask=valid, softcap=softcap)
+    already written); hmap: [H] q-head -> kv-head map (an int tensor on the
+    caches' device, or numpy; None -> ``head2group``). The plain dense
+    decode of row 3, ``kernels.ref.decode_attention_cache``."""
+    b, _, h, dh = q.shape
+    if hmap is None:
+        hmap = head2group(h, k_cache.shape[2])
+    hm = torch.as_tensor(hmap, device=q.device)
+    out = ref.decode_attention_cache(q.reshape(b, h, dh), k_cache, v_cache,
+                                     cache_len, hm, softcap)
+    return out.reshape(b, 1, h, -1)

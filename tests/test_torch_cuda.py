@@ -15,19 +15,22 @@ version and, bit for bit, against row 8 on the same rows. Tied scores in
 ``topk_mask`` go to the lower index on the card too, and three dense
 training steps with their batch uploads make no host sync. The flash
 attention kernels (rows 4-6) are swept over the S of the JAX package's
-flash tests (128/256/384), its packed segment layout, ragged S (1, 17,
-65, 300, 1000) and head dim 128, causal and not, with bit-reproducible
-dk/dv, the bf16 dk/dv at each split of its q work (1-4) and with one q
-head a kv head; segment layouts that probe the skipped tiles (boundaries
-on tile edges, a segment over three tiles, all pad after the first tile,
-one segment over the row, which must give the bits of no segments); in f32 a
-peaked softmax is held against an f64 evaluation. Three packed training steps
-make no host sync either. The dense decode attention kernel (row 3) is held
-against its plain version at the shapes of ``chip_smoke.py`` phase 15 (the
-eval shape, the S and valid_len of ``tests/test_kernels.py``, ragged S,
-head dim 128), against row 1 on a gathered view, and in f32 against f64;
-q heads outside its head map get zeros; a chunk of dense decode steps makes no host sync. The smoke config runs at
-head dim 64 here: the flash and decode kernels take 64 and 128.
+flash tests (128/256/384), its packed segment layout, ragged S (1, 17, 65,
+300, 1000) and head dim 128, causal and not, with bit-reproducible dk/dv,
+the bf16 dk/dv at each split of its q work (1-4) and with one q head a kv
+head, the bf16 dq (tensor cores) bit-reproducible; segment layouts that
+probe the skipped tiles (boundaries on tile edges, a segment over three
+tiles, all pad after the first tile, one segment over the row, which must
+give the bits of no segments); in f32 a peaked softmax is held against an
+f64 evaluation. Three packed training steps make no host sync either. The
+dense decode attention kernel (row 3) is held against its plain version at
+the shapes of ``chip_smoke.py`` phase 15 (the eval shape, the S and
+valid_len of ``tests/test_kernels.py``, ragged S, head dim 128), against
+row 1 on a gathered view, in f32 against f64, and forced to each split of a
+row's positions (1-32 chunks, with valid_len 0 and chunks past valid_len
+and S); q heads outside its head map get zeros; a chunk of dense decode
+steps makes no host sync. The smoke config runs at head dim 64 here: the
+flash and decode kernels take 64 and 128.
 """
 import numpy as np
 import pytest
@@ -551,6 +554,29 @@ def test_flash_attention_one_q_head_per_kv_head(cuda_device, dtype, causal):
     _check_flash(cuda_device, dtype, 2, 300, 4, 4, 64, True, causal)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("s, d, causal", [(300, 64, True), (512, 128, False)])
+def test_flash_dq_tensor_cores_repeat_their_bits(cuda_device, s, d, causal):
+    """The bf16 dq body (tensor cores, tiles with no attending pair
+    skipped), segmented, with the qwen2.5-0.5b head map: against the plain
+    version, and bit-identical over two launches (no partials, no
+    atomics)."""
+    q, k, v, do, hm, seg = _flash_inputs(cuda_device, torch.bfloat16, 2, s,
+                                         16, 2, d, True)
+    o, lse = ops.flash_attention_fwd(q, k, v, hm, causal=causal,
+                                     segment_ids=seg)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    outs = []
+    for _ in range(2):
+        dq = torch.full_like(q, float("nan"))
+        fa.launch_bwd_dq(q, k, v, do, lse, delta, seg, hm, causal, dq)
+        outs.append(dq)
+    torch.cuda.synchronize()
+    pq, _, _ = ref.flash_attention_bwd(q, k, v, o, lse, do, hm, seg, causal)
+    _close(outs[0], pq, torch.bfloat16)
+    assert _bits_equal(outs[0], outs[1])
+
+
 def _excess(got, exact):
     """max |got - exact| / (atol + rtol |exact|) at the f32 tolerance: at
     most 1 is within it."""
@@ -748,6 +774,36 @@ def test_dense_decode_f32_peaked_against_f64(cuda_device, b, s, d, vlens):
     assert exact.dtype == torch.float64
     e_kern, e_plain = _excess(got, exact), _excess(plain, exact)
     assert e_kern <= max(1.0, e_plain), (e_kern, e_plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_split", range(1, 33))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_decode_every_split(cuda_device, dtype, n_split):
+    """Row 3 forced to each split of a row's positions (1 .. 32 chunks),
+    S 300 (no chunk length divides it): valid_len 0, 1, 150 and 300, so
+    some chunks lie wholly past valid_len or past S; two q heads outside
+    the head map. Against the plain version on the mapped heads of the rows
+    with valid_len >= 1, zeros elsewhere, bit-identical over two launches."""
+    from repro_torch.kernels import decode_attention as dec
+    vlens = [0, 1, 150, 300]
+    q, k, v, vl, hm = _decode_inputs(cuda_device, dtype, 4, 300, vlens)
+    bad = hm.clone()
+    bad[3], bad[12] = 2, -1
+    outs = []
+    for _ in range(2):
+        out = torch.full((4, 16, 64), float("nan"), dtype=dtype,
+                         device=cuda_device)
+        dec.launch(q.view(4, 16, 64), k, v, vl, bad, out, n_split=n_split)
+        outs.append(out)
+    torch.cuda.synchronize()
+    assert _bits_equal(outs[0], outs[1])
+    out = outs[0]
+    keep = [h for h in range(16) if h not in (3, 12)]
+    assert (out[0] == 0).all() and (out[1:, [3, 12]] == 0).all()
+    want = ref.decode_attention_cache(q[1:, 0][:, keep], k[1:], v[1:],
+                                      vl[1:], hm[keep])
+    _close(out[1:, keep], want, dtype)
 
 
 @pytest.mark.cuda

@@ -379,6 +379,71 @@ def test_flash_dkv_split_follows_the_shapes(dtype, shape, want):
     assert fa.dkv_splits(dtype, *shape) == want
 
 
+@pytest.mark.parametrize("dtype, s, want", [
+    (torch.bfloat16, 512, 1),       # the eval: one block a row
+    (torch.bfloat16, 511, 1),       # shorter than a chunk
+    (torch.bfloat16, 1, 1),         # one position
+    (torch.bfloat16, 2048, 4),      # 4 chunks of 512
+    (torch.bfloat16, 8192, 16),     # 16 chunks of 512
+    (torch.bfloat16, 1000, 2),      # ragged S: 512 and 488
+    (torch.bfloat16, 513, 2),       # one position past a chunk
+    (torch.bfloat16, 100000, 32),   # at most MAX_SPLIT
+    (torch.float32, 512, 4),        # f32: chunks of 128
+    (torch.float32, 300, 3),        # 128, 128 and 44 positions
+    (torch.float32, 128, 1),        # one f32 chunk
+])
+def test_dense_decode_split_follows_the_shapes(dtype, s, want):
+    """How many chunks, one block each, split a row's cache positions in
+    the dense decode kernel (row 3): a function of the dtype and the
+    cache length S alone — the host never reads valid_len — and at least
+    1."""
+    import inspect
+    assert list(inspect.signature(dec.decode_splits).parameters) == [
+        "dtype", "s"]
+    assert dec.decode_splits(dtype, s) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_decode_split_bounds(dtype):
+    """Over a range of cache lengths the split is 1 .. MAX_SPLIT and the
+    fewest chunks of at most MAX_CHUNK positions, unless MAX_SPLIT caps
+    it."""
+    cap = dec.MAX_CHUNK[dtype]
+    for s in (1, 31, 128, 129, 300, 511, 512, 513, 2048, 8191, 40000):
+        n = dec.decode_splits(dtype, s)
+        assert 1 <= n <= dec.MAX_SPLIT
+        assert n == dec.MAX_SPLIT or -(-s // n) <= cap
+        assert n == 1 or -(-s // (n - 1)) > cap
+
+
+@pytest.mark.parametrize("hmap", ["tensor", "numpy", None])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_decode_has_one_plain_version(hmap, dtype):
+    """The model's ``attention_core.decode_attention`` (the
+    ``use_pallas="never"`` path) is row 3's plain version: on the CPU it
+    gives the bits of ``ops.decode_attention``, softcap 0 or not."""
+    from repro_torch.kernels import ref
+    from repro_torch.models.layers import attention_core as core
+    g = torch.Generator().manual_seed(3)
+    b, s, h, kvh, d = 3, 40, 6, 2, 16
+    q = (3 * torch.randn(b, 1, h, d, generator=g)).to(dtype)
+    k, v = (torch.randn(b, s, kvh, d, generator=g).to(dtype)
+            for _ in range(2))
+    vl = torch.tensor([1, 17, 40], dtype=torch.int32)
+    hm = np.arange(h) // 3
+    arg = {"tensor": torch.from_numpy(hm).int(), "numpy": hm,
+           None: None}[hmap]
+    got = core.decode_attention(q, k, v, vl, hmap=arg)
+    want = ops.decode_attention(q, k, v, vl, torch.from_numpy(hm).int())
+    assert got.dtype == dtype and got.shape == (b, 1, h, d)
+    assert torch.equal(got, want)
+    capped = core.decode_attention(q, k, v, vl, hmap=arg, softcap=5.0)
+    plain = ref.decode_attention_cache(q[:, 0], k, v, vl,
+                                       torch.from_numpy(hm), softcap=5.0)
+    assert torch.equal(capped[:, 0], plain)
+    assert not torch.equal(capped, got)
+
+
 def test_dense_decode_wrapper_raises_and_rejects(missing_builds):
     """Row 3 on CUDA tensors: no build raises and counts nothing; int64
     operands, a head dim other than 64 or 128, more than 16 q heads, a
