@@ -9,10 +9,13 @@ Phases, each of which makes the run exit non-zero if it fails:
 2. build every CUDA source of the port with ``nvcc``, one process per
    source, all started together, and time it;
 3. each kernel against its plain PyTorch version on the card, on the same
-   inputs: the paged decode attention kernel (CUDA) on scrambled page
+   inputs: the paged decode attention kernel (CUDA, row 1) on scrambled page
    tables with sentinel entries and mixed ``valid_len``, with the
    qwen2.5-0.5b head map (H=16, KVH=2, D=64), at the serving shape (4 slots,
-   max_len 512, page 16) and a larger one (32 rows, valid_len 2048); RMSNorm
+   max_len 512, page 16) and a larger one (32 rows, valid_len 2048), with
+   32 q heads on 8 kv heads at head dim 64 and 128 and pages of 4 and 16,
+   and forced to each split 1-4 at 32 x 2048 (bit-identical over two
+   launches, timed); RMSNorm
    (Triton) on [N, 896]; bf16 and f32; max error against the tolerance,
    on inputs whose outputs are large beside it (a peaked softmax: the
    comparison fails a kernel that returns zeros or a flat average); times from CUDA events with L2 flushed before each launch, and each
@@ -34,8 +37,9 @@ Phases, each of which makes the run exit non-zero if it fails:
    training path's shapes: the block gradient norms and the masked AdamW
    step (Triton) on the stacked leaves wg [24, 896*4864], wq [24, 896*1024]
    and ln1 [24, 896] with 5 of 24 rows selected, and the RMSNorm backward
-   (Triton) on [8*512, 896]; rows with sel = 0 come back bit-identical, two
-   launches of the norms give the same bits; times as in phase 3, beside
+   (Triton) on [4, 896] and [8*512, 896]; rows with sel = 0 come back
+   bit-identical, two launches of the norms and of the RMSNorm backward
+   give the same bits; times as in phase 3, beside
    each kernel's bytes bound and a library yardstick where one exists;
 7. training at full width: the port's ``Trainer`` on qwen2.5-0.5b in bf16,
    adagradselect, dense residency, global batch 8 x 512 tokens, 10 steps;
@@ -109,8 +113,9 @@ Phases, each of which makes the run exit non-zero if it fails:
    ``tests/test_kernels.py::TestDecodeAttention`` (S 512/1024/2048, per-row
    vectors), ragged S (1, 300) and head dim 128; two launches give the same
    bits; in f32 with a peaked softmax the kernel's and the plain f32
-   version's outputs against the plain version in f64; row 3 against row 1
-   (the paged kernel) on the gathered view of one pool; the kernel forced
+   version's outputs against the plain version in f64; row 3 bit-equal to
+   row 1 (the paged kernel) on the gathered view of one pool, at the
+   serving shape and at 32 x 2048; the kernel forced
    to every split of a row's positions (1-32 chunks) at the eval shape
    and at S 300 with valid_len 0 and chunks past valid_len, each against
    the plain version and bit-identical over two launches, and timed by
@@ -288,12 +293,13 @@ def _ptxas_usage(log: str) -> list:
 
 
 def _paged_inputs(torch, dtype, b, vlens, ps=16, maxp=32, h=16, kvh=2, d=64,
-                  seed=0):
-    """Pool, scrambled tables (sentinels past each row's pages), q and the
-    qwen2.5-0.5b head map (7 q heads on kv head 0, 9 on kv head 1: the two
-    padded heads clamp onto the last kv head). q = 3 N(0, 1) against
-    N(0, 1) keys gives scores of spread 3, so each row's softmax is peaked
-    and its output stays near the size of a V row even at 2048 positions."""
+                  seed=0, hmap=None):
+    """Pool, scrambled tables (sentinels past each row's pages), q and a
+    head map, by default qwen2.5-0.5b's (7 q heads on kv head 0, 9 on kv
+    head 1: the two padded heads clamp onto the last kv head). q = 3 N(0,
+    1) against N(0, 1) keys gives scores of spread 3, so each row's softmax
+    is peaked and its output stays near the size of a V row even at 2048
+    positions."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     num_pages = b * maxp + 7
     dt = getattr(torch, dtype)
@@ -309,8 +315,9 @@ def _paged_inputs(torch, dtype, b, vlens, ps=16, maxp=32, h=16, kvh=2, d=64,
         tbl[i, :n] = perm[used:used + n]
         used += n
     vl = torch.tensor(vlens, dtype=torch.int32, device="cuda")
-    hmap = torch.tensor([min(i // 7, kvh - 1) for i in range(h)],
-                        dtype=torch.int32, device="cuda")
+    if hmap is None:
+        hmap = [min(i // 7, kvh - 1) for i in range(h)]
+    hmap = torch.tensor(hmap, dtype=torch.int32, device="cuda")
     return q, k, v, tbl, vl, hmap
 
 
@@ -397,6 +404,8 @@ def phase_kernels(torch, ops, ref, timer) -> dict:
             rows.append(row)
             if n == 4 and dtype == "bfloat16":
                 main["rmsnorm"] = row
+    _paged_wide(torch, ops, ref)
+    _paged_splits(torch, ref, timer)
     print("kernels vs plain versions (CUDA events, L2 flushed, ms per call):")
     for r in rows:
         lib = ("-" if r["library_ms"] is None
@@ -409,6 +418,63 @@ def phase_kernels(torch, ops, ref, timer) -> dict:
     print("  paged_decode_attention has no single-call PyTorch yardstick; "
           "rmsnorm's is torch.nn.functional.rms_norm (timed only)")
     return main
+
+
+# 32 q heads on 8 kv heads (two blocks a kv head): llama3.2-1b's map at head
+# dim 64, phi4-mini's (24 heads padded to 32 on kv head 7) at 128
+WIDE_HMAPS = {64: [h // 4 for h in range(32)],
+              128: [min(h // 3, 7) for h in range(32)]}
+
+
+def _paged_wide(torch, ops, ref) -> None:
+    """Row 1 at the 32-head layouts, head dim 64 and 128, page sizes 4 and
+    16, bf16 and f32, against its plain version."""
+    for dtype in ("bfloat16", "float32"):
+        for d, hm in WIDE_HMAPS.items():
+            for ps in (4, 16):
+                q, k, v, tbl, vl, hmap = _paged_inputs(
+                    torch, dtype, 4, [1, ps + 3, 300, 512], ps=ps,
+                    maxp=512 // ps, h=32, kvh=8, d=d, hmap=hm)
+                out = ops.paged_decode_attention(q, k, v, tbl, vl, hmap)
+                err = _check_close(
+                    torch, out[:, 0],
+                    ref.paged_decode_attention(q[:, 0], k, v, tbl, vl, hmap),
+                    dtype, f"paged_decode_attention H=32 D={d} page={ps}")
+                print(f"  row 1 {dtype:<8} H=32 KVH=8 D={d:<3} page {ps:<2} "
+                      f"valid_len [1, {ps + 3}, 300, 512]: max |err| "
+                      f"{err:.2e} (rtol=atol {TOL[dtype]:.0e})")
+                del q, k, v
+
+
+def _paged_splits(torch, ref, timer) -> None:
+    """Row 1 forced to each split 1-4 at 32 rows of 2048 positions: against
+    the plain version, bit-identical over two launches, and timed (bf16 and
+    f32; * = decode_splits' pick)."""
+    from repro_torch.kernels import decode_attention as dec
+    for dtype in ("bfloat16", "float32"):
+        q, k, v, tbl, vl, hm = _paged_inputs(torch, dtype, 32, [2048] * 32,
+                                             maxp=128)
+        qv = q.view(32, 16, 64)
+        plain = ref.paged_decode_attention(q[:, 0], k, v, tbl, vl, hm)
+        pick = dec.decode_splits(q.dtype, 2048)
+        times = {}
+        for n in (1, 2, 3, 4):
+            outs = []
+            for _ in range(2):
+                out = torch.full_like(qv, float("nan"))
+                dec.launch_paged(qv, k, v, tbl, vl, hm, out, n_split=n)
+                outs.append(out)
+            torch.cuda.synchronize()
+            check(_bits_equal(torch, outs[0], outs[1]), f"row 1 {dtype} "
+                  f"split {n}: two launches differ")
+            _check_close(torch, outs[0], plain, dtype, f"row 1 split {n}")
+            times[n] = timer.ms(lambda n=n: dec.launch_paged(
+                qv, k, v, tbl, vl, hm, out, n_split=n), reps=10)
+        print(f"  row 1 {dtype:<8} B=32 valid_len 2048, splits 1-4 within "
+              f"the tolerance and bit-identical over two launches; ms: "
+              + "  ".join(f"{n}{'*' if n == pick else ''} {t:.4f}"
+                          for n, t in times.items()))
+        del q, k, v, plain
 
 
 def _requests(Request, vocab):
@@ -508,9 +574,12 @@ def _profile(torch, cfg, params, ServeEngine, ServeConfig, Request):
     if not events:
         print("  profile: the profiler saw no device time (not measured)")
         return
+    row1 = [e for e in events if "decode_kernel" in e.key]
     print(f"  profile (one more run, profiler on): wall {wall * 1e3:.1f} ms,"
           f" device kernels {busy_us / 1e3:.1f} ms, device idle share "
-          f"{max(0.0, 1 - busy_us / 1e6 / wall):.3f}")
+          f"{max(0.0, 1 - busy_us / 1e6 / wall):.3f}; row 1 "
+          f"{sum(e.device_time_total for e in row1) / 1e3:.2f} ms in "
+          f"{sum(e.count for e in row1)} launches")
     for e in sorted(events, key=lambda e: -e.device_time_total)[:12]:
         print(f"    {e.device_time_total / 1e3:9.2f} ms {e.count:7d}x  "
               f"{e.key[:90]}")
@@ -663,22 +732,31 @@ def phase_train_kernels(torch, ops, ref, timer) -> dict:
             if leaf == "wg" and dtype == "bfloat16":
                 main["masked_adamw"] = row
             del grad, p, m, v, pk, mk, vk, pr, mr, vr
-        # row 2b: RMSNorm backward at the training path's [8 * 512, 896]
-        n, d = TRAIN["global_batch"] * TRAIN["seq_len"], 896
-        g = torch.Generator(device="cuda").manual_seed(5)
-        mu = 1 + 0.5 * torch.randn(d, generator=g, device="cuda")
-        x = (mu + torch.randn(n, d, generator=g, device="cuda")).to(dt)
-        s = (1 + 0.1 * torch.randn(d, generator=g, device="cuda")).to(dt)
-        dy = (1 + torch.randn(n, d, generator=g, device="cuda")).to(dt)
-        n0 = ops.LAUNCHES["rmsnorm_bwd"]
-        dx, ds = ops.rmsnorm_bwd(dy, x, s, 1e-6)
-        torch.cuda.synchronize()
-        check(ops.LAUNCHES["rmsnorm_bwd"] == n0 + 1,
-              "rmsnorm_bwd did not count its launch")
-        pdx, pds = ref.rmsnorm_bwd(dy, x, s, 1e-6)
-        err = _check_close(torch, dx, pdx, dtype, "rmsnorm_bwd dx")
-        err = max(err, _check_close(torch, ds[None], pds[None], dtype,
-                                    "rmsnorm_bwd dscale"))
+        # row 2b: RMSNorm backward at [4, 896] and at the training path's
+        # [8 * 512, 896] (timed)
+        d = 896
+        for n in (4, TRAIN["global_batch"] * TRAIN["seq_len"]):
+            g = torch.Generator(device="cuda").manual_seed(5)
+            mu = 1 + 0.5 * torch.randn(d, generator=g, device="cuda")
+            x = (mu + torch.randn(n, d, generator=g, device="cuda")).to(dt)
+            s = (1 + 0.1 * torch.randn(d, generator=g, device="cuda")).to(dt)
+            dy = (1 + torch.randn(n, d, generator=g, device="cuda")).to(dt)
+            n0 = ops.LAUNCHES["rmsnorm_bwd"]
+            dx, ds = ops.rmsnorm_bwd(dy, x, s, 1e-6)
+            dx2, ds2 = ops.rmsnorm_bwd(dy, x, s, 1e-6)
+            torch.cuda.synchronize()
+            check(ops.LAUNCHES["rmsnorm_bwd"] == n0 + 2,
+                  "rmsnorm_bwd did not count its launches")
+            check(_bits_equal(torch, dx, dx2) and _bits_equal(torch, ds, ds2),
+                  f"rmsnorm_bwd [{n}, {d}] {dtype}: two launches gave "
+                  f"different bits")
+            pdx, pds = ref.rmsnorm_bwd(dy, x, s, 1e-6)
+            err = _check_close(torch, dx, pdx, dtype, f"rmsnorm_bwd dx [{n}]")
+            err = max(err, _check_close(torch, ds[None], pds[None], dtype,
+                                        f"rmsnorm_bwd dscale [{n}]"))
+            print(f"  rmsnorm_bwd [{n}, {d}] {dtype}: dx and dscale within "
+                  f"the tolerance (max |err| {err:.2e}), bit-identical over "
+                  f"two launches")
         xl = x.clone().requires_grad_()
         sl = s.clone().requires_grad_()
         yl = F.rms_norm(xl, (d,), weight=sl, eps=1e-6)
@@ -1987,23 +2065,26 @@ def _decode_f64(torch, ops, ref, label, b, s, d, vlens) -> None:
 
 def _decode_vs_paged(torch, ops, dtype) -> None:
     """Row 3 on the dense view gathered from a pool through its page
-    tables against row 1 on the pool (tests/test_kernels.py::
-    test_matches_dense_kernel_on_gathered_view; f32 at its 2e-5)."""
-    q, kp, vp, tbl, vl, hm = _paged_inputs(torch, dtype, 4, [1, 17, 300, 512])
-    paged = ops.paged_decode_attention(q, kp, vp, tbl, vl, hm)
-    rows = tbl.long().clamp(max=kp.shape[0] - 1)
-    kd, vd = (p[rows].reshape(q.shape[0], -1, *p.shape[2:]).contiguous()
-              for p in (kp, vp))
-    dense = ops.decode_attention(q, kd, vd, vl, hm)
-    torch.cuda.synchronize()
-    tol = 2e-5 if dtype == "float32" else TOL[dtype]
-    diff = (dense.float() - paged.float()).abs()
-    ok = bool((diff <= tol + tol * paged.float().abs()).all())
-    print(f"  row 3 on the gathered view vs row 1 on the pool, {dtype}, B=4 "
-          f"page 16, valid_len [1, 17, 300, 512]: max |diff| "
-          f"{diff.max().item():.2e} (rtol=atol {tol:.0e})")
-    check(ok, f"row 3 and row 1 differ on one pool ({dtype}): max |diff| "
-          f"{diff.max().item()}")
+    tables gives the bits of row 1 on the pool (one body, the same split;
+    tests/test_kernels.py::test_matches_dense_kernel_on_gathered_view holds
+    them within 2e-5 in f32): at the serving shape and at 32 x 2048."""
+    for b, vlens, maxp in ((4, [1, 17, 300, 512], 32),
+                           (32, [2048] * 31 + [1000], 128)):
+        q, kp, vp, tbl, vl, hm = _paged_inputs(torch, dtype, b, vlens,
+                                               maxp=maxp)
+        paged = ops.paged_decode_attention(q, kp, vp, tbl, vl, hm)
+        rows = tbl.long().clamp(max=kp.shape[0] - 1)
+        kd, vd = (p[rows].reshape(b, -1, *p.shape[2:]).contiguous()
+                  for p in (kp, vp))
+        dense = ops.decode_attention(q, kd, vd, vl, hm)
+        torch.cuda.synchronize()
+        diff = (dense.float() - paged.float()).abs().max().item()
+        print(f"  row 3 on the gathered view vs row 1 on the pool, {dtype}, "
+              f"B={b} page 16, valid_len {vlens[:4]}: bit-equal "
+              f"{_bits_equal(torch, dense, paged)} (max |diff| {diff:.2e})")
+        check(_bits_equal(torch, dense, paged), f"row 3 and row 1 differ on "
+              f"one pool ({dtype}, B={b}): max |diff| {diff}")
+        del q, kp, vp, kd, vd
 
 
 # ------------------------------------------------------------ greedy eval
@@ -2126,7 +2207,7 @@ def _print_eval_profile(prof, wall) -> None:
         return
     busy_us = sum(e.device_time_total for e in events)
     dec = sum(e.device_time_total for e in events
-              if "decode_kernel" in e.key and "paged" not in e.key) / 1e3
+              if "decode_kernel" in e.key and "PagedRows" not in e.key) / 1e3
     print(f"  profile ({EVAL_PROFILE[1]} engine steps of the second call, "
           f"{EVAL_PROFILE[1] * SERVE['decode_chunk']} decode steps at "
           f"{EVAL['batch_size']} slots, profiler on): wall "
@@ -2213,7 +2294,7 @@ def main() -> int:
         print(f"chip_smoke: phase {phase!r} FAILED", file=sys.stderr)
         return 1
     sources = {"paged_decode_attention": (
-        "cuda", "src/repro_torch/csrc/paged_decode_attention.cu",
+        "cuda", "src/repro_torch/csrc/decode_attention.cu",
         "src/repro/kernels/decode_attention.py:95"),
         "decode_attention": (
             "cuda", "src/repro_torch/csrc/decode_attention.cu",

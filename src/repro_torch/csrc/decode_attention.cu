@@ -1,34 +1,49 @@
-// Dense decode attention for Hopper (sm_90a): one query token per batch row
-// against that row's dense KV cache.
+// Decode attention for Hopper (sm_90a): one query token per batch row
+// against that row's KV cache, dense (row 3) or paged (row 1), in one body.
 //
-// Replaces the TPU kernel `_kernel` of src/repro/kernels/decode_attention.py
-// (reached through `decode_attention`). Same function: for row b and q head h,
+// Replaces the two TPU kernels of src/repro/kernels/decode_attention.py,
+// which keeps them in one file as this source does: `_kernel` (reached
+// through `decode_attention`, the dense cache) and `_paged_kernel` (through
+// `paged_decode_attention`, a cache in a shared page pool). Same function:
+// for row b and q head h,
 //   o[b, h] = softmax_t(q[b, h] . K[b, t, hmap[h]] * D^-0.5) V[b, t, hmap[h]]
 // over t < valid_len[b]. Online softmax with m, l and the accumulator in
-// f32; the output is written in the dtype of q. Differences from the TPU
-// kernel: it reads one layer's unexpanded cache [B, S, KVH, D] through the
-// q-head -> kv-head map hmap (the TPU kernel takes a head-expanded
-// [B*H, S, D] copy), takes any S >= 1 (the TPU kernel needs S % 512 == 0
-// above 512), and stops at valid_len instead of visiting and masking every
-// 512-wide block (the result is the same). valid_len[b] = 0 is not on the
-// serving path (the engine passes pos + 1 >= 1): such a row gets zeros here,
-// where the reference returns the mean of V. A q head whose hmap entry is
-// outside [0, KVH) is served by no block; block (0, b, 0) writes zeros to
-// it.
+// f32; the output is written in the dtype of q. The two layouts differ only
+// in where position t's K/V row lives (`DenseRows`, `PagedRows`):
+//   - dense: k[b, t] of one layer's unexpanded cache [B, S, KVH, D];
+//   - paged: k_pool[page, t % ps] of a pool [num_pages, ps, KVH, D], page =
+//     page_tables[b, t / ps] clamped to [0, num_pages) (sentinel entries >=
+//     num_pages only ever sit past valid_len), S = max_pages * ps.
+// Every other instruction is shared, so row 1 on a pool gives the bits of
+// row 3 on the dense view gathered through the same tables.
+// Differences from the TPU kernels: they read through the q-head -> kv-head
+// map hmap (the dense TPU kernel takes a head-expanded [B*H, S, D] copy),
+// take any S >= 1 (the dense TPU kernel needs S % 512 == 0 above 512), and
+// stop at valid_len instead of visiting and masking every block (the result
+// is the same). valid_len[b] = 0 is not on the serving path (the engine
+// passes pos + 1 >= 1): such a row gets zeros here, where the reference
+// returns the mean of V. A q head whose hmap entry is outside [0, KVH) is
+// served by no block; block (0, b, 0) writes zeros to it.
 //
 // What bounds it: reading K and V. Each K/V element is used by the few q
 // heads of its group once, ~2 flops per byte read against the card's ~295
 // flops/byte ridge, so the bound is the bytes of the valid K/V rows over the
 // device memory rate. At decode those bytes are few (~1.7 MB a layer at the
-// eval's 16 rows), so what the kernel must fight is latency: the chain of
-// dependent loads, and the dependent work of each tile. The design reads
-// every needed K/V byte once, puts bf16 tiles on the tensor cores, and
-// spreads long rows over blocks (flash-decoding) in one launch:
-//   - grid (KVH, B, n_split): a block per (kv head, batch row, chunk)
-//     serves every q head that hmap maps to that kv head, at most kMaxHeads
-//     = 16 (qwen2.5-0.5b's padded 16). Chunk c holds positions [c L, (c +
-//     1) L), L = S / n_split rounded up to 32; n_split (at most kMaxSplit)
-//     is the caller's, a function of the shapes only
+// eval's 16 rows, ~0.4 MB at the serving engine's 4 slots), so what the
+// kernel must fight is latency: the chain of dependent loads, and the
+// dependent work of each tile. The design reads every needed K/V byte once,
+// puts bf16 tiles on the tensor cores, and spreads long rows over blocks
+// (flash-decoding) in one launch:
+//   - grid (KVH * n_slice, B, n_split): a block per (kv head, head slice,
+//     batch row, chunk) serves up to kMaxHeads = 16 of the q heads that
+//     hmap maps to its kv head, in order: slice s takes the group's heads
+//     16 s .. 16 s + 15. A row has at most kMaxQHeads = 32 q heads and
+//     n_slice = ceil(H / 16), a function of the shapes only (1 for
+//     qwen2.5-0.5b's padded 16; 2 for 32, where a block whose slice holds
+//     no head returns at once, so any map of 32 heads is served, all of them
+//     on one kv head included). Chunk c holds positions [c L, (c + 1) L), L =
+//     S / n_split rounded up to 32; n_split (at most kMaxSplit) is the
+//     caller's, a function of the shapes only
 //     (kernels/decode_attention.py `decode_splits`: the fewest chunks of
 //     at most 512 positions in bf16, since on the H100 one block walks a
 //     512-position row faster than several blocks and their combine: 1
@@ -36,30 +51,35 @@
 //     more, of at most 128);
 //   - a chunk that starts at or past valid_len[b] reads nothing: its block
 //     returns at once, and the row's n_used = ceil(valid_len / L) (at
-//     least 1) chunks do the work. valid_len and the head map are read
-//     together, first;
+//     least 1) chunks do the work. valid_len, the head map and, paged, the
+//     first of the chunk's page-table entries (one a thread) are loaded
+//     together, first; the chunk's slice of the table is then staged in
+//     shared memory, clamped to the pool, before the first K/V copy, so no
+//     copy waits on a table load of its own. Any page size >= 1 works: a
+//     32-position tile may span several pages, and a chunk of L positions
+//     at most ceil(L / ps) + 1 entries;
 //   - inside a block each warp takes every (warps)-th tile of 32 positions
 //     of the chunk with its own online-softmax state (m, l, acc);
-//   - bf16 (`decode_kernel_tc`, 8 warps): the group's q heads are the 16
+//   - bf16 (`decode_kernel_tc`, 8 warps): the slice's q heads are the 16
 //     rows of the A operand of mma.sync.m16n8k16 (bf16 in, f32
-//     accumulate; rows past the group are zeros), kept in registers; a
+//     accumulate; rows past the slice are zeros), kept in registers; a
 //     warp's K and V tiles come through cp.async into shared memory (rows
-//     past valid_len zeros; the first tile is in flight while Q is staged)
-//     and are read with ldmatrix; s = Q K^T (16 x 32) stays in the
-//     accumulator registers, where the scale is applied, the positions past
-//     valid_len are masked, and the row statistics are reduced over the 4
-//     lanes of a quad; p, as a bf16 hi + lo pair (~16 bits of its
+//     past valid_len zeros; the first tile is in flight while Q is staged;
+//     paged, each lane looks up one position's row and the copies take it
+//     by shuffle) and are read with ldmatrix; s = Q K^T (16 x 32) stays in
+//     the accumulator registers, where the scale is applied, the positions
+//     past valid_len are masked, and the row statistics are reduced over
+//     the 4 lanes of a quad; p, as a bf16 hi + lo pair (~16 bits of its
 //     mantissa, as flash dk/dv carries p: the reference keeps p in f32;
 //     at the eval shape one rounding to bf16 gave a largest error of
-//     7.8e-3, the pair 4.9e-4 for ~4% more time, the CUDA-core body this
-//     replaces 2.4e-4), is the A operand of two
+//     7.8e-3, the pair 4.9e-4 for ~4% more time), is the A operand of two
 //     products acc += P V. A tile at head dim 64 is 48 MMAs (16 for
 //     Q K^T, 32 for P V) and 16 exponentials a lane
-//     (the CUDA-core body this replaces spent 64 G dependent FMAs a lane on
-//     q.k alone, G the group's q heads);
+//     (the CUDA-core bodies this replaces spent 64 G dependent FMAs a lane
+//     on q.k alone, G the group's q heads);
 //   - f32 (`decode_kernel`, 4 warps, on the CUDA cores): q.k one position
 //     per lane, its K row read with 16-byte loads and dotted with the
-//     group's q rows (f32 in shared memory, broadcast), summed in f64
+//     slice's q rows (f32 in shared memory, broadcast), summed in f64
 //     (exact products), so the f32 kernel stays as close to an f64
 //     evaluation as the plain f32 version is (the rounding of the D-long
 //     sum, through exp, is the largest error of an f32 evaluation at a
@@ -71,28 +91,33 @@
 //     chunk in use normalises and writes its output there. Otherwise each
 //     block writes its chunk's (m, l, unnormalised acc) in f32 to the
 //     caller's workspace, fences, and takes a ticket from the (row, kv
-//     head)'s counter (CUDA's threadFenceReduction pattern); the block that
-//     draws the last ticket reads every chunk's (m, l) at once, sums the
-//     chunks in chunk order 0, 1, .., n_used - 1 (8 loads in flight) with
-//     the weights exp(m_c - M) / sum_c l_c exp(m_c - M), writes the output
-//     and resets the counter to 0 for the next launch. The ticket only
-//     decides which block sums; the order of the sums is fixed, so the same
-//     inputs give the same bits;
+//     head, slice)'s counter (CUDA's threadFenceReduction pattern); the
+//     block that draws the last ticket reads every chunk's (m, l) at once,
+//     sums the chunks in chunk order 0, 1, .., n_used - 1 (8 loads in
+//     flight) with the weights exp(m_c - M) / sum_c l_c exp(m_c - M),
+//     writes the output and resets the counter to 0 for the next launch.
+//     The ticket only decides which block sums; the order of the sums is
+//     fixed, so the same inputs give the same bits;
 //   - positions at or past valid_len are neither read nor computed.
-// Registers a thread and spills (ptxas -v for sm_90a; phase 1 of
-// chip_smoke.py prints them): decode_kernel_tc<64> 98, <128> 177;
-// decode_kernel<64> and <128> 226; no spills.
+// Registers a thread and spills (ptxas -v for sm_90a; phase 2 of
+// chip_smoke.py prints them): decode_kernel_tc<64, *Rows> 98-99, <128, *>
+// 164-174; decode_kernel<64 and 128, *> 226; no spills.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
 constexpr int kWarps = 4;         // the f32 body's
 constexpr int kThreads = 32 * kWarps;
 constexpr int kTile = 32;         // positions per warp step
-constexpr int kMaxHeads = 16;     // q heads per row (hence per kv group)
+constexpr int kMaxHeads = 16;     // q heads a block serves: the MMA's rows
+constexpr int kMaxQHeads = 32;    // q heads a row: one lane of warp 0 each
 constexpr int kMaxSplit = 32;     // chunks per row
+constexpr int kMaxDevices = 64;   // devices whose shared memory limits are kept
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -123,31 +148,86 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// The block's q heads: heads[0 .. n) the q heads that hmap maps to kv head
-// kvh, in order (H <= kMaxHeads <= 32; warp 0 fills them from `my_map`,
-// hmap[lane], which the caller read beside valid_len); the first block of a
-// row also writes zeros to the q heads that no block serves. The caller
-// synchronises before reading them.
+// The block's q heads: heads[0 .. n) the q heads of slice `slice` of those
+// that hmap maps to kv head kvh, in order (H <= kMaxQHeads = 32; warp 0
+// fills them from `my_map`, hmap[lane], which the caller read beside
+// valid_len); the row's first block also writes zeros to the q heads that
+// no block serves. The caller synchronises before reading them.
 template <typename T>
 __device__ __forceinline__ void group_heads(int my_map,
                                             const int* __restrict__ hmap,
                                             T* __restrict__ out_b, int H,
-                                            int KVH, int kvh, int D,
-                                            bool first, int* heads,
+                                            int KVH, int kvh, int slice,
+                                            int D, bool first, int* heads,
                                             int* n_heads) {
   const int tid = threadIdx.x, lane = tid & 31;
   if (tid < 32) {
     const bool mine = lane < H && my_map == kvh;
     const unsigned mask = __ballot_sync(kFull, mine);
-    if (mine) heads[__popc(mask & ((1u << lane) - 1u))] = lane;
-    if (lane == 0) *n_heads = __popc(mask);
+    const int i = __popc(mask & ((1u << lane) - 1u)) - slice * kMaxHeads;
+    if (mine && i >= 0 && i < kMaxHeads) heads[i] = lane;
+    if (lane == 0)
+      *n_heads = min(kMaxHeads, max(0, __popc(mask) - slice * kMaxHeads));
   }
-  if (kvh == 0 && first) {
+  if (first) {
     for (int i = tid; i < H * D; i += blockDim.x) {
       const int g = hmap[i / D];
       if (g < 0 || g >= KVH) store(out_b + i, 0.f);
     }
   }
+}
+
+// Where a block finds position t's K/V row: its element offset in k and v
+// (the same in both), for the block's row b and kv head
+struct DenseRows {   // cache [B, S, KVH, D]: (b, t)
+  static constexpr bool kPaged = false;
+  long long base, stride;   // base: the offset of (b, 0, kvh)
+  __device__ __forceinline__ long long at(int t) const {
+    return base + t * stride;
+  }
+};
+struct PagedRows {   // pool [num_pages, ps, KVH, D]: (tables[b, t / ps], t % ps)
+  static constexpr bool kPaged = true;
+  long long base, stride;   // base: the offset of (0, 0, kvh)
+  const int* pages;   // shared: the chunk's pages from p0 on, clamped
+  int p0, ps;
+  __device__ __forceinline__ long long at(int t) const {
+    const int p = t / ps;
+    return base + ((long long)pages[p - p0] * ps + (t - p * ps)) * stride;
+  }
+};
+// The paged layout's page tables (the dense layout passes none)
+struct Pages {
+  const int* tables;   // [B, max_pages] int32
+  int num_pages, ps, max_pages;
+};
+// paged: entry p0 + threadIdx.x of row b's table, if the chunk has it (n
+// entries from p0); loaded at once, beside valid_len and hmap
+__device__ __forceinline__ int first_page(const Pages& pg, int b, int p0,
+                                          int n) {
+  return (int)threadIdx.x < n
+             ? __ldg(pg.tables + (size_t)b * pg.max_pages + p0 + threadIdx.x)
+             : 0;
+}
+// ... and the chunk's n entries, clamped to the pool, into shared `pages`
+// (the caller synchronises before reading them)
+__device__ __forceinline__ void stage_pages(const Pages& pg, int b, int p0,
+                                            int n, int first, int* pages) {
+  const int* row = pg.tables + (size_t)b * pg.max_pages + p0;
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    pages[i] = min(max(i == (int)threadIdx.x ? first : __ldg(row + i), 0),
+                   pg.num_pages - 1);
+}
+// the block's rows: paged, over the chunk's pages staged from p0 on
+template <typename Rows>
+__device__ __forceinline__ Rows block_rows(int b, int S, int KVH, int kvh,
+                                           int D, const int* pages, int p0,
+                                           int ps) {
+  const long long stride = (long long)KVH * D;   // elements per position
+  if constexpr (Rows::kPaged)
+    return Rows{(long long)kvh * D, stride, pages, p0, ps};
+  else
+    return Rows{(long long)b * S * stride + (long long)kvh * D, stride};
 }
 
 // After a block has written its chunk's (acc, m, l) of each q head to
@@ -209,21 +289,23 @@ __device__ void finish_chunks(const float* chunks, unsigned* ticket,
   }
 }
 
-// this (row, kv head)'s chunk 0 in the workspace: [n_split][kMaxHeads][D + 2]
+// this (row, kv head, slice)'s chunk 0 in the workspace:
+// [B][KVH * n_slice][n_split][kMaxHeads][D + 2]
 template <int D>
-__device__ __forceinline__ float* chunk_base(float* part, int b, int KVH,
-                                             int kvh) {
-  return part + ((size_t)b * KVH + kvh) * gridDim.z * kMaxHeads * (D + 2);
+__device__ __forceinline__ float* chunk_base(float* part, int b) {
+  return part +
+         ((size_t)b * gridDim.x + blockIdx.x) * gridDim.z * kMaxHeads * (D + 2);
 }
 
 // f32 inputs, on the CUDA cores: q.k summed in f64
-template <int D>
+template <int D, typename Rows>
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const int* __restrict__ valid_len,
               const int* __restrict__ hmap, float* __restrict__ out,
               float* __restrict__ part, unsigned* __restrict__ tickets,
-              int H, int KVH, int S, int chunk, float scale) {
+              Pages pg, int H, int KVH, int S, int chunk, int n_slice,
+              float scale) {
   constexpr int kN = D / 32;               // head dims per lane in p.V
   constexpr int kVec = 4;                  // elements per 16-byte K load
   // V rows loaded ahead of q.k: all 32 where they take <= 64 registers
@@ -236,27 +318,37 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
   __shared__ float m_w[kWarps][kMaxHeads], l_w[kWarps][kMaxHeads];
   __shared__ int heads[kMaxHeads];
   __shared__ int n_heads;
+  extern __shared__ int pages_f32[];   // paged: the chunk's pages
 
-  const int kvh = blockIdx.x;
+  const int kvh = blockIdx.x / n_slice;
+  const int slice = blockIdx.x % n_slice;
   const int b = blockIdx.y;
   const int chunk_id = blockIdx.z;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  const int t0_chunk = chunk_id * chunk;
+  int p0 = 0, n_pages = 0, first = 0;
+  if constexpr (Rows::kPaged) {
+    p0 = t0_chunk / pg.ps;
+    n_pages = (min(S, t0_chunk + chunk) + pg.ps - 1) / pg.ps - p0;
+    first = first_page(pg, b, p0, n_pages);
+  }
   const int my_map = threadIdx.x < H ? __ldg(hmap + threadIdx.x) : -1;
   const int n_keys = max(0, min(valid_len[b], S));
   const int n_used = max(1, (n_keys + chunk - 1) / chunk);
   if (chunk_id >= n_used) return;   // past valid_len: nothing to read
-  const int t0_chunk = chunk_id * chunk;
   const int t_end = min(n_keys, t0_chunk + chunk);
   float* out_b = out + (size_t)b * H * D;
 
-  group_heads(my_map, hmap, out_b, H, KVH, kvh, D, chunk_id == 0, heads,
-              &n_heads);
+  group_heads(my_map, hmap, out_b, H, KVH, kvh, slice, D,
+              blockIdx.x == 0 && chunk_id == 0, heads, &n_heads);
+  if constexpr (Rows::kPaged)
+    stage_pages(pg, b, p0, n_pages, first, pages_f32);
   __syncthreads();
   const int G = n_heads;
-  const long long pos_stride = (long long)KVH * D;  // elements per position
-  const long long base = (long long)b * S * pos_stride + (long long)kvh * D;
+  if (G == 0) return;   // a slice past its kv head's group: no q head
+  const Rows rows = block_rows<Rows>(b, S, KVH, kvh, D, pages_f32, p0, pg.ps);
 
   for (int i = tid; i < G * D; i += kThreads) {
     const int g = i / D, d = i % D;
@@ -278,7 +370,7 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const bool valid = t < t_end;
     const int nt = min(kTile, t_end - t0);     // warp-uniform
     // element offset of position t's K/V row (lanes past the end: unused)
-    const long long row = base + (long long)(valid ? t : t0) * pos_stride;
+    const long long row = rows.at(valid ? t : t0);
     Lane vv[kPre];
 #pragma unroll
     for (int j = 0; j < kPre; ++j) {
@@ -362,7 +454,7 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // merge the warps' states (rescaled to the block's max m), normalised
   // here when this is the row's only chunk in use
   const bool direct = n_used == 1;
-  float* chunks = chunk_base<D>(part, b, KVH, kvh);
+  float* chunks = chunk_base<D>(part, b);
   float* mine = chunks + (size_t)chunk_id * kMaxHeads * (D + 2);
   if (lane == 0) {
 #pragma unroll
@@ -421,8 +513,8 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
   if (!direct)
-    finish_chunks<float, D>(chunks, tickets + (size_t)b * KVH + kvh, n_used,
-                            G, heads, out_b);
+    finish_chunks<float, D>(chunks, tickets + (size_t)b * gridDim.x +
+                                blockIdx.x, n_used, G, heads, out_b);
 }
 
 // ------------------------------------------------------------------------
@@ -507,61 +599,86 @@ constexpr int tc_smem() {   // Q, then each warp's K and V tiles, m and l
          2 * kTcWarps * kMaxHeads * 4;
 }
 
-template <int D>
+template <int D, typename Rows>
 __global__ void __launch_bounds__(kTcThreads)
 decode_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v,
                  const int* __restrict__ valid_len,
                  const int* __restrict__ hmap, bf16* __restrict__ out,
                  float* __restrict__ part, unsigned* __restrict__ tickets,
-                 int H, int KVH, int S, int chunk, float scale) {
+                 Pages pg, int H, int KVH, int S, int chunk, int n_slice,
+                 float scale) {
   constexpr int kLD = D + 8;   // bf16 row stride: ldmatrix rows on 8 banks
   extern __shared__ float4 smem4[];
   bf16* Qs = reinterpret_cast<bf16*>(smem4);               // [16, kLD]
   bf16* KV = Qs + kMaxHeads * kLD;                         // [warp][K, V]
   float* ml = reinterpret_cast<float*>(KV + 2 * kTcWarps * kTile * kLD);
   float* sums = reinterpret_cast<float*>(KV);   // [warp][16][D], after
+  int* pages = reinterpret_cast<int*>(ml + 2 * kTcWarps * kMaxHeads);
   __shared__ int heads[kMaxHeads];
   __shared__ int n_heads;
 
-  const int kvh = blockIdx.x;
+  const int kvh = blockIdx.x / n_slice;
+  const int slice = blockIdx.x % n_slice;
   const int b = blockIdx.y;
   const int chunk_id = blockIdx.z;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  const int t0_chunk = chunk_id * chunk;
+  int p0 = 0, n_pages = 0, first = 0;
+  if constexpr (Rows::kPaged) {
+    p0 = t0_chunk / pg.ps;
+    n_pages = (min(S, t0_chunk + chunk) + pg.ps - 1) / pg.ps - p0;
+    first = first_page(pg, b, p0, n_pages);
+  }
   const int my_map = threadIdx.x < H ? __ldg(hmap + threadIdx.x) : -1;
   const int n_keys = max(0, min(valid_len[b], S));
   const int n_used = max(1, (n_keys + chunk - 1) / chunk);
   if (chunk_id >= n_used) return;   // past valid_len: nothing to read
-  const int t_end = min(n_keys, chunk_id * chunk + chunk);
+  const int t_end = min(n_keys, t0_chunk + chunk);
   bf16* out_b = out + (size_t)b * H * D;
 
   // this warp's tiles of 32 positions, K and V through cp.async; rows at or
   // past t_end are zeros
   bf16* Kw = KV + warp * 2 * kTile * kLD;
   bf16* Vw = Kw + kTile * kLD;
-  const size_t pos_stride = (size_t)KVH * D;
-  const bf16* kb = k + (size_t)b * S * pos_stride + (size_t)kvh * D;
-  const bf16* vb = v + (size_t)b * S * pos_stride + (size_t)kvh * D;
+  const Rows rows = block_rows<Rows>(b, S, KVH, kvh, D, pages, p0, pg.ps);
   auto load_tile = [&](int t0) {
+    // paged: each lane looks up one position's row, the copies shuffle it
+    long long mine = 0;
+    if constexpr (Rows::kPaged) mine = rows.at(min(t0 + lane, t_end - 1));
     for (int i = lane; i < kTile * (D / 8); i += 32) {
       const int r = i / (D / 8), c = (i % (D / 8)) * 8;
       const bool in = t0 + r < t_end;
-      const size_t at = in ? (size_t)(t0 + r) * pos_stride + c : 0;
-      cp_async16(Kw + r * kLD + c, kb + at, in);
-      cp_async16(Vw + r * kLD + c, vb + at, in);
+      long long row;
+      if constexpr (Rows::kPaged)
+        row = __shfl_sync(kFull, mine, r);
+      else
+        row = rows.at(t0 + r);
+      const size_t at = in ? row + c : 0;
+      cp_async16(Kw + r * kLD + c, k + at, in);
+      cp_async16(Vw + r * kLD + c, v + at, in);
     }
     cp_async_commit();
   };
-  int t0 = chunk_id * chunk + warp * kTile;
-  if (t0 < t_end) load_tile(t0);   // in flight while Q is staged
+  int t0 = t0_chunk + warp * kTile;
+  if constexpr (!Rows::kPaged)
+    if (t0 < t_end) load_tile(t0);   // in flight while Q is staged
 
-  group_heads(my_map, hmap, out_b, H, KVH, kvh, D, chunk_id == 0, heads,
-              &n_heads);
+  group_heads(my_map, hmap, out_b, H, KVH, kvh, slice, D,
+              blockIdx.x == 0 && chunk_id == 0, heads, &n_heads);
+  if constexpr (Rows::kPaged) stage_pages(pg, b, p0, n_pages, first, pages);
   __syncthreads();
   const int G = n_heads;
-  // Q rows: the group's q heads, zeros past G
+  if (G == 0) {   // a slice past its kv head's group: no q head to serve
+    cp_async_wait_all();
+    return;
+  }
+  if constexpr (Rows::kPaged)
+    if (t0 < t_end) load_tile(t0);   // the pages are staged; in flight
+                                     // while Q is staged
+  // Q rows: the slice's q heads, zeros past G
   for (int i = tid; i < kMaxHeads * (D / 8); i += kTcThreads) {
     const int g = i / (D / 8), c = (i % (D / 8)) * 8;
     *reinterpret_cast<uint4*>(Qs + g * kLD + c) =
@@ -676,7 +793,7 @@ decode_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   }
   __syncthreads();   // also: every warp is done with its K and V tiles
-  float* chunks = chunk_base<D>(part, b, KVH, kvh);
+  float* chunks = chunk_base<D>(part, b);
   float* mine = chunks + (size_t)chunk_id * kMaxHeads * (D + 2);
   float f[2];
 #pragma unroll
@@ -723,8 +840,8 @@ decode_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   }
   if (!direct)
-    finish_chunks<bf16, D>(chunks, tickets + (size_t)b * KVH + kvh, n_used, G,
-                           heads, out_b);
+    finish_chunks<bf16, D>(chunks, tickets + (size_t)b * gridDim.x +
+                               blockIdx.x, n_used, G, heads, out_b);
 }
 
 // positions per chunk: S / n_split rounded up to whole 32-position tiles
@@ -732,73 +849,131 @@ int chunk_len(int S, int n_split) {
   return ((S + n_split - 1) / n_split + kTile - 1) / kTile * kTile;
 }
 
+// Lets `kern` launch with `bytes` of dynamic shared memory. The limit that
+// cudaFuncSetAttribute raises holds on the current device for the rest of
+// the process, so `set` keeps, per device, the largest size set so far and
+// the CUDA call is made only for a larger one; none is made up to the
+// 48 KB that every kernel may take. One `set` per kernel instance.
+template <typename Kern>
+cudaError_t allow_smem(Kern kern, int bytes, std::atomic<int>* set) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  std::atomic<int>* mine = dev < kMaxDevices ? set + dev : nullptr;
+  if (mine != nullptr && bytes <= mine->load(std::memory_order_relaxed))
+    return cudaSuccess;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes);
+  if (e == cudaSuccess && mine != nullptr) {
+    int was = mine->load(std::memory_order_relaxed);
+    while (was < bytes && !mine->compare_exchange_weak(was, bytes)) {
+    }
+  }
+  return e;
+}
+
+// Both layouts' launches: checks what the kernels take, then one launch of
+// the dtype's body (cudaErrorInvalidValue for what they do not take)
+template <typename Rows>
+int launch(const void* q, const void* k, const void* v, const void* valid_len,
+           const void* hmap, void* out, void* part, void* tickets, Pages pg,
+           int B, int H, int KVH, int S, int D, int n_split, float scale,
+           int dtype, void* stream) {
+  if (H < 1 || H > kMaxQHeads || KVH < 1 || S < 1 || B < 1 ||
+      B > 65535 || n_split < 1 || n_split > kMaxSplit ||
+      (D != 64 && D != 128) ||
+      (n_split > 1 && (part == nullptr || tickets == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int n_slice = (H + kMaxHeads - 1) / kMaxHeads;
+  const dim3 grid(KVH * n_slice, B, n_split);
+  const int chunk = chunk_len(S, n_split);
+  // paged: the most pages a chunk spans, staged in shared memory
+  const int table = Rows::kPaged ? 4 * ((chunk + pg.ps - 1) / pg.ps + 1) : 0;
+  const int* vl = static_cast<const int*>(valid_len);
+  const int* hm = static_cast<const int*>(hmap);
+  float* pt = static_cast<float*>(part);
+  unsigned* tk = static_cast<unsigned*>(tickets);
+  // the largest dynamic shared memory set so far: [body][D == 128][device]
+  static std::atomic<int> smem_set[2][2][kMaxDevices];
+  cudaError_t e = cudaSuccess;
+  if (dtype == 1) {
+    const int smem = (D == 64 ? tc_smem<64>() : tc_smem<128>()) + table;
+    auto kern = D == 64 ? decode_kernel_tc<64, Rows> : decode_kernel_tc<128, Rows>;
+    e = allow_smem(kern, smem, smem_set[1][D == 128]);
+    if (e == cudaSuccess)
+      kern<<<grid, kTcThreads, smem, s>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+          static_cast<const bf16*>(v), vl, hm, static_cast<bf16*>(out), pt,
+          tk, pg, H, KVH, S, chunk, n_slice, scale);
+  } else if (dtype == 0) {
+    auto kern = D == 64 ? decode_kernel<64, Rows> : decode_kernel<128, Rows>;
+    e = allow_smem(kern, table, smem_set[0][D == 128]);
+    if (e == cudaSuccess)
+      kern<<<grid, kThreads, table, s>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), vl, hm, static_cast<float*>(out), pt,
+          tk, pg, H, KVH, S, chunk, n_slice, scale);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
-int decode_attention_max_heads() { return kMaxHeads; }
+int decode_attention_max_heads() { return kMaxQHeads; }
+int decode_attention_block_heads() { return kMaxHeads; }
 int decode_attention_max_split() { return kMaxSplit; }
 
 const char* decode_attention_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Pointers are device pointers; valid_len [B] and hmap [H] are int32; q and
-// out [B, H, D], k and v [B, S, KVH, D], contiguous. dtype: 0 = float32,
-// 1 = bfloat16 (q, k, v and out share it); D is 64 or 128; H <= kMaxHeads.
-// n_split: chunks per row, 1 .. kMaxSplit. With n_split > 1, `part` is an
-// f32 workspace of B * KVH * n_split * kMaxHeads * (D + 2) values and
-// `tickets` B * KVH unsigned ints that are 0 at the launch (each launch
-// leaves them 0). Launches on `stream` without synchronising and returns
+// Both entry points: pointers are device pointers; valid_len [B] and hmap
+// [H] are int32; q and out [B, H, D], contiguous. dtype: 0 = float32, 1 =
+// bfloat16 (q, the cache and out share it); D is 64 or 128; H <=
+// kMaxQHeads; B <= 65535. n_split: chunks per row, 1 .. kMaxSplit. With
+// n_split > 1, `part` is an f32 workspace of B * KVH * n_slice * n_split *
+// kMaxHeads * (D + 2) values and `tickets` B * KVH * n_slice unsigned ints
+// that are 0 at the launch (each launch leaves them 0), n_slice = ceil(H /
+// kMaxHeads). Launches on `stream` without synchronising and returns
 // cudaGetLastError() (cudaErrorInvalidValue for what the kernel does not
 // take). Launches that share `tickets` must run one after another (one
 // stream).
+
+// Row 3: k and v [B, S, KVH, D], contiguous.
 int decode_attention(const void* q, const void* k, const void* v,
                      const void* valid_len, const void* hmap, void* out,
                      void* part, void* tickets, int B, int H, int KVH, int S,
                      int D, int n_split, float scale, int dtype,
                      void* stream) {
-  if (H < 1 || H > kMaxHeads || KVH < 1 || S < 1 || B < 1 || n_split < 1 ||
-      n_split > kMaxSplit || (D != 64 && D != 128) ||
-      (n_split > 1 && (part == nullptr || tickets == nullptr)))
+  return launch<DenseRows>(q, k, v, valid_len, hmap, out, part, tickets,
+                           Pages{nullptr, 0, 0, 0}, B, H, KVH, S, D, n_split,
+                           scale, dtype, stream);
+}
+
+// Row 1: k_pool and v_pool [num_pages, page_size, KVH, D], contiguous;
+// page_tables [B, max_pages] int32 (entries are clamped to [0, num_pages));
+// the positions are S = max_pages * page_size.
+int paged_decode_attention(const void* q, const void* k_pool,
+                           const void* v_pool, const void* page_tables,
+                           const void* valid_len, const void* hmap, void* out,
+                           void* part, void* tickets, int B, int H, int KVH,
+                           int num_pages, int page_size, int max_pages, int D,
+                           int n_split, float scale, int dtype, void* stream) {
+  if (page_tables == nullptr || num_pages < 1 || page_size < 1 ||
+      max_pages < 1 || max_pages > INT_MAX / page_size)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(KVH, B, n_split);
-  const int chunk = chunk_len(S, n_split);
-  const int* vl = static_cast<const int*>(valid_len);
-  const int* hm = static_cast<const int*>(hmap);
-  float* pt = static_cast<float*>(part);
-  unsigned* tk = static_cast<unsigned*>(tickets);
-  if (dtype == 1) {
-#define DECODE_TC(DIM)                                                     \
-  {                                                                        \
-    auto kern = decode_kernel_tc<DIM>;                                     \
-    cudaError_t e = cudaFuncSetAttribute(                                  \
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, tc_smem<DIM>()); \
-    if (e != cudaSuccess) return static_cast<int>(e);                      \
-    kern<<<grid, kTcThreads, tc_smem<DIM>(), s>>>(                         \
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),          \
-        static_cast<const bf16*>(v), vl, hm, static_cast<bf16*>(out), pt,  \
-        tk, H, KVH, S, chunk, scale);                                      \
-  }
-    if (D == 64) DECODE_TC(64) else DECODE_TC(128)
-#undef DECODE_TC
-  } else if (dtype == 0) {
-    const float* qf = static_cast<const float*>(q);
-    const float* kf = static_cast<const float*>(k);
-    const float* vf = static_cast<const float*>(v);
-    float* of = static_cast<float*>(out);
-    if (D == 64)
-      decode_kernel<64><<<grid, kThreads, 0, s>>>(qf, kf, vf, vl, hm, of, pt,
-                                                  tk, H, KVH, S, chunk, scale);
-    else
-      decode_kernel<128><<<grid, kThreads, 0, s>>>(qf, kf, vf, vl, hm, of, pt,
-                                                   tk, H, KVH, S, chunk,
-                                                   scale);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch<PagedRows>(
+      q, k_pool, v_pool, valid_len, hmap, out, part, tickets,
+      Pages{static_cast<const int*>(page_tables), num_pages, page_size,
+            max_pages},
+      B, H, KVH, max_pages * page_size, D, n_split, scale, dtype, stream);
 }
 
 }  // extern "C"

@@ -18,7 +18,6 @@ from repro_torch.kernels import block_grad_norm as _bgn
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import masked_adamw as _ma
-from repro_torch.kernels import paged_decode_attention as _pda
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as _rn
 
@@ -60,7 +59,10 @@ def paged_decode_attention(q, k_pool, v_pool, page_tables, valid_len, hmap):
     pools (one layer's slice); page_tables: [B, max_pages] int32 (entries >=
     num_pages are unallocated sentinels); valid_len: [B] int32 (>= 1 on the
     serving path); hmap: [H] int32 q-head -> kv-head map -> [B, 1, H, D] in
-    the dtype of q. No head-expanded view of the pool is built."""
+    the dtype of q. No head-expanded view of the pool is built. One launch
+    of the paged decode kernel (row 1), which gives the bits of row 3 on
+    the dense view the tables gather; neither the tables nor ``valid_len``
+    nor ``hmap`` is read on the host."""
     name = "paged_decode_attention"
     b, one, h, d = q.shape
     if one != 1:
@@ -76,11 +78,11 @@ def paged_decode_attention(q, k_pool, v_pool, page_tables, valid_len, hmap):
     if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
         _fail(name, f"pools must share the dtype of q ({q.dtype}), got "
               f"{k_pool.dtype}/{v_pool.dtype}")
-    if d != _pda.HEAD_DIM or dk != d:
-        _fail(name, f"the kernel takes head dim {_pda.HEAD_DIM}, got q {d} "
+    if d not in _dec.HEAD_DIMS or dk != d:
+        _fail(name, f"the kernel takes head dim {_dec.HEAD_DIMS}, got q {d} "
               f"and pool {dk}")
-    if h > _pda.MAX_HEADS:
-        _fail(name, f"the kernel takes at most {_pda.MAX_HEADS} q heads, "
+    if h > _dec.MAX_HEADS:
+        _fail(name, f"the kernel takes at most {_dec.MAX_HEADS} q heads, "
               f"got {h}")
     if v_pool.shape != k_pool.shape:
         _fail(name, f"k/v pool shapes differ: {tuple(k_pool.shape)} vs "
@@ -100,15 +102,17 @@ def paged_decode_attention(q, k_pool, v_pool, page_tables, valid_len, hmap):
                      ("hmap", hmap)):
         if not t.is_contiguous():
             _fail(name, f"{label} must be contiguous")
-    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
-        _fail(name, "pools must be 16-byte aligned (the kernel reads "
-              "16-byte vectors)")
-    if not (0 < b <= 65535 and kvh > 0):
-        _fail(name, f"grid ({kvh}, {b}) out of range")
-    _pda.load()   # a missing build raises here, before any allocation
+    if q.data_ptr() % 16 or k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        _fail(name, "q and the pools must be 16-byte aligned (the kernel "
+              "reads 16-byte vectors)")
+    if not (0 < b <= 65535 and kvh > 0 and num_pages > 0 and ps > 0
+            and page_tables.shape[1] > 0):
+        _fail(name, f"grid out of range (B={b}, KVH={kvh}, pool "
+              f"{tuple(k_pool.shape)}, tables {tuple(page_tables.shape)})")
+    _dec.load()   # a missing build raises here, before any allocation
     out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
-    _pda.launch(q.view(b, h, d), k_pool, v_pool, page_tables, valid_len,
-                hmap, out)
+    _dec.launch_paged(q.view(b, h, d), k_pool, v_pool, page_tables,
+                      valid_len, hmap, out)
     LAUNCHES[name] += 1
     return out.view(b, 1, h, d)
 

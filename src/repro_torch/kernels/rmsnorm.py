@@ -15,13 +15,30 @@ eps) recomputed in f32 and g = dy * scale:
     dx     = r * (g - xhat * mean(g * xhat))      per row
     dscale = sum over rows of dy * xhat           per column
 
-It is bound by memory too: x and dy are read once and dx written once. The
-column sum is a deterministic two-stage reduction with no atomics:
-``_rmsnorm_bwd`` gives each program a [``ROWS``, D] tile of consecutive
-rows, loaded at once, and sums its dy * xhat over the rows in f32 into one
-row of ``partials[G, D]``;
-``_col_sums`` then adds the G partials of each column in [COL_PARTS,
-COL_BLOCK] tiles, in a fixed order.
+It is bound by memory too: x and dy are read once and dx written once
+(3 N D elements; at the training path's [4096, 896] in bf16 6.6 us at the
+H100's 3.35 TB/s). An earlier design lost most of its time to the column
+sum: 512 programs of 8 rows wrote a partial row of dscale each (1.8 MB in
+f32, written and read again), summed by 28 programs on the 132 SMs. This
+one:
+
+- the row pass (``_rmsnorm_bwd``) runs ``bwd_grid``'s programs, at most
+  ``BWD_PER_SM`` an SM, each over a contiguous run of rows in [TILE, D]
+  tiles (a tile 8 KB of x and as much of dy: 4 rows of bf16 at D 896, 2
+  of f32), 4 warps a program, so that a thread loads 16 bytes of a row.
+  Its loop is software-pipelined over 3 stages (Triton's pipeliner copies
+  the next tiles asynchronously while this one is computed), which is
+  what keeps enough bytes in flight on an SM with so few programs. Its
+  dscale partial, the sum over its rows of dy * xhat, stays in f32
+  registers across its tiles and is written once: at most 2 x 132 partial
+  rows (0.95 MB at D 896);
+- the column pass (``_col_sums``) adds the partials of ``COL_BLOCK``
+  columns a program (112 programs at D 896), all of them in one
+  [PARTS, COL_BLOCK] tile, in a fixed order.
+
+No atomics and a fixed order: on one card the same inputs give the same
+bits. A row is held whole in registers, padded to the next power of two
+(1024 for D = 896): the masked lanes load nothing.
 
 Triton is imported, and the kernel compiled, at the first launch: this
 module imports on machines without Triton (the CPU tests use the plain
@@ -35,11 +52,40 @@ import torch
 from repro_torch.kernels import _build
 
 MAX_D = 1024   # one row per program, held in registers by 4 warps
-BWD_ROWS = 8   # rows per backward program (512 programs at 4096 rows)
-COL_PARTS = 128  # partial rows per tile of the dscale column sum
-COL_BLOCK = 32   # columns per program of the dscale column sum (28 at 896)
+BWD_PER_SM = 2          # row-pass programs an SM: partial rows of dscale
+BWD_TILE_BYTES = 8192   # a row-pass tile of x (and one of dy)
+BWD_STAGES = 3          # the row pass's pipelined loop
+COL_BLOCK = 8           # columns a program of the column sum (112 at 896)
+MAX_COL_PARTS = 256     # partial rows a tile of the column sum
 tl = None       # triton.language, bound at the first launch
 _compiled = None
+_SMS: dict = {}  # device -> its SM count, read once
+
+
+def _pow2(n: int) -> int:
+    """The least power of two >= n (n >= 1)."""
+    return 1 << (n - 1).bit_length()
+
+
+def bwd_grid(n: int, d: int, sms: int, itemsize: int) -> tuple:
+    """(programs, rows a program, rows a tile) of the backward's row pass
+    over n >= 1 rows of width d on a card with ``sms`` SMs, in a dtype of
+    ``itemsize`` bytes: tiles of ``BWD_TILE_BYTES`` (a power of two of rows,
+    at most the rows there are), spread over at most ``BWD_PER_SM`` programs
+    an SM, each a contiguous run of whole tiles (the last run may be
+    short). Program p takes rows [p * rows, min(n, (p + 1) * rows))."""
+    tile = max(1, min(BWD_TILE_BYTES // (_pow2(d) * itemsize), _pow2(n)))
+    tiles = -(-n // tile)
+    rows = -(-tiles // (BWD_PER_SM * sms)) * tile
+    return -(-n // rows), rows, tile
+
+
+def _sms(device) -> int:
+    n = _SMS.get(device)
+    if n is None:
+        n = _SMS[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return n
 
 
 def _rmsnorm_fwd(x_ptr, scale_ptr, out_ptr, n_cols, eps,
@@ -58,25 +104,30 @@ def _rmsnorm_fwd(x_ptr, scale_ptr, out_ptr, n_cols, eps,
 
 
 def _rmsnorm_bwd(x_ptr, scale_ptr, dy_ptr, dx_ptr, part_ptr, n_rows, n_cols,
-                 eps, ROWS: "tl.constexpr", BLOCK: "tl.constexpr"):
-    pid = tl.program_id(0).to(tl.int64)
-    rows = pid * ROWS + tl.arange(0, ROWS)
+                 rows_per_prog, eps, TILE: "tl.constexpr",
+                 BLOCK: "tl.constexpr", STAGES: "tl.constexpr"):
+    pid = tl.program_id(0)
+    start = pid.to(tl.int64) * rows_per_prog
+    end = tl.minimum(start + rows_per_prog, n_rows)
     cols = tl.arange(0, BLOCK)
     cmask = cols < n_cols
-    mask = (rows[:, None] < n_rows) & cmask[None, :]
-    offs = rows[:, None] * n_cols + cols[None, :]
     s = tl.load(scale_ptr + cols, mask=cmask, other=0.0).to(tl.float32)
-    x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-    dy = tl.load(dy_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-    var = tl.sum(x * x, axis=1) / n_cols
-    r = 1.0 / tl.sqrt(var + eps)
-    xhat = x * r[:, None]
-    gs = dy * s[None, :]
-    proj = tl.sum(gs * xhat, axis=1) / n_cols
-    dx = r[:, None] * (gs - xhat * proj[:, None])
-    tl.store(dx_ptr + offs, dx.to(dx_ptr.dtype.element_ty), mask=mask)
-    tl.store(part_ptr + pid * n_cols + cols, tl.sum(dy * xhat, axis=0),
-             mask=cmask)
+    acc = tl.zeros([BLOCK], dtype=tl.float32)
+    for r0 in tl.range(start, end, TILE, num_stages=STAGES):
+        rows = r0 + tl.arange(0, TILE)
+        mask = (rows[:, None] < end) & cmask[None, :]
+        offs = rows[:, None] * n_cols + cols[None, :]
+        xf = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+        dyf = tl.load(dy_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+        var = tl.sum(xf * xf, axis=1) / n_cols
+        r = 1.0 / tl.sqrt(var + eps)
+        xhat = xf * r[:, None]
+        gs = dyf * s[None, :]
+        proj = tl.sum(gs * xhat, axis=1) / n_cols
+        dx = r[:, None] * (gs - xhat * proj[:, None])
+        tl.store(dx_ptr + offs, dx.to(dx_ptr.dtype.element_ty), mask=mask)
+        acc += tl.sum(dyf * xhat, axis=0)
+    tl.store(part_ptr + pid * n_cols + cols, acc, mask=cmask)
 
 
 def _col_sums(part_ptr, out_ptr, n_parts, n_cols, PARTS: "tl.constexpr",
@@ -122,15 +173,17 @@ def launch(x2d, scale, eps: float, out) -> None:
 
 
 def launch_bwd(x2d, scale, dy2d, eps: float, dx, dscale) -> None:
-    """x2d, dy2d, dx: [N, D] contiguous CUDA tensors; scale, dscale: [D].
-    Launches the row pass and the column sum on the current stream; the
-    [G, D] f32 partials are scratch allocated here."""
+    """x2d, dy2d, dx: [N, D] contiguous CUDA tensors, N >= 1; scale,
+    dscale: [D]. Launches the row pass over ``bwd_grid``'s programs and the
+    column sum on the current stream; the [programs, D] f32 partials are
+    scratch allocated here."""
     triton, _, bwd, col_sums = load()
     n, d = x2d.shape
-    n_parts = -(-n // BWD_ROWS)
-    part = torch.empty((n_parts, d), dtype=torch.float32, device=x2d.device)
-    bwd[(n_parts,)](x2d, scale, dy2d, dx, part, n, d, eps, ROWS=BWD_ROWS,
-                    BLOCK=triton.next_power_of_2(d), num_warps=8)
-    col_sums[(-(-d // COL_BLOCK),)](part, dscale, n_parts, d,
-                                    PARTS=COL_PARTS, COL_BLOCK=COL_BLOCK,
-                                    num_warps=4)
+    progs, rows, tile = bwd_grid(n, d, _sms(x2d.device), x2d.element_size())
+    part = torch.empty((progs, d), dtype=torch.float32, device=x2d.device)
+    bwd[(progs,)](x2d, scale, dy2d, dx, part, n, d, rows, eps, TILE=tile,
+                  BLOCK=triton.next_power_of_2(d), STAGES=BWD_STAGES,
+                  num_warps=4)
+    col_sums[(-(-d // COL_BLOCK),)](part, dscale, progs, d,
+                                    PARTS=min(MAX_COL_PARTS, _pow2(progs)),
+                                    COL_BLOCK=COL_BLOCK, num_warps=4)

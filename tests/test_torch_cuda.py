@@ -112,6 +112,80 @@ def test_paged_decode_head_maps(cuda_device, h, kvh):
     _close(out[:, 0], plain, torch.float32)
 
 
+# 32 q heads on 8 kv heads: llama3.2-1b's map at head dim 64, phi4-mini's
+# (24 heads padded to 32, the padded ones on kv head 7) at 128
+WIDE_HMAPS = {64: np.arange(32) // 4, 128: np.minimum(np.arange(32) // 3, 7)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ps", [4, 16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_32_heads(cuda_device, ps, d, dtype):
+    """Row 1 at 32 q heads on 8 kv heads (two blocks a kv head, the second
+    with no head to serve) at head dim 64 and 128, against the plain
+    version; bit-identical over two launches."""
+    q, k, v, tbl, vl, hm = _paged_inputs(cuda_device, dtype, ps,
+                                         [1, ps + 3, 300, 512], 512 // ps,
+                                         h=32, kvh=8, d=d,
+                                         hmap=WIDE_HMAPS[d])
+    out = ops.paged_decode_attention(q, k, v, tbl, vl, hm)
+    again = ops.paged_decode_attention(q, k, v, tbl, vl, hm)
+    assert _bits_equal(out, again)
+    _close(out[:, 0], ref.paged_decode_attention(q[:, 0], k, v, tbl, vl, hm),
+           dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hmap", [[0] * 32, [0] * 17 + [1] * 15,
+                                  [1, 0] * 16],
+                         ids=["one-kv-head", "17-15", "interleaved"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_groups_over_16_heads(cuda_device, hmap, dtype):
+    """A kv head with more than 16 q heads is served by two blocks (its
+    heads 0-15 and 16-31): rows 1 and 3 against their plain versions, and
+    bit-equal to each other on one pool."""
+    kvh = max(hmap) + 1
+    q, k, v, tbl, vl, hm = _paged_inputs(cuda_device, dtype, 16,
+                                         [1, 19, 300, 512], 32, h=32,
+                                         kvh=kvh, hmap=np.asarray(hmap))
+    paged = ops.paged_decode_attention(q, k, v, tbl, vl, hm)
+    _close(paged[:, 0], ref.paged_decode_attention(q[:, 0], k, v, tbl, vl,
+                                                   hm), dtype)
+    kd, vd = _gathered(k, tbl, q.shape[0]), _gathered(v, tbl, q.shape[0])
+    assert _bits_equal(ops.decode_attention(q, kd, vd, vl, hm), paged)
+
+
+def _gathered(pool, tbl, b):
+    """The dense [B, max_pages * page_size, KVH, D] view of a pool that its
+    tables gather (sentinels clamped), as the plain paged version reads
+    it."""
+    rows = tbl.long().clamp(max=pool.shape[0] - 1)
+    return pool[rows].reshape(b, -1, *pool.shape[2:]).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_split", [1, 2, 3, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_every_split(cuda_device, dtype, n_split):
+    """Row 1 forced to each split 1-4 at 32 rows of 2048 positions (page
+    16): against the plain version and bit-identical over two launches."""
+    from repro_torch.kernels import decode_attention as dec
+    q, k, v, tbl, vl, hm = _paged_inputs(cuda_device, dtype, 16,
+                                         [2048] * 31 + [1000], 128)
+    outs = []
+    for _ in range(2):
+        out = torch.full((32, 16, 64), float("nan"), dtype=dtype,
+                         device=cuda_device)
+        dec.launch_paged(q.view(32, 16, 64), k, v, tbl, vl, hm, out,
+                         n_split=n_split)
+        outs.append(out)
+    torch.cuda.synchronize()
+    assert _bits_equal(outs[0], outs[1])
+    _close(outs[0], ref.paged_decode_attention(q[:, 0], k, v, tbl, vl, hm),
+           dtype)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [1, 4, 33, 4096])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -136,9 +210,13 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         ops.paged_decode_attention(q, k, v, tbl.long(), vl, hm)
     with pytest.raises(ValueError, match="dtype"):
         ops.paged_decode_attention(q.bfloat16(), k, v, tbl, vl, hm)
-    with pytest.raises(ValueError, match="at most 16 q heads"):
-        ops.paged_decode_attention(torch.cat([q, q], 2), k, v, tbl, vl,
-                                   torch.cat([hm, hm]))
+    with pytest.raises(ValueError, match="at most 32 q heads"):
+        ops.paged_decode_attention(torch.cat([q] * 4, 2), k, v, tbl, vl,
+                                   torch.cat([hm] * 4))
+    with pytest.raises(ValueError, match="head dim"):
+        ops.paged_decode_attention(q[..., :32].contiguous(),
+                                   k[..., :32].contiguous(),
+                                   v[..., :32].contiguous(), tbl, vl, hm)
     with pytest.raises(ValueError, match="contiguous"):
         ops.rmsnorm(torch.ones(8, 4, device=cuda_device).T,
                     torch.ones(8, device=cuda_device))
@@ -214,7 +292,7 @@ def test_masked_adamw_matches_plain(cuda_device, shape, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 33, 4096])
+@pytest.mark.parametrize("n", [1, 4, 33, 4096, 8192])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rmsnorm_bwd_matches_plain(cuda_device, n, dtype):
     """x with nonzero column means and dy = 1 + N(0, 1), so dx and dscale
@@ -743,18 +821,15 @@ def test_dense_decode_zeros_heads_outside_the_map(cuda_device, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_dense_decode_matches_paged_on_gathered_view(cuda_device, dtype):
     """Row 3 on the dense view gathered from a pool through its tables
-    against row 1 on the pool (f32 at the 2e-5 of
-    tests/test_kernels.py::test_matches_dense_kernel_on_gathered_view)."""
+    gives the bits of row 1 on the pool (one body, the same split; the
+    tolerance of tests/test_kernels.py::
+    test_matches_dense_kernel_on_gathered_view, tightened to equality)."""
     q, k, v, tbl, vl, hm = _paged_inputs(cuda_device, dtype, 16,
                                          [1, 19, 300, 512], 32)
     paged = ops.paged_decode_attention(q, k, v, tbl, vl, hm)
-    rows = tbl.long().clamp(max=k.shape[0] - 1)
-    kd, vd = (p[rows].reshape(q.shape[0], -1, *p.shape[2:]).contiguous()
-              for p in (k, v))
+    kd, vd = _gathered(k, tbl, q.shape[0]), _gathered(v, tbl, q.shape[0])
     dense = ops.decode_attention(q, kd, vd, vl, hm)
-    tol = (dict(rtol=2e-5, atol=2e-5) if dtype == torch.float32
-           else TOL[dtype])
-    torch.testing.assert_close(dense.float(), paged.float(), **tol)
+    assert _bits_equal(dense, paged)
 
 
 @pytest.mark.cuda

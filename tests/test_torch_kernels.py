@@ -11,6 +11,8 @@ JAX package's ``norms.apply``. The CUDA/Triton kernels themselves are
 compared with the plain versions on the card by ``tests/test_torch_cuda.py``
 and ``chip_smoke.py``.
 """
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import ml_dtypes
@@ -118,6 +120,70 @@ def test_paged_decode_qwen_heads_vs_jax(dtype):
     _assert_strong(oracle, dtype)
     np.testing.assert_allclose(_as_np(out), _as_np(oracle), **_tol(dtype))
     np.testing.assert_allclose(_as_np(out), _as_np(pallas), **_tol(dtype))
+
+
+# the 32-head layouts rows 1 and 3 take: llama3.2-1b (32 q / 8 kv heads, D
+# 64) and phi4-mini (24 q heads padded to 32, the padded ones clamped onto
+# kv head 7, D 128)
+WIDE_HMAPS = {64: np.arange(32) // 4, 128: np.minimum(np.arange(32) // 3, 7)}
+
+
+@pytest.mark.parametrize("ps", [4, 16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_decode_32_heads_vs_jax(ps, d, dtype):
+    """32 q heads on 8 kv heads at head dim 64 and 128: the port's plain
+    version against the JAX oracle and the Pallas kernel (interpret mode);
+    valid_len one position, a partial page and the full table."""
+    maxp = 48 // ps
+    case = _paged_case(9, 3, 32, 8, d, ps, maxp, 3 * maxp + 2,
+                       [1, ps + 3, maxp * ps], WIDE_HMAPS[d], dtype)
+    out, oracle, pallas = _run_paged(case)
+    assert out.dtype == TORCH[dtype] and out.shape == (3, 32, d)
+    _assert_strong(oracle, dtype)
+    np.testing.assert_allclose(_as_np(out), _as_np(oracle), **_tol(dtype))
+    np.testing.assert_allclose(_as_np(out), _as_np(pallas), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ps, maxp", [(16, 32), (16, 128), (4, 3), (1, 700)])
+def test_paged_launch_splits_as_the_gathered_view(monkeypatch, dtype, ps,
+                                                  maxp):
+    """Row 1's launcher splits a row's positions as row 3's splits the dense
+    view its tables gather (S = max_pages * page_size), so the two give the
+    same bits: the split and the workspace each passes to its kernel,
+    recorded from stand-ins for the library's entry points."""
+    from repro_torch.kernels import decode_attention as dec
+    calls = {}
+
+    def entry(name, n_ptrs):
+        def fn(*args):
+            calls[name] = args[n_ptrs:]
+            return 0
+        return fn
+    monkeypatch.setattr(dec, "load", lambda: (
+        entry("dense", 8), entry("paged", 9), None))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: type("S", (), {"cuda_stream": 0}))
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    b, h, kvh, d = 2, 16, 2, 64
+    q, out = torch.zeros(b, h, d, dtype=dtype), torch.zeros(b, h, d,
+                                                             dtype=dtype)
+    pool = torch.zeros(5, ps, kvh, d, dtype=dtype)
+    tbl = torch.zeros(b, maxp, dtype=torch.int32)
+    vl, hm = torch.ones(b, dtype=torch.int32), torch.zeros(h,
+                                                           dtype=torch.int32)
+    dec.launch_paged(q, pool, pool, tbl, vl, hm, out)
+    view = torch.zeros(b, maxp * ps, kvh, d, dtype=dtype)
+    dec.launch(q, view, view, vl, hm, out)
+    # paged: B, H, KVH, num_pages, ps, max_pages, D, n_split; dense: B, H,
+    # KVH, S, D, n_split
+    n = dec.decode_splits(dtype, maxp * ps)
+    assert calls["paged"][7] == calls["dense"][5] == n
+    assert calls["paged"][:3] == calls["dense"][:3] == (b, h, kvh)
+    assert calls["paged"][6] == calls["dense"][4] == d
+    assert calls["paged"][8:] == calls["dense"][6:]   # scale, dtype, stream
 
 
 # 5 q heads on 2 kv heads, the last one a padded head clamped onto kv head 1
@@ -346,3 +412,24 @@ def test_rmsnorm_bwd_vs_jax(shape, dtype):
     # dscale sums over rows: compare relative to its size
     np.testing.assert_allclose(_as_np(ds), _as_np(jds), rtol=_tol(dtype)[
         "rtol"], atol=_tol(dtype)["atol"] * np.abs(_as_np(jds)).max())
+
+
+@pytest.mark.parametrize("sms", [1, 8, 132])
+@pytest.mark.parametrize("n, d", [(1, 896), (4, 896), (33, 64), (4096, 896),
+                                  (8192, 896), (4097, 1024), (100000, 896)])
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_rmsnorm_bwd_grid_covers_every_row_once(n, d, sms, itemsize):
+    """Row 2b's row pass: at most 2 programs (partial rows of dscale) an
+    SM, each a contiguous run of whole power-of-two tiles, every row in
+    exactly one run, no run empty."""
+    from repro_torch.kernels import rmsnorm as rn
+    progs, rows, tile = rn.bwd_grid(n, d, sms, itemsize)
+    assert 1 <= progs <= 2 * sms
+    assert tile & (tile - 1) == 0 and rows % tile == 0
+    assert tile * rn._pow2(d) * itemsize <= rn.BWD_TILE_BYTES or tile == 1
+    seen = np.zeros(n, np.int64)
+    for p in range(progs):
+        lo, hi = p * rows, min(n, (p + 1) * rows)
+        assert lo < hi
+        seen[lo:hi] += 1
+    assert (seen == 1).all()

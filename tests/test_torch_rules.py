@@ -26,7 +26,6 @@ from repro_torch.kernels import block_grad_norm as bgn
 from repro_torch.kernels import decode_attention as dec
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import masked_adamw as madamw
-from repro_torch.kernels import paged_decode_attention as pda
 from repro_torch.kernels import rmsnorm as rn
 from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import train as launch_train
@@ -246,7 +245,6 @@ def missing_builds(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "nvcc", no_nvcc)
     monkeypatch.setattr(_build, "_LIBS", {})
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
-    monkeypatch.setattr(pda, "_fn", None)
     monkeypatch.setattr(dec, "_fn", None)
     monkeypatch.setattr(fa, "_fn", None)
     for mod in (rn, bgn, madamw):
@@ -277,18 +275,18 @@ def test_wrappers_raise_for_cuda_tensors_without_a_build(missing_builds):
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
-    q = _fake(torch.zeros(2, 1, 16, 32))   # head dim 32: kernel takes 64
+    q = _fake(torch.zeros(2, 1, 16, 32))   # head dim 32: kernel takes 64, 128
     pool = _fake(torch.zeros(8, 4, 2, 32))
     i32 = [_fake(torch.zeros(2, 4, dtype=torch.int32)),
            _fake(torch.ones(2, dtype=torch.int32)),
            _fake(torch.zeros(16, dtype=torch.int32))]
     with pytest.raises(ValueError, match="head dim"):
         ops.paged_decode_attention(q, pool, pool, *i32)
-    q32 = _fake(torch.zeros(2, 1, 32, 64))   # 32 q heads: kernel takes 16
+    q64 = _fake(torch.zeros(2, 1, 64, 64))   # 64 q heads: kernel takes 32
     pool64 = _fake(torch.zeros(8, 4, 2, 64))
-    with pytest.raises(ValueError, match="at most 16 q heads"):
-        ops.paged_decode_attention(q32, pool64, pool64, *i32[:2],
-                                   _fake(torch.zeros(32, dtype=torch.int32)))
+    with pytest.raises(ValueError, match="at most 32 q heads"):
+        ops.paged_decode_attention(q64, pool64, pool64, *i32[:2],
+                                   _fake(torch.zeros(64, dtype=torch.int32)))
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         ops.rmsnorm(_fake(torch.zeros(3, 8, dtype=torch.float16)),
                     _fake(torch.ones(8, dtype=torch.float16)))
@@ -446,7 +444,7 @@ def test_dense_decode_has_one_plain_version(hmap, dtype):
 
 def test_dense_decode_wrapper_raises_and_rejects(missing_builds):
     """Row 3 on CUDA tensors: no build raises and counts nothing; int64
-    operands, a head dim other than 64 or 128, more than 16 q heads, a
+    operands, a head dim other than 64 or 128, more than 32 q heads, a
     softcap and a scalar valid_len are refused by name."""
     before = dict(ops.LAUNCHES)
     q, kv = _fake(torch.zeros(2, 1, 16, 64)), _fake(torch.zeros(2, 8, 2, 64))
@@ -463,9 +461,9 @@ def test_dense_decode_wrapper_raises_and_rejects(missing_builds):
                                                                    32))
     with pytest.raises(ValueError, match="head dim"):
         ops.decode_attention(q32, kv32, kv32, vl, hm)
-    with pytest.raises(ValueError, match="at most 16 q heads"):
-        ops.decode_attention(_fake(torch.zeros(2, 1, 32, 64)), kv, kv, vl,
-                             _fake(torch.zeros(32, dtype=torch.int32)))
+    with pytest.raises(ValueError, match="at most 32 q heads"):
+        ops.decode_attention(_fake(torch.zeros(2, 1, 64, 64)), kv, kv, vl,
+                             _fake(torch.zeros(64, dtype=torch.int32)))
     with pytest.raises(ValueError, match="softcap"):
         ops.decode_attention(q, kv, kv, vl, hm, softcap=30.0)
     with pytest.raises(ValueError, match="softcap"):   # on the CPU as well

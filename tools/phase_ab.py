@@ -3,18 +3,31 @@ one, alternated, so that their numbers come from the same card in one run.
 
     python3 tools/phase_ab.py --phase decode OTHER [OTHER ...] [--rounds 2]
 
-``--phase`` is ``flash`` (phase 12), ``decode`` (phase 15) or ``eval``
+``--phase`` is ``kernels`` (phase 3: rows 1 and 2), ``serve`` (phase 4,
+serving at full width on the paged layout), ``train_kernels`` (phase 6:
+rows 7, 8 and 2b), ``flash`` (phase 12), ``decode`` (phase 15) or ``eval``
 (phase 16, the greedy eval at full width). For ``eval`` this checkout's
 phase 7 trains once first and its params, saved under ``build/phase_ab/``,
 are the ones every checkout evaluates. Each round runs the phase of every
 OTHER and then of this checkout, each in a process of its own that first
 builds that checkout's kernels. Each run's output goes to a log under
 ``--logs`` (default ``build/phase_ab/``); one JSON line a run follows it on
-stdout: the
-kernel rows of the phase's summary table, or, for ``eval``, tok/s and the
+stdout: the kernel rows of the phase's summary table (for ``decode`` also
+a digest of row 3's output bits at the eval shape, bf16 and f32, from that
+checkout's kernel on the same inputs), or, for ``eval``, tok/s and the
 seconds of its two eval calls and the device time and idle share of its
-profiled engine steps. Needs one CUDA card; run it from the root of this
-checkout.
+profiled engine steps.
+
+``serve`` is paired instead, since the host's speed drifts between
+processes: one process a checkout runs phase 4 (its checks and profile)
+and then waits; each round then times one more serving run of each, in
+turn (ABBA order), so that neighbouring runs of two checkouts see the same
+host. At the end each measures the host time a call of
+``ops.paged_decode_attention`` takes to enqueue. One JSON line a checkout
+(phase 4's tok/s, the rounds' tok/s and their median, that host time, and
+the wall time, device time, idle share and paged decode device time of the
+profiled run) and one of this checkout's tok/s over each OTHER's, round by
+round, follow. Needs one CUDA card; run it from the root of this checkout.
 """
 from __future__ import annotations
 
@@ -25,13 +38,17 @@ import json
 import re
 import subprocess
 import sys
+import time
 import traceback
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 WORK = ROOT / "build" / "phase_ab"
-PHASES = {"flash": "phase_flash_kernels", "decode": "phase_decode_kernel",
+PHASES = {"kernels": "phase_kernels", "serve": "phase_serving",
+          "train_kernels": "phase_train_kernels",
+          "flash": "phase_flash_kernels", "decode": "phase_decode_kernel",
           "eval": "phase_eval"}
+HOST_BATCHES, HOST_CALLS = 20, 200   # paged decode calls timed on the host
 
 
 def _chip_smoke(checkout: Path):
@@ -63,6 +80,8 @@ def _run_phase(checkout: Path, phase: str, params: Path) -> None:
         training = cs.phase_training(torch, ops, cfg, Trainer)
         torch.save({"eval_params": training["eval_params"],
                     "task": training["task"]}, params)
+    elif phase == "serve":
+        _serve(cs, torch, ops, cfg)
     elif phase == "eval":
         from repro_torch.train import evaluate
         cs.phase_eval(torch, ops, cfg, evaluate,
@@ -72,6 +91,63 @@ def _run_phase(checkout: Path, phase: str, params: Path) -> None:
         mods = {"_dec": _dec, "_fa": _fa}
         fn(torch, ops, ref, *(mods[p] for p in inspect.signature(fn)
                               .parameters if p in mods), cs.Timer(torch))
+        if phase == "decode":
+            _row3_bits(cs, torch, ops)
+
+
+def _serve(cs, torch, ops, cfg) -> None:
+    """Phase 4, then one more run of its requests on params made from the
+    same seed for each line read from stdin, each timed as phase 4 times
+    its run; at the end of stdin, the paged decode's host time a call."""
+    from repro_torch.models import lm
+    from repro_torch.serve import Request, ServeConfig, ServeEngine
+    cs.phase_serving(torch, ops, lm, cfg, ServeEngine, ServeConfig, Request)
+    params = lm.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                     device="cuda")
+    print("ready", flush=True)
+    for i, _ in enumerate(sys.stdin):
+        _, res, dt = cs._serve_once(torch, cfg, params, ServeEngine,
+                                    ServeConfig, Request)
+        gen = sum(len(t) for t in res.values())
+        print(f"serve run {i}: {gen} tokens in {dt:.3f} s = "
+              f"{gen / dt:.1f} tok/s", flush=True)
+    _paged_host_us(cs, torch, ops)
+
+
+def _paged_host_us(cs, torch, ops) -> None:
+    """Host microseconds that a call of ``ops.paged_decode_attention`` at
+    phase 3's serving shape (bf16, B 4, valid_len 1/17/300/512) takes to
+    enqueue: ``HOST_BATCHES`` batches of ``HOST_CALLS`` calls, each made
+    with no sync and followed by one; the least and the median batch. The
+    serving path is host-bound, so this is the launcher's share of it."""
+    args = cs._paged_inputs(torch, "bfloat16", 4, [1, 17, 300, 512])
+    per_call = []
+    for _ in range(HOST_BATCHES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HOST_CALLS):
+            ops.paged_decode_attention(*args)
+        per_call.append((time.perf_counter() - t0) / HOST_CALLS * 1e6)
+        torch.cuda.synchronize()
+    per_call.sort()
+    print(f"paged decode host time: least {per_call[0]:.2f} us, median "
+          f"{per_call[len(per_call) // 2]:.2f} us a call ({HOST_BATCHES} x "
+          f"{HOST_CALLS} calls)")
+
+
+def _row3_bits(cs, torch, ops) -> None:
+    """A digest of row 3's output bits at the eval shape, bf16 and f32, on
+    inputs that every checkout's ``_decode_case`` makes alike."""
+    import hashlib
+    bits = {}
+    for dtype in ("bfloat16", "float32"):
+        q, k, v, vl, hm = cs._decode_case(torch, dtype, 16, 512,
+                                          cs.DECODE_EVAL_VL)
+        out = ops.decode_attention(q, k, v, vl, hm)
+        raw = out.view({"bfloat16": torch.int16,
+                        "float32": torch.int32}[dtype]).cpu().numpy()
+        bits[dtype] = hashlib.sha256(raw.tobytes()).hexdigest()[:16]
+    print(f"row 3 bits: {json.dumps(bits)}")
 
 
 def _worker(checkout: Path, phase: str, params: Path, log: Path) -> int:
@@ -82,12 +158,93 @@ def _worker(checkout: Path, phase: str, params: Path, log: Path) -> int:
             cwd=ROOT).returncode
 
 
+def _serve_summary(text: str) -> dict:
+    run = re.search(r"^  run: .*= ([\d.]+) tok/s", text, re.M)
+    prof = re.search(r"profile \(one more run, profiler on\): wall ([\d.]+) "
+                     r"ms, device kernels ([\d.]+) ms, device idle share "
+                     r"([\d.]+)", text)
+    # the profile's top kernels: the paged decode is the one named *decode*
+    decode = [float(m) for m in re.findall(
+        r"^ +([\d.]+) ms +\d+x +.*decode_kernel", text, re.M)]
+    runs = [float(m) for m in re.findall(r"^serve run \d+: .*= ([\d.]+) "
+                                         r"tok/s", text, re.M)]
+    host = re.search(r"^paged decode host time: least ([\d.]+) us, median "
+                     r"([\d.]+) us", text, re.M)
+    return {"tok_s": float(run[1]) if run else None, "runs_tok_s": runs,
+            "median_tok_s": sorted(runs)[len(runs) // 2] if runs else None,
+            "host_us": [float(host[1]), float(host[2])] if host else None,
+            "profile_wall_ms": float(prof[1]) if prof else None,
+            "device_ms": float(prof[2]) if prof else None,
+            "idle_share": float(prof[3]) if prof else None,
+            "row1_ms": sum(decode) if decode else None}
+
+def _serve_paired(checkouts: list, rounds: int, logs: Path) -> int:
+    """``serve``: a waiting worker a checkout, one timed run of each a
+    round in ABBA order; a JSON line a checkout and one of the ratios."""
+    labels = ["this" if c == ROOT else c.name for c in checkouts]
+    work = {}
+    for label, c in zip(labels, checkouts):
+        proc = subprocess.Popen(
+            [sys.executable, __file__, "--worker", str(c), "serve", "-"],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, cwd=ROOT)
+        work[label] = (proc, open(logs / f"serve_{label}.log", "w"))
+
+    def until(label: str, start: str):
+        """Copies the worker's output to its log up to and including a
+        line that starts with ``start`` and returns that line; None if the
+        worker's output ended first."""
+        proc, log = work[label]
+        for line in proc.stdout:
+            log.write(line)
+            if line.startswith(start):
+                return line
+        return None
+
+    ok = all([until(label, "ready") for label in labels])
+    tok_s = {label: [] for label in labels}
+    for i in range(rounds):
+        for label in labels if i % 2 == 0 else labels[::-1]:
+            if not ok:
+                break
+            proc = work[label][0]
+            proc.stdin.write("run\n")
+            proc.stdin.flush()
+            line = until(label, "serve run")
+            ok = line is not None
+            if ok:
+                tok_s[label].append(float(re.search(r"= ([\d.]+) tok/s",
+                                                    line)[1]))
+    rcs = []
+    for label, (proc, log) in work.items():
+        if ok:
+            proc.stdin.close()
+            until(label, "\0")   # the rest of its output, to the log
+        else:
+            proc.kill()
+        rcs.append(proc.wait())
+        log.close()
+        text = (logs / f"serve_{label}.log").read_text()
+        print(json.dumps({"checkout": label, "rc": rcs[-1],
+                          **_serve_summary(text)}), flush=True)
+    if ok:
+        print(json.dumps({"this_over": {
+            label: [round(a / b, 4) for a, b in zip(tok_s["this"], runs)]
+            for label, runs in tok_s.items() if label != "this"}}),
+              flush=True)
+    return max(rcs) if ok else 1
+
+
 def _summary(phase: str, text: str) -> dict:
     if phase != "eval":
-        # the summary table's kernel rows, and phase 15's times by split
+        # the summary tables' kernel rows, phase 15's times by split and
+        # row 1's by split
+        bits = re.search(r"^row 3 bits: (.*)$", text, re.M)
         return {"rows": [" ".join(m.split()) for m in re.findall(
-            r"^ +(?:(?:decode|flash)_attention\w* .*kernel [\d.]+"
-            r"|(?:bfloat16|float32) +\w+ +B=\d+ +S=).*$", text, re.M)]}
+            r"^ +(?:[a-z_]+ .*kernel [\d.]+ .*plain"
+            r"|(?:bfloat16|float32) +\w+ +B=\d+ +S="
+            r"|row 1 .*splits 1-4).*$", text, re.M)],
+                "row3_bits": json.loads(bits[1]) if bits else None}
     first = re.search(r"generated in ([\d.]+) s = ([\d.]+) tok/s", text)
     second = re.search(r"second call: .*?, ([\d.]+) s = ([\d.]+) tok/s",
                        text)
@@ -128,6 +285,8 @@ def main() -> int:
         if rc:
             return rc
     checkouts = [p.resolve() for p in a.others] + [ROOT]
+    if a.phase == "serve":
+        return _serve_paired(checkouts, a.rounds, a.logs)
     rcs = []
     for i in range(a.rounds):
         for checkout in checkouts:
