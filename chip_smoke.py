@@ -39,8 +39,11 @@ Phases, each of which makes the run exit non-zero if it fails:
    and ln1 [24, 896] with 5 of 24 rows selected, and the RMSNorm backward
    (Triton) on [4, 896] and [8*512, 896]; rows with sel = 0 come back
    bit-identical, two launches of the norms and of the RMSNorm backward
-   give the same bits; times as in phase 3, beside
-   each kernel's bytes bound and a library yardstick where one exists;
+   give the same bits; the RMSNorm backward's dx-only mode (a frozen
+   layer's norm) at both shapes: one launch, dx within the tolerance of
+   its plain version and the full mode's dx bit for bit; times as in phase
+   3, beside each kernel's bytes bound and a library yardstick where one
+   exists;
 7. training at full width: the port's ``Trainer`` on qwen2.5-0.5b in bf16,
    adagradselect, dense residency, global batch 8 x 512 tokens, 10 steps;
    median step time after 2 warm-up steps, tokens/s, peak device memory,
@@ -132,7 +135,29 @@ Phases, each of which makes the run exit non-zero if it fails:
    nothing else but the RMSNorm forward), peak device memory; a second call
    gives the same accuracy and tokens; each call under 48 s; two engine
    steps (decode chunks) of the second call under the profiler, with the
-   device's idle share.
+   device's idle share;
+17. gated weight gradients at full width (``gate_weight_grads=True``):
+   phase 7's run, then phase 10's async banked run, with the gate; launches
+   of every kernel in the counted steps equal to the counts reckoned from
+   each step's mask (the RMSNorm backward's full mode once per norm of a
+   selected layer and the final norm, its dx-only mode once per norm of a
+   frozen layer), k = 5 blocks a step, finite losses, the AdamW counts
+   equal to the summed masks, peak device memory beside the ungated run's;
+   one more step whose gradients are seen by the AdamW: every leaf's rows
+   of the frozen layers all zero, the selected layers' nonzero; for the
+   dense run 2 profiled steps with device time, idle share and the
+   matrix-product launches;
+18. gated adagradselect, ungated adagradselect and full fine-tuning in 3
+   alternating rounds of 8-step windows: median step times, the port's
+   kernels a step, then 2 profiled steps of each (device time, launches,
+   matrix products, idle share) and the gated/full step-time ratio;
+19. gated consistency in f32 (TF32 off), 2 layers at full width, batch 2
+   x 64, 3 steps: gated topk_grad (k = 2 of 4 blocks: layer 1 frozen) on
+   the card against the CPU from one state, with equal masks, losses
+   within 1e-4 relative, each parameter leaf's update within 1e-2 of the
+   CPU's (relative L2; a leaf the CPU left unchanged stays so) and the
+   launches of one selected and one frozen layer a step; gated full equal
+   to ungated full on the card bit for bit.
 
 Then it prints the kernel summary as one JSON line and, last, the device
 line ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
@@ -181,6 +206,7 @@ FLASH_PARTS = {"flash_fwd_kernel": ("flash_fwd_kernel",),
                "flash_dkv_kernel": ("flash_dkv_kernel",
                                     "flash_dkv_sum_kernel")}
 PACKED_UPDATE_RTOL = 0.1  # phase 14(b): of each leaf's largest CPU update
+MATMUL_WORDS = ("gemm", "nvjet", "xmma", "cutlass", "matmul")
 DECODE_EVAL_VL = (1, 9, 300, 512) * 4  # phase 15's eval shape: 16 rows
 EVAL = dict(num_problems=32, batch_size=16)   # phase 16
 EVAL_CALL_S = 48.0        # phase 16: the most one eval call may take
@@ -754,9 +780,26 @@ def phase_train_kernels(torch, ops, ref, timer) -> dict:
             err = _check_close(torch, dx, pdx, dtype, f"rmsnorm_bwd dx [{n}]")
             err = max(err, _check_close(torch, ds[None], pds[None], dtype,
                                         f"rmsnorm_bwd dscale [{n}]"))
+            # the dx-only mode (a frozen layer's norm): one launch, the
+            # plain dx-only version's dx within the tolerance, the full
+            # mode's dx bit for bit
+            before = dict(ops.LAUNCHES)
+            dxo, dso = ops.rmsnorm_bwd(dy, x, s, 1e-6, with_dscale=False)
+            torch.cuda.synchronize()
+            check({k: ops.LAUNCHES[k] - before[k] for k in before} == {
+                k: int(k == "rmsnorm_bwd_dx") for k in before},
+                f"rmsnorm_bwd dx-only [{n}] {dtype}: not one rmsnorm_bwd_dx "
+                f"launch")
+            check(dso is None and _bits_equal(torch, dxo, dx),
+                  f"rmsnorm_bwd dx-only [{n}] {dtype}: dx differs from the "
+                  f"full mode's bits")
+            pdxo, _ = ref.rmsnorm_bwd(dy, x, s, 1e-6, with_dscale=False)
+            err_dx = _check_close(torch, dxo, pdxo, dtype,
+                                  f"rmsnorm_bwd dx-only [{n}]")
             print(f"  rmsnorm_bwd [{n}, {d}] {dtype}: dx and dscale within "
                   f"the tolerance (max |err| {err:.2e}), bit-identical over "
-                  f"two launches")
+                  f"two launches; dx-only mode within the tolerance (max "
+                  f"|err| {err_dx:.2e}), one launch, the full mode's dx bits")
         xl = x.clone().requires_grad_()
         sl = s.clone().requires_grad_()
         yl = F.rms_norm(xl, (d,), weight=sl, eps=1e-6)
@@ -772,8 +815,24 @@ def phase_train_kernels(torch, ops, ref, timer) -> dict:
                        spin=LONG_SPIN_CYCLES),
                    bound_ms=bms, bound_by=by)
         rows.append(row)
+        # dx-only: reads x and dy, writes dx (and the scale once)
+        yo = F.rms_norm(xl, (d,), weight=s, eps=1e-6)
+        bms, by = bound_ms(3 * n * d * es + d * es, 8 * n * d, "float32")
+        row_dx = dict(kernel="rmsnorm_bwd_dx", case=f"N={n}", dtype=dtype,
+                      shape=f"[{n}, {d}]", max_abs_err=err_dx,
+                      tol=TOL[dtype],
+                      ms=timer.ms(lambda: ops.rmsnorm_bwd(
+                          dy, x, s, 1e-6, with_dscale=False)),
+                      plain_ms=timer.ms(lambda: ref.rmsnorm_bwd(
+                          dy, x, s, 1e-6, with_dscale=False)),
+                      library_ms=timer.ms(lambda: torch.autograd.grad(
+                          yo, (xl,), dy, retain_graph=True),
+                          spin=LONG_SPIN_CYCLES),
+                      bound_ms=bms, bound_by=by)
+        rows.append(row_dx)
         if dtype == "bfloat16":
             main["rmsnorm_bwd"] = row
+            main["rmsnorm_bwd_dx"] = row_dx
     print("training kernels vs plain versions (CUDA events, L2 flushed, ms "
           "per call):")
     for r in rows:
@@ -784,8 +843,9 @@ def phase_train_kernels(torch, ops, ref, timer) -> dict:
               f"library {lib}  bound {r['bound_ms']:.5f} ({r['bound_by']})"
               f"  {r['shape']}")
     print("  yardsticks: torch.linalg.vector_norm(g, dim=1, dtype=f32)**2 "
-          "(row 7), the autograd of F.rms_norm (2b); masked_adamw has none "
-          "(no single call takes per-row masks and counts)")
+          "(row 7), the autograd of F.rms_norm (2b; dx-only: with respect "
+          "to x alone); masked_adamw has none (no single call takes "
+          "per-row masks and counts)")
     return main
 
 
@@ -810,6 +870,25 @@ def _flash_per_step(nl: int) -> dict:
     once."""
     return {"flash_attention_fwd": 2 * nl, "flash_attention_bwd_dq": nl,
             "flash_attention_bwd_dkv": nl}
+
+
+def _train_launches(nl: int, adamw: str = "masked_adamw",
+                    sel_layers: int | None = None) -> dict:
+    """Kernel launches of one training step of nl layers: the forward's
+    norms and, under ``remat="full"``, each layer's two norms again; the
+    backward's norms, in the full mode once per norm of a layer that gets
+    weight gradients (``sel_layers`` of them under the gate, else all) and
+    the final norm, in the dx-only mode once per norm of a frozen layer;
+    one block norm and one AdamW launch (``adamw``: dense or banked) a
+    stacked leaf (12); the flash kernels."""
+    sel = nl if sel_layers is None else sel_layers
+    want = {"paged_decode_attention": 0, "decode_attention": 0,
+            "block_grad_sq_norms": 12, "masked_adamw": 0,
+            "banked_masked_adamw": 0, "rmsnorm": 4 * nl + 1,
+            "rmsnorm_bwd": 2 * sel + 1, "rmsnorm_bwd_dx": 2 * (nl - sel),
+            **_flash_per_step(nl)}
+    want[adamw] = 12
+    return want
 
 
 def phase_training(torch, ops, cfg, Trainer) -> dict:
@@ -844,13 +923,7 @@ def phase_training(torch, ops, cfg, Trainer) -> dict:
           f"{mask_sum.tolist()}")
     per_step = {name: n / steps for name, n in launches.items()}
     nl = cfg.num_layers
-    want = {"paged_decode_attention": 0, "decode_attention": 0,
-            "block_grad_sq_norms": 12, "masked_adamw": 12,
-            "banked_masked_adamw": 0,
-            # forward, and the recompute of each layer's two norms
-            # (remat="full"), then the backward of every norm
-            "rmsnorm": 2 * nl + 1 + 2 * nl, "rmsnorm_bwd": 2 * nl + 1,
-            **_flash_per_step(nl)}
+    want = _train_launches(nl)
     check(per_step == want, f"launches per step {per_step} != the path's "
           f"{want}")
     times = log.step_times[warm:]
@@ -874,26 +947,43 @@ def phase_training(torch, ops, cfg, Trainer) -> dict:
             "task": tr.data.cfg}
 
 
-def _profile_training(torch, tr) -> None:
+def _is_matmul(key: str) -> bool:
+    """A library matrix-product kernel, by its name (cuBLAS / cuBLASLt /
+    CUTLASS on Hopper)."""
+    k = key.lower()
+    return any(w in k for w in MATMUL_WORDS)
+
+
+def _profile_training(torch, tr, steps=2, top=15) -> dict:
+    """Profiles ``steps`` more steps; prints and returns their device time,
+    launches, matrix-product launches and the device's idle share (an
+    empty dict when the profiler saw no device time)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        tr.train(2)
+        tr.train(steps)
     wall = time.perf_counter() - t0
     events = [e for e in prof.key_averages()
               if getattr(e, "device_time_total", 0) > 0
               and e.device_type.name == "CUDA"]
     if not events:
         print("  profile: the profiler saw no device time (not measured)")
-        return
+        return {}
     busy_us = sum(e.device_time_total for e in events)
-    print(f"  profile (2 more steps, profiler on): wall {wall * 1e3:.1f} ms, "
-          f"device kernels {busy_us / 1e3:.1f} ms in "
-          f"{sum(e.count for e in events)} launches, device idle share "
-          f"{max(0.0, 1 - busy_us / 1e6 / wall):.3f}")
-    for e in sorted(events, key=lambda e: -e.device_time_total)[:15]:
+    mm = [e for e in events if _is_matmul(e.key)]
+    out = {"wall_ms": wall * 1e3, "device_ms": busy_us / 1e3,
+           "launches": sum(e.count for e in events),
+           "matmul_launches": sum(e.count for e in mm),
+           "matmul_ms": sum(e.device_time_total for e in mm) / 1e3,
+           "idle": max(0.0, 1 - busy_us / 1e6 / wall)}
+    print(f"  profile ({steps} more steps, profiler on): wall "
+          f"{out['wall_ms']:.1f} ms, device kernels {out['device_ms']:.1f} ms "
+          f"in {out['launches']} launches, device idle share "
+          f"{out['idle']:.3f}; matrix products {out['matmul_ms']:.1f} ms in "
+          f"{out['matmul_launches']} launches")
+    for e in sorted(events, key=lambda e: -e.device_time_total)[:top]:
         print(f"    {e.device_time_total / 1e3:9.2f} ms {e.count:7d}x  "
               f"{e.key[:90]}")
     ours = {}
@@ -910,6 +1000,7 @@ def _profile_training(torch, tr) -> None:
           f"{json.dumps({k: round(v, 3) for k, v in ours.items()})}, "
           f"{sum(ours.values()) / (busy_us / 1e3):.3f} of device time; the "
           f"flash kernels {flash:.3f} ms = {flash / (busy_us / 1e3):.3f}")
+    return out
 
 
 def _to(tree, device):
@@ -1147,11 +1238,7 @@ def phase_banked_training(torch, ops, cfg, Trainer, dense) -> dict:
               f"losses {log.losses}")
         n = steps - warm
         per_step = {name: c / n for name, c in launches.items()}
-        want = {"paged_decode_attention": 0, "decode_attention": 0,
-                "block_grad_sq_norms": 12, "masked_adamw": 0,
-                "banked_masked_adamw": 12,
-                "rmsnorm": 2 * nl + 1 + 2 * nl, "rmsnorm_bwd": 2 * nl + 1,
-                **_flash_per_step(nl)}
+        want = _train_launches(nl, "banked_masked_adamw")
         check(per_step == want, f"launches per step {per_step} != the "
               f"banked path's {want}")
         counts = opt["counts"]
@@ -1737,11 +1824,7 @@ def phase_packed_training(torch, ops, cfg, Trainer, loader, dense) -> dict:
     check(n_sel == [k] * steps, f"num_selected per step {n_sel}, want {k}")
     per_step = {name: n / steps for name, n in launches.items()}
     nl = cfg.num_layers
-    want = {"paged_decode_attention": 0, "decode_attention": 0,
-            "block_grad_sq_norms": 12, "masked_adamw": 12,
-            "banked_masked_adamw": 0, "rmsnorm": 4 * nl + 1,
-            "rmsnorm_bwd": 2 * nl + 1,
-            **_flash_per_step(nl)}
+    want = _train_launches(nl)
     check(per_step == want, f"launches per step {per_step} != the packed "
           f"path's {want}")
     check(data.cursor()["record"] == sum(log.records),
@@ -2220,6 +2303,260 @@ def _print_eval_profile(prof, wall) -> None:
               f"{e.key[:90]}")
 
 
+# ------------------------------------------------- gated weight gradients
+
+
+def _gated_expected(masks, nl, start, adamw) -> dict:
+    """The launches reckoned from each step's mask: ``_train_launches``
+    with that step's selected layers (``start``: the first layer's block
+    id), summed over the steps."""
+    total: dict = {}
+    for m in masks:
+        sel = int(m[start:start + nl].sum())
+        for k, v in _train_launches(nl, adamw, sel).items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def _check_gated_grads(torch, tr, layers, fn_name) -> str:
+    """One more step with ``masked_adamw.<fn_name>`` wrapped to see the
+    gradients it is given: every leaf of a frozen layer all zero, every
+    selected layer's leaves nonzero somewhere, the embedding's too."""
+    from repro_torch.core import masked_adamw
+    seen = {}
+    inner = getattr(masked_adamw, fn_name)
+
+    def spy(opt_cfg, partition, params, grads, *rest):
+        seen["grads"] = grads
+        return inner(opt_cfg, partition, params, grads, *rest)
+    setattr(masked_adamw, fn_name, spy)
+    try:
+        tr.train(1)
+    finally:
+        setattr(masked_adamw, fn_name, inner)
+    mask = tr.state["sel"]["mask"][layers.start:layers.start
+                                   + layers.length]
+    grads = seen["grads"]
+    frozen = int((~mask).sum())
+    for name, leaf in _named_leaves(grads["layers"]):
+        flat = leaf.reshape(leaf.shape[0], -1)
+        check(not bool(flat[~mask].any()),
+              f"gated step: frozen rows of the gradient of {name} are not "
+              f"all zero")
+        if mask.any():
+            check(bool(flat[mask].any(dim=1).all()),
+                  f"gated step: a selected layer's gradient of {name} is "
+                  f"all zero")
+    check(bool(grads["embed"]["tok"].any()),
+          "gated step: the embedding's gradient is all zero")
+    del seen
+    return (f"{frozen} frozen layers' gradient rows all zero in every leaf, "
+            f"{layers.length - frozen} selected layers' nonzero")
+
+
+def _named_leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _named_leaves(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def phase_gated_training(torch, ops, cfg, Trainer, dense, banked) -> dict:
+    """Phase 7's run and phase 10's async banked run with the gate."""
+    from repro_torch.core import partition as part_mod
+    gcfg = cfg.replace(gate_weight_grads=True)
+    steps, warm = TRAIN["steps"], TRAIN["warmup"]
+    gb, sl = TRAIN["global_batch"], TRAIN["seq_len"]
+    nl = cfg.num_layers
+    pn = part_mod.build_partition(cfg)
+    layers = next(g for g in pn.groups if g.key == "layers")
+    out = {"launches": {}}
+    for label, opt, adamw, ref_run in (
+            ("dense", {}, "masked_adamw", dense),
+            ("banked", dict(moment_residency="banked", offload="host",
+                            async_swap=True), "banked_masked_adamw",
+             banked)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        tcfg = _train_cfg(gcfg, "adagradselect", steps, gb, sl,
+                          log_every=1 if label == "dense" else steps + 1,
+                          **opt)
+        tr = Trainer(tcfg, device="cuda")
+        k = tr.sel_cfg.num_selected(pn.num_blocks)
+        masks = _record_masks(tr)
+        torch.cuda.reset_peak_memory_stats()
+        tr.train(warm)
+        ops.reset_launches()                     # the main path's run
+        tr.train(steps - warm)
+        launches = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        log = tr.log
+        check(len(log.losses) == steps
+              and all(math.isfinite(x) for x in log.losses),
+              f"gated {label}: losses {log.losses}")
+        host_masks = [m.cpu() for m in masks]
+        check(all(int(m.sum()) == k for m in host_masks),
+              f"gated {label}: selected per step "
+              f"{[int(m.sum()) for m in host_masks]}, want {k}")
+        want = _gated_expected(host_masks[warm:], nl, layers.start, adamw)
+        check(launches == want, f"gated {label}: launches {launches} != "
+              f"the counts reckoned from the masks {want}")
+        counts = tr.state["opt"]["counts"].cpu()
+        mask_sum = torch.stack(host_masks).float().sum(dim=0)
+        check(torch.equal(counts, mask_sum),
+              f"gated {label}: opt counts {counts.tolist()} != summed masks "
+              f"{mask_sum.tolist()}")
+        frozen = [nl - int(m[layers.start:layers.start + nl].sum())
+                  for m in host_masks[warm:]]
+        n = steps - warm
+        if label == "dense":
+            times = log.step_times[warm:]
+            step_ms = statistics.median(times) * 1e3
+            how = f"median of steps {warm}..{steps - 1}"
+        else:
+            step_ms = log.step_times[-1] * 1e3
+            how = f"mean of the {n}-step window"
+        print(f"gated training ({label}) {cfg.name}: adagradselect, "
+              f"gate_weight_grads, k = {k} of {pn.num_blocks} blocks, batch "
+              f"{gb} x {sl}, {steps} steps")
+        print(f"  losses: {[round(x, 4) for x in log.losses]}")
+        print(f"  step time ({how}): {step_ms:.2f} ms = "
+              f"{gb * sl / step_ms * 1e3:.0f} tokens/s (ungated: "
+              f"{ref_run['step_ms']:.2f} ms)")
+        print(f"  peak device memory: {peak / 2**30:.2f} GiB (ungated: "
+              f"{ref_run['peak'] / 2**30:.2f} GiB)")
+        print(f"  frozen layers per step: {frozen}; counts = summed masks "
+              f"{counts.int().tolist()}")
+        print(f"  launches in the {n} steps = the counts reckoned from the "
+              f"masks: {json.dumps(launches)}")
+        if label == "banked":
+            print(f"  swap stats: "
+                  f"{json.dumps(tr.step_fn.swap_stats.as_dict())}")
+        update = "update" if label == "dense" else "banked_update"
+        said = _check_gated_grads(torch, tr, layers, update)
+        print(f"  one more step: {said}")
+        prof = _profile_training(torch, tr) if label == "dense" else {}
+        for name, c in launches.items():
+            out["launches"][name] = out["launches"].get(name, 0) + c
+        out[label] = {"step_ms": step_ms, "peak": peak, "profile": prof}
+        del tr, masks, host_masks
+    return out
+
+
+def phase_gated_rounds(torch, ops, cfg, Trainer, rounds=3) -> dict:
+    """Gated adagradselect, ungated adagradselect and full fine-tuning in
+    alternating rounds of 8-step windows (one sync at each window's end),
+    then 2 profiled steps of each."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    steps, n = TRAIN["steps"], TRAIN["steps"] - TRAIN["warmup"]
+    gb, sl = TRAIN["global_batch"], TRAIN["seq_len"]
+    kinds = {"gated": (cfg.replace(gate_weight_grads=True), "adagradselect"),
+             "ungated": (cfg, "adagradselect"), "full": (cfg, "full")}
+    trs = {name: Trainer(_train_cfg(mcfg, method, steps * (rounds + 1), gb,
+                                    sl, log_every=10 ** 6), device="cuda")
+           for name, (mcfg, method) in kinds.items()}
+    for tr in trs.values():
+        tr.train(TRAIN["warmup"])
+    times = {name: [] for name in kinds}
+    ours = {}
+    for _ in range(rounds):
+        for name, tr in trs.items():
+            ops.reset_launches()
+            tr.train(n)
+            ours[name] = {k: v / n for k, v in ops.LAUNCHES.items() if v}
+            times[name].append(tr.log.step_times[-1] * 1e3)
+    med = {name: statistics.median(ts) for name, ts in times.items()}
+    print(f"step time in {rounds} alternating rounds of {n}-step windows "
+          f"(ms), {cfg.name}, batch {gb} x {sl}: " + ", ".join(
+              f"{name} {[round(t, 2) for t in ts]} (median {med[name]:.2f})"
+              for name, ts in times.items()))
+    prof = {}
+    for name, tr in trs.items():
+        print(f"  {name}: the port's kernels a step {json.dumps(ours[name])}")
+        prof[name] = _profile_training(torch, tr, top=5)
+    if all(prof.values()):
+        print("  a step (2 profiled steps each): " + ", ".join(
+            f"{name} device {p['device_ms'] / 2:.1f} ms in "
+            f"{p['launches'] / 2:.0f} launches ({p['matmul_launches'] / 2:.0f}"
+            f" matrix products), idle {p['idle']:.3f}"
+            for name, p in prof.items()))
+    print(f"  gated / full median step: {med['gated'] / med['full']:.3f}; "
+          f"gated / ungated: {med['gated'] / med['ungated']:.3f}; ungated / "
+          f"full: {med['ungated'] / med['full']:.3f}")
+    del trs
+    return {"median_ms": med, "profile": prof}
+
+
+def phase_gated_consistency(torch, ops, cfg, Trainer) -> None:
+    """f32, TF32 off, 2 layers at full width, batch 2 x 64, 3 steps: gated
+    topk_grad on the card against the CPU from one state; gated full
+    against ungated full on the card, bit for bit."""
+    steps, lr = 3, 1e-3
+    c32 = cfg.replace(dtype="float32", num_layers=2)
+    g32 = c32.replace(gate_weight_grads=True)
+    opt = dict(lr=lr, schedule="constant", warmup_steps=0)
+    # k = 2 of 4 blocks: the gate's zero norms tie, so topk_grad takes the
+    # embedding and layer 0 and layer 1 is frozen at every step
+    tcfg = _train_cfg(g32, "topk_grad", steps, 2, 64, k_percent=50.0, **opt)
+    card = Trainer(tcfg, device="cuda")
+    cpu = Trainer(tcfg, device="cpu")
+    cpu.state = _to(card.state, "cpu")
+    p0 = list(_leaves(_to(card.state["params"], "cpu")))
+    ops.reset_launches()
+    for i in range(steps):
+        card.train(1)
+        cpu.train(1)
+        lc, lh = card.log.losses[-1], cpu.log.losses[-1]
+        check(abs(lc - lh) <= 1e-4 * abs(lh),
+              f"gated step {i}: loss card {lc} vs cpu {lh}")
+        mc = card.state["sel"]["mask"].cpu()
+        check(torch.equal(mc, cpu.state["sel"]["mask"]),
+              f"gated step {i}: masks differ: card {mc.int().tolist()} cpu "
+              f"{cpu.state['sel']['mask'].int().tolist()}")
+    launches = dict(ops.LAUNCHES)
+    check(launches == {k: steps * v for k, v in _train_launches(
+        2, sel_layers=1).items()},
+          f"gated topk_grad: launches {launches} != 1 selected and 1 frozen "
+          f"layer a step")
+    # each leaf's update (params after minus before) on the card against
+    # the CPU's, as a relative L2 gap: a wrong or missing update is ~1
+    gap_limit, gap = 1e-2, 0.0
+    for a, b, a0 in zip(_leaves(card.state["params"]),
+                        _leaves(cpu.state["params"]), p0):
+        dc, dh = a.cpu() - a0, b - a0
+        scale = dh.norm().item()
+        check(scale > 0 or not dc.any(), "a leaf the CPU left unchanged "
+              "moved on the card")
+        if scale > 0:
+            gap = max(gap, (dc - dh).norm().item() / scale)
+    check(gap <= gap_limit, f"gated updates differ by {gap:.3g} of the "
+          f"CPU's (relative L2, limit {gap_limit:g})")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card.log.losses,
+                                                   cpu.log.losses))
+    print(f"gated consistency (f32, TF32 off, 2 layers at full width, batch "
+          f"2 x 64, {steps} gated topk_grad steps, k = 2 of 4 blocks, card "
+          f"vs CPU): losses {[round(x, 6) for x in card.log.losses]}, max "
+          f"rel err {rel:.2e} (limit 1e-4); masks equal at every step; "
+          f"each leaf's update within {gap:.3g} of the CPU's (relative L2, "
+          f"limit {gap_limit:g}); card launches {json.dumps(launches)}")
+    del card, cpu
+    fcfg = _train_cfg(c32, "full", steps, 2, 64, **opt)
+    plain = Trainer(fcfg, device="cuda")
+    gated = Trainer(dataclasses.replace(fcfg, model=g32), device="cuda")
+    gated.state = _to(plain.state, "cuda")
+    plain.train()
+    gated.train()
+    check(plain.log.losses == gated.log.losses
+          and all(_bits_equal(torch, a, b) for a, b in zip(
+              _leaves(plain.state["params"]), _leaves(gated.state["params"]))),
+          f"gated full is not ungated full bit for bit: losses "
+          f"{plain.log.losses} vs {gated.log.losses}")
+    print(f"  gated full = ungated full bit for bit on the card ({steps} "
+          f"steps: losses and every parameter)")
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -2289,6 +2626,13 @@ def main() -> int:
                                              Timer(torch)))
         phase = "eval"
         evaluation = phase_eval(torch, ops, cfg, evaluate, training)
+        phase = "gated training"
+        gated = phase_gated_training(torch, ops, cfg, Trainer, training,
+                                     banked)
+        phase = "gated rounds"
+        phase_gated_rounds(torch, ops, cfg, Trainer)
+        phase = "gated consistency"
+        phase_gated_consistency(torch, ops, cfg, Trainer)
     except Exception:   # the boundary: report the failed phase, exit non-zero
         traceback.print_exc()
         print(f"chip_smoke: phase {phase!r} FAILED", file=sys.stderr)
@@ -2305,6 +2649,10 @@ def main() -> int:
         # this is the TPU kernel whose forward it completes
         "rmsnorm_bwd": ("triton", "src/repro_torch/kernels/rmsnorm.py",
                         "src/repro/kernels/rmsnorm.py:13"),
+        # its dx-only mode: a frozen layer's norm under gated weight
+        # gradients
+        "rmsnorm_bwd_dx": ("triton", "src/repro_torch/kernels/rmsnorm.py",
+                           "src/repro/kernels/rmsnorm.py:13"),
         "block_grad_sq_norms": (
             "triton", "src/repro_torch/kernels/block_grad_norm.py",
             "src/repro/kernels/block_grad_norm.py:21"),
@@ -2328,8 +2676,11 @@ def main() -> int:
         # the banked training window (phase 10) for the banked kernel, and
         # training (7), banked training (10) and packed training (13) for
         # the flash kernels, the dense serving run of phase 5 and the eval
-        # (16) for the dense decode kernel
-        if name == "decode_attention":
+        # (16) for the dense decode kernel, the gated runs (17) for the
+        # RMSNorm backward's dx-only mode
+        if name == "rmsnorm_bwd_dx":
+            launches = gated["launches"][name]
+        elif name == "decode_attention":
             launches = (consistency["dense_launches"][name]
                         + evaluation["launches"][name])
         elif name == "banked_masked_adamw":

@@ -109,6 +109,8 @@
 
 #include <atomic>
 
+#include "smem_limit.cuh"
+
 namespace {
 
 constexpr int kWarps = 4;         // the f32 body's
@@ -117,7 +119,6 @@ constexpr int kTile = 32;         // positions per warp step
 constexpr int kMaxHeads = 16;     // q heads a block serves: the MMA's rows
 constexpr int kMaxQHeads = 32;    // q heads a row: one lane of warp 0 each
 constexpr int kMaxSplit = 32;     // chunks per row
-constexpr int kMaxDevices = 64;   // devices whose shared memory limits are kept
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -847,30 +848,6 @@ decode_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // positions per chunk: S / n_split rounded up to whole 32-position tiles
 int chunk_len(int S, int n_split) {
   return ((S + n_split - 1) / n_split + kTile - 1) / kTile * kTile;
-}
-
-// Lets `kern` launch with `bytes` of dynamic shared memory. The limit that
-// cudaFuncSetAttribute raises holds on the current device for the rest of
-// the process, so `set` keeps, per device, the largest size set so far and
-// the CUDA call is made only for a larger one; none is made up to the
-// 48 KB that every kernel may take. One `set` per kernel instance.
-template <typename Kern>
-cudaError_t allow_smem(Kern kern, int bytes, std::atomic<int>* set) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  std::atomic<int>* mine = dev < kMaxDevices ? set + dev : nullptr;
-  if (mine != nullptr && bytes <= mine->load(std::memory_order_relaxed))
-    return cudaSuccess;
-  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           bytes);
-  if (e == cudaSuccess && mine != nullptr) {
-    int was = mine->load(std::memory_order_relaxed);
-    while (was < bytes && !mine->compare_exchange_weak(was, bytes)) {
-    }
-  }
-  return e;
 }
 
 // Both layouts' launches: checks what the kernels take, then one launch of

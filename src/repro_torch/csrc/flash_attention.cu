@@ -112,6 +112,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
+#include "smem_limit.cuh"
+
 namespace {
 
 constexpr int kTile = 64;          // queries (and keys) per tile
@@ -1433,12 +1437,13 @@ const char* flash_attention_error_string(int code) {
   return static_cast<int>(cudaGetLastError());
 
 // KERN in parentheses (a template-id's comma); a kernel that takes more
-// than 48 KB of dynamic shared memory must be told
+// than 48 KB of dynamic shared memory must be told, once a device: each
+// expansion names one kernel instance and keeps its own `set`
 #define FLASH_LAUNCH(KERN, GRID, THREADS, SMEM, ST, ...)                   \
   {                                                                        \
     auto kern = KERN;                                                      \
-    cudaError_t e = cudaFuncSetAttribute(                                  \
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);          \
+    static std::atomic<int> set[kMaxDevices];                              \
+    cudaError_t e = allow_smem(kern, SMEM, set);                           \
     if (e != cudaSuccess) return static_cast<int>(e);                      \
     kern<<<GRID, THREADS, SMEM, ST>>>(__VA_ARGS__);                        \
   }

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into its own shared library under ``build/kernels/`` at the
 repository root (listed in ``.gitignore``). The library's file name carries a
-hash of the source and the flags, so an edited source is rebuilt and a stale
-library is never loaded. A failed build raises ``KernelBuildFailure``;
+hash of the source, of the shared headers (``csrc/*.cuh``) and of the flags,
+so an edited source or header is rebuilt and a stale library is never
+loaded. A failed build raises ``KernelBuildFailure``;
 nothing falls back.
 """
 from __future__ import annotations
@@ -50,6 +51,8 @@ def nvcc() -> str:
 
 def _target(name: str) -> Path:
     h = hashlib.sha256((CSRC / name).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{Path(name).stem}-{h.hexdigest()[:16]}.so"
 

@@ -22,7 +22,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as _rn
 
 LAUNCHES = {"paged_decode_attention": 0, "decode_attention": 0,
-            "rmsnorm": 0, "rmsnorm_bwd": 0,
+            "rmsnorm": 0, "rmsnorm_bwd": 0, "rmsnorm_bwd_dx": 0,
             "block_grad_sq_norms": 0, "masked_adamw": 0,
             "banked_masked_adamw": 0, "flash_attention_fwd": 0,
             "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
@@ -201,13 +201,16 @@ def rmsnorm(x, scale, eps=1e-5):
     return out.view(x.shape)
 
 
-def rmsnorm_bwd(dy, x, scale, eps=1e-5):
+def rmsnorm_bwd(dy, x, scale, eps=1e-5, with_dscale=True):
     """The backward of ``rmsnorm``: dy, x: [..., D]; scale: [D] -> (dx in
     the dtype of x, dscale in the dtype of scale). One launch is the row
-    pass and its dscale column sum."""
-    name = "rmsnorm_bwd"
+    pass and its dscale column sum, counted as ``rmsnorm_bwd``.
+    ``with_dscale=False`` (a frozen layer's norm): (dx, None) from the row
+    pass alone, with no column sums, no partials and no second kernel,
+    counted as ``rmsnorm_bwd_dx``; its dx has the bits of the full mode's."""
+    name = "rmsnorm_bwd" if with_dscale else "rmsnorm_bwd_dx"
     if not _on_card(name, dy, x, scale):
-        return ref.rmsnorm_bwd(dy, x, scale, eps)
+        return ref.rmsnorm_bwd(dy, x, scale, eps, with_dscale=with_dscale)
     d = x.shape[-1]
     if dy.shape != x.shape or scale.shape != (d,):
         _fail(name, f"dy {tuple(dy.shape)} must match x {tuple(x.shape)} "
@@ -225,7 +228,7 @@ def rmsnorm_bwd(dy, x, scale, eps=1e-5):
     _rn.load()
     x2d = x.view(-1, d)
     dx = torch.empty_like(x2d)
-    dscale = torch.empty_like(scale)
+    dscale = torch.empty_like(scale) if with_dscale else None
     _rn.launch_bwd(x2d, scale, dy.view(-1, d), float(eps), dx, dscale)
     LAUNCHES[name] += 1
     return dx.view(x.shape), dscale

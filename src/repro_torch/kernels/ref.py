@@ -86,15 +86,17 @@ def rmsnorm(x, scale, eps=1e-5):
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
-def rmsnorm_bwd(dy, x, scale, eps=1e-5):
+def rmsnorm_bwd(dy, x, scale, eps=1e-5, with_dscale=True):
     """(dx, dscale) of ``rmsnorm`` at (x, scale) for the output gradient dy,
     by autograd of the plain forward; dx in the dtype of x, dscale in the
-    dtype of scale."""
+    dtype of scale. ``with_dscale=False``: (dx, None), the scale held
+    constant."""
     with torch.enable_grad():
         xg = x.detach().requires_grad_(True)
-        sg = scale.detach().requires_grad_(True)
-        dx, ds = torch.autograd.grad(rmsnorm(xg, sg, eps), (xg, sg), dy)
-    return dx, ds
+        sg = scale.detach().requires_grad_(with_dscale)
+        wrt = (xg, sg) if with_dscale else (xg,)
+        grads = torch.autograd.grad(rmsnorm(xg, sg, eps), wrt, dy)
+    return grads[0], (grads[1] if with_dscale else None)
 
 
 def block_grad_sq_norms(g):

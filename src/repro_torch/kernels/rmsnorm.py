@@ -36,6 +36,12 @@ one:
   columns a program (112 programs at D 896), all of them in one
   [PARTS, COL_BLOCK] tile, in a fixed order.
 
+A frozen layer's norm (gated weight gradients, ``core/gated.py``) needs
+no dscale: the dx-only mode compiles the row pass with ``DSCALE`` off,
+which drops the column sums from its loop and its partial row, and
+launches no column pass. It reads x and dy and writes dx, the same bytes
+bound, in one launch instead of two.
+
 No atomics and a fixed order: on one card the same inputs give the same
 bits. A row is held whole in registers, padded to the next power of two
 (1024 for D = 896): the masked lanes load nothing.
@@ -105,7 +111,8 @@ def _rmsnorm_fwd(x_ptr, scale_ptr, out_ptr, n_cols, eps,
 
 def _rmsnorm_bwd(x_ptr, scale_ptr, dy_ptr, dx_ptr, part_ptr, n_rows, n_cols,
                  rows_per_prog, eps, TILE: "tl.constexpr",
-                 BLOCK: "tl.constexpr", STAGES: "tl.constexpr"):
+                 BLOCK: "tl.constexpr", STAGES: "tl.constexpr",
+                 DSCALE: "tl.constexpr"):
     pid = tl.program_id(0)
     start = pid.to(tl.int64) * rows_per_prog
     end = tl.minimum(start + rows_per_prog, n_rows)
@@ -126,8 +133,10 @@ def _rmsnorm_bwd(x_ptr, scale_ptr, dy_ptr, dx_ptr, part_ptr, n_rows, n_cols,
         proj = tl.sum(gs * xhat, axis=1) / n_cols
         dx = r[:, None] * (gs - xhat * proj[:, None])
         tl.store(dx_ptr + offs, dx.to(dx_ptr.dtype.element_ty), mask=mask)
-        acc += tl.sum(dyf * xhat, axis=0)
-    tl.store(part_ptr + pid * n_cols + cols, acc, mask=cmask)
+        if DSCALE:
+            acc += tl.sum(dyf * xhat, axis=0)
+    if DSCALE:
+        tl.store(part_ptr + pid * n_cols + cols, acc, mask=cmask)
 
 
 def _col_sums(part_ptr, out_ptr, n_parts, n_cols, PARTS: "tl.constexpr",
@@ -176,14 +185,22 @@ def launch_bwd(x2d, scale, dy2d, eps: float, dx, dscale) -> None:
     """x2d, dy2d, dx: [N, D] contiguous CUDA tensors, N >= 1; scale,
     dscale: [D]. Launches the row pass over ``bwd_grid``'s programs and the
     column sum on the current stream; the [programs, D] f32 partials are
-    scratch allocated here."""
+    scratch allocated here. ``dscale=None``: the dx-only mode, the row pass
+    alone with its column sums compiled out (``DSCALE``), no partials and
+    no column pass. Both modes run the same grid, tiles and row arithmetic,
+    so their dx has the same bits."""
     triton, _, bwd, col_sums = load()
     n, d = x2d.shape
     progs, rows, tile = bwd_grid(n, d, _sms(x2d.device), x2d.element_size())
-    part = torch.empty((progs, d), dtype=torch.float32, device=x2d.device)
+    full = dscale is not None
+    # dx-only: part_ptr is never written; dx stands in for it
+    part = (torch.empty((progs, d), dtype=torch.float32, device=x2d.device)
+            if full else dx)
     bwd[(progs,)](x2d, scale, dy2d, dx, part, n, d, rows, eps, TILE=tile,
                   BLOCK=triton.next_power_of_2(d), STAGES=BWD_STAGES,
-                  num_warps=4)
+                  DSCALE=full, num_warps=4)
+    if not full:
+        return
     col_sums[(-(-d // COL_BLOCK),)](part, dscale, progs, d,
                                     PARTS=min(MAX_COL_PARTS, _pow2(progs)),
                                     COL_BLOCK=COL_BLOCK, num_warps=4)

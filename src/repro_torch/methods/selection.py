@@ -27,9 +27,26 @@ Two moment residencies (``opt_cfg.moment_residency``):
   critical path, a miss falls back to the synchronous swap
   (``step_fn.swap_stats``).
 
+With ``model_cfg.gate_weight_grads`` the step chooses its mask BEFORE
+the forward, as the reference does: ``select`` on zero instantaneous
+norms, which leaves the policy's cumulative signal to decide (the same
+(seed, step) draws as the ungated step). Only the body groups are gated:
+the layers the mask leaves out run with detached parameters
+(``core/gated.py``), so the backward launches none of their weight
+gradients and their gradient rows are zero; the embedding, the final norm
+and the head always get theirs. The clipped gradients' block norms then go
+to ``adagradselect.observe``, and the masked AdamW steps with the chosen
+mask. The host must know the mask before the forward to choose which
+layers to detach, so a gated step reads it back: under dense residency
+that is the step's one host read ([num_blocks] bools; the ungated dense
+step makes none); under banked residency the same read carries the
+selected indices (and the predicted next ones), and it moves from after
+phase A to before the forward, so the step still makes one. The
+prediction is then made from the state after ``select`` and before this
+step's norms are observed; a miss costs only the synchronous swap.
+
 Not ported here, and raising: ``offload="zero1"`` and any offload under
-dense residency (ROADMAP Queue A item 11), ``gate_weight_grads`` and
-``lora`` (item 4).
+dense residency (ROADMAP Queue A item 11), and ``lora`` (item 4).
 """
 from __future__ import annotations
 
@@ -97,25 +114,42 @@ class SelectionMethod:
         the advanced step."""
         _check_opt(opt_cfg)
         lm.check_supported(model_cfg)
-        if model_cfg.gate_weight_grads:
-            raise NotImplementedError(
-                "gate_weight_grads=True is not ported (the port computes "
-                "every layer's weight gradients; ROADMAP Queue A item 16)")
         sel_cfg = self.sel_cfg
         partition = part_mod.build_partition(model_cfg)
+        nb = partition.num_blocks
         accum = lm.DTYPES[opt_cfg.accum_dtype]
+        gate = model_cfg.gate_weight_grads
 
-        def loss_fn(p, mb):
-            return step_mod.model_loss(model_cfg, p, mb)
+        def preselect(sel_state):
+            """Gate mode: (this step's mask, the state after its select),
+            chosen before the forward from the cumulative signal."""
+            zeros = torch.zeros((nb,), device=sel_state["mask"].device)
+            return adagradselect.select(sel_cfg, sel_state, zeros, nb)
 
-        def forward_select(params, sel_state, batch):
+        def forward_select(params, sel_state, batch, pre_mask=None,
+                           host_mask=None):
+            """Loss, clipped grads, block norms and the mask. Gate mode
+            passes ``pre_mask`` (``sel_state`` is then past its select) and
+            its host copy ``host_mask``, which one set of layer masks takes
+            to every microbatch."""
+            masks = None if pre_mask is None else part_mod.layer_masks_dict(
+                partition, torch.from_numpy(host_mask))
+
+            def loss_fn(p, mb):
+                return step_mod.model_loss(model_cfg, p, mb, masks=masks)
+
             (loss, metrics), grads = step_mod.accumulate_grads(
                 loss_fn, params, batch, opt_cfg.microbatch, accum)
             grads, gnorm = masked_adamw.clip_by_global_norm(
                 grads, opt_cfg.grad_clip)
             block_norms = part_mod.block_grad_norms(partition, grads)
-            mask, sel_state = adagradselect.select(
-                sel_cfg, sel_state, block_norms, partition.num_blocks)
+            if pre_mask is None:
+                mask, sel_state = adagradselect.select(
+                    sel_cfg, sel_state, block_norms, nb)
+            else:
+                mask = pre_mask
+                sel_state = adagradselect.observe(sel_cfg, sel_state,
+                                                  block_norms)
             return grads, mask, sel_state, loss, metrics, gnorm, block_norms
 
         def step_metrics(metrics, loss, gnorm, lr, mask, block_norms, step):
@@ -125,12 +159,20 @@ class SelectionMethod:
                     "block_norms": block_norms}
 
         if opt_cfg.moment_residency == "banked":
-            return self._make_banked_step(opt_cfg, partition, forward_select,
-                                          step_metrics)
+            return self._make_banked_step(
+                opt_cfg, partition, forward_select, step_metrics,
+                preselect if gate else None)
 
         def step_fn(state, batch):
+            pre = {}
+            sel_state = state["sel"]
+            if gate:
+                pre_mask, sel_state = preselect(sel_state)
+                # the gated step's one host read: [num_blocks] bools
+                pre = dict(pre_mask=pre_mask,
+                           host_mask=pre_mask.cpu().numpy())
             grads, mask, sel_state, loss, metrics, gnorm, block_norms = \
-                forward_select(state["params"], state["sel"], batch)
+                forward_select(state["params"], sel_state, batch, **pre)
             lr = learning_rate(opt_cfg, state["step"])
             params, opt = masked_adamw.update(
                 opt_cfg, partition, state["params"], grads, state["opt"],
@@ -143,26 +185,42 @@ class SelectionMethod:
         return step_fn
 
     def _make_banked_step(self, opt_cfg, partition, forward_select,
-                          step_metrics):
+                          step_metrics, preselect=None):
+        """The banked step; ``preselect`` (gate mode) chooses the mask
+        before the forward, and the step's one host read moves there."""
         nb = partition.num_blocks
         planner = swap_mod.SwapPlanner(partition, nb,
                                        enabled=opt_cfg.async_swap)
         stats = planner.stats
 
-        def step_fn(state, batch):
-            t0 = time.perf_counter()
-            grads, mask, sel_state, loss, metrics, gnorm, block_norms = \
-                forward_select(state["params"], state["sel"], batch)
+        def read_ids(sel_state, pre_mask=None):
+            """The step's one host read -> (the gate's mask or None, the
+            [k] selected ids, the predicted next ones): the planner's
+            prediction is a function of this post-select state alone."""
             ids = sel_state["indices"]
             cap = ids.shape[0]
+            lead = 0 if pre_mask is None else pre_mask.shape[0]
+            parts = [ids] if pre_mask is None else [pre_mask.long(), ids]
             if planner.enabled:
-                # the next selection's prediction depends only on this
-                # post-select state: queue it now and read both together
-                ids = torch.cat([ids, adagradselect.predict_next(
-                    self.sel_cfg, sel_state, nb)])
-            # the one host sync per step: [k] block ids, not a mask
-            ids = ids.cpu().numpy()
-            idx, pred = ids[:cap], ids[cap:]
+                parts.append(adagradselect.predict_next(self.sel_cfg,
+                                                        sel_state, nb))
+            # the one host sync per step: block ids (and the gate's mask)
+            host = torch.cat(parts).cpu().numpy()
+            mask = None if pre_mask is None else host[:lead].astype(bool)
+            return mask, host[lead:lead + cap], host[lead + cap:]
+
+        def step_fn(state, batch):
+            t0 = time.perf_counter()
+            if preselect is None:
+                grads, mask, sel_state, loss, metrics, gnorm, block_norms = \
+                    forward_select(state["params"], state["sel"], batch)
+                _, idx, pred = read_ids(sel_state)
+            else:
+                pre_mask, sel_state = preselect(state["sel"])
+                host_mask, idx, pred = read_ids(sel_state, pre_mask)
+                grads, mask, sel_state, loss, metrics, gnorm, block_norms = \
+                    forward_select(state["params"], sel_state, batch,
+                                   pre_mask=pre_mask, host_mask=host_mask)
             t1 = time.perf_counter()
             opt = state["opt"]
             slot_map = planner.resolve(idx, opt["banks"], opt["store"],

@@ -3,7 +3,8 @@
 ``apply`` is the JAX package's ``norms.apply``. Its forward goes through
 ``ops.rmsnorm`` and its backward through ``ops.rmsnorm_bwd`` (the Triton
 kernels on the card, the plain versions on the CPU), joined by a
-``torch.autograd.Function``; the JAX package lets XLA differentiate it."""
+``torch.autograd.Function``; the JAX package lets XLA differentiate it.
+The backward asks for dx only when the scale needs no gradient."""
 from __future__ import annotations
 
 import torch
@@ -21,7 +22,11 @@ class _RMSNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, scale = ctx.saved_tensors
-        dx, dscale = ops.rmsnorm_bwd(dy.contiguous(), x, scale, ctx.eps)
+        # a frozen layer's scale is detached (core/gated.py): dx only, with
+        # no column sums
+        with_dscale = ctx.needs_input_grad[1]
+        dx, dscale = ops.rmsnorm_bwd(dy.contiguous(), x, scale, ctx.eps,
+                                     with_dscale=with_dscale)
         return dx, dscale, None
 
 

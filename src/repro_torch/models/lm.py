@@ -18,6 +18,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import gated
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks
 from repro_torch.models.layers import attention, norms
@@ -156,9 +157,31 @@ def _remat(fn, cfg: ModelConfig):
         f"policy); use 'full' or 'none'")
 
 
+class _Unbind(torch.autograd.Function):
+    """``torch.unbind(x, 0)`` whose backward stacks the layers' gradients
+    in one launch, as torch's does, but fills the rows that got none (the
+    frozen layers under the gate) from a single zero: torch's makes a zero
+    tensor, and launches a fill, for each such row."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.set_materialize_grads(False)
+        return x.unbind(0)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        if all(g is not None for g in grads):
+            return torch.stack(grads)
+        some = next((g for g in grads if g is not None), None)
+        if some is None:
+            return None
+        zero = some.new_zeros(()).expand(some.shape)
+        return torch.stack([zero if g is None else g for g in grads])
+
+
 def _unbind(tree: dict) -> dict:
     """Each stacked leaf as a tuple of its layers (one ``unbind`` a leaf)."""
-    return {k: (_unbind(v) if isinstance(v, dict) else torch.unbind(v, 0))
+    return {k: (_unbind(v) if isinstance(v, dict) else _Unbind.apply(v))
             for k, v in tree.items()}
 
 
@@ -167,16 +190,29 @@ def _layer(unbound: dict, i: int) -> dict:
             for k, v in unbound.items()}
 
 
-def scan_stack(cfg: ModelConfig, apply_fn, x, stacked: dict):
+def scan_stack(cfg: ModelConfig, apply_fn, x, stacked: dict, masks=None):
     """``apply_fn(params_l, x) -> x`` over the layers of a stacked group,
     in order (the reference's ``lax.scan``). Each leaf is split into its
     layers by one ``unbind`` outside the checkpointed function: its backward
     stacks the layers' gradients once, where indexing ``w[i]`` per layer
-    would write a full [L, ...] zero tensor for every layer."""
+    would write a full [L, ...] zero tensor for every layer.
+
+    If ``cfg.gate_weight_grads`` and ``masks`` (a host sequence of L
+    bools, or a CPU tensor) is given, a frozen layer's parameters are
+    detached before the remat wrapper sees them (``core/gated.py``): the
+    backward computes no weight gradient of theirs, and their rows of the
+    stacked gradient are zero."""
+    gate = cfg.gate_weight_grads and masks is not None
+    if gate and len(masks) != cfg.num_layers:
+        raise ValueError(f"masks has {len(masks)} entries for "
+                         f"{cfg.num_layers} layers")
     unbound = _unbind(stacked)
     body = _remat(apply_fn, cfg)
     for i in range(cfg.num_layers):
-        x = body(_layer(unbound, i), x)
+        p_l = _layer(unbound, i)
+        if gate:
+            p_l = gated.gate_layer(p_l, bool(masks[i]))
+        x = body(p_l, x)
     return x
 
 
@@ -206,15 +242,16 @@ def _check_packed_support(cfg: ModelConfig):
             "shift-2 loss would cross example boundaries; use pack=False")
 
 
-def apply_train(params: dict, cfg: ModelConfig, batch: dict):
+def apply_train(params: dict, cfg: ModelConfig, batch: dict, masks=None):
     """-> (logits [B, S, V] aligned to batch["tokens"], aux_loss, extra).
     Dense family; ``aux_loss`` is a 0-d f32 zero and ``extra`` empty, as
     the reference gives for it. Packed SFT batches also carry
     ``segment_ids`` [B, S] (0 = pad) and ``positions`` [B, S] (reset at
     each segment): attention is block-diagonal over segments and RoPE sees
     each example at its unpacked positions, so the packed forward equals
-    running every segment as its own row. The reference's gated weight
-    gradients (``masks``) are not ported."""
+    running every segment as its own row. ``masks``: the body groups' layer
+    masks on the host (``partition.layer_masks_dict``), which gate the
+    weight gradients under ``cfg.gate_weight_grads`` (see ``scan_stack``)."""
     segment_ids = batch.get("segment_ids")
     if segment_ids is not None:
         _check_packed_support(cfg)
@@ -227,7 +264,8 @@ def apply_train(params: dict, cfg: ModelConfig, batch: dict):
         return blocks.attn_block_apply(p_l, cfg, h, positions=positions,
                                        segment_ids=segment_ids)
 
-    x = scan_stack(cfg, block, x, params["layers"])
+    x = scan_stack(cfg, block, x, params["layers"],
+                   masks=None if masks is None else masks["layers"])
     x = norms.apply(params["final_norm"], x, cfg.norm_eps)
     logits = _logits(params, cfg, x)
     return logits, torch.zeros((), device=x.device), {}

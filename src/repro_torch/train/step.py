@@ -37,22 +37,27 @@ def next_token_loss(logits, tokens, loss_mask, shift: int = 1):
     return -(ll * mask).sum() / denom
 
 
-def model_loss(cfg: ModelConfig, params, batch):
-    """-> (total loss, {"ce_loss", "aux_loss"}) of the dense LM."""
-    logits, aux, _ = lm.apply_train(params, cfg, batch)
+def model_loss(cfg: ModelConfig, params, batch, masks=None):
+    """-> (total loss, {"ce_loss", "aux_loss"}) of the dense LM. ``masks``:
+    the host layer masks that gate the weight gradients under
+    ``cfg.gate_weight_grads`` (``lm.apply_train``)."""
+    logits, aux, _ = lm.apply_train(params, cfg, batch, masks=masks)
     loss = next_token_loss(logits, batch["tokens"], batch["loss_mask"])
     return loss + aux, {"ce_loss": loss, "aux_loss": aux}
 
 
 def value_and_grad(loss_fn, params, batch):
     """-> ((loss, metrics), grads) with everything detached; ``grads`` has
-    the structure of ``params``."""
+    the structure of ``params``. A leaf the loss does not reach (a stacked
+    leaf whose layers are all frozen under the gate) gets zeros, never
+    ``None``: the reference's ``dparams_zero``."""
     with torch.enable_grad():
         ps = part_mod.tree_map(lambda p: p.detach().requires_grad_(True),
                                params)
         loss, met = loss_fn(ps, batch)
         loss.backward()
-    grads = part_mod.tree_map(lambda p: p.grad, ps)
+    grads = part_mod.tree_map(
+        lambda p: torch.zeros_like(p) if p.grad is None else p.grad, ps)
     met = {k: v.detach() for k, v in met.items()}
     return (loss.detach(), met), grads
 

@@ -11,7 +11,8 @@ does: between boundaries the loop only enqueues steps (losses stay device
 scalars), and at a boundary one device synchronisation drains the queue,
 so the step times are honest window averages. ``log_every=0`` syncs every
 step. (The banked residency's step also reads its selected block ids back,
-once a step, by design: ``methods/selection.py``.)
+once a step, by design, and a step with gated weight gradients its mask:
+``methods/selection.py``.)
 
 Data: the synthetic math source by default, or any ``data_source=`` as
 the reference takes it — a pure ``batch_at(step)`` source or a streaming

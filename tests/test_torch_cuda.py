@@ -22,8 +22,11 @@ head, the bf16 dq (tensor cores) bit-reproducible; segment layouts that
 probe the skipped tiles (boundaries on tile edges, a segment over three
 tiles, all pad after the first tile, one segment over the row, which must
 give the bits of no segments); in f32 a peaked softmax is held against an
-f64 evaluation. Three packed training steps make no host sync either. The
-dense decode attention kernel (row 3) is held against its plain version at
+f64 evaluation. Three packed training steps make no host sync either.
+The RMSNorm backward's dx-only mode (a frozen layer's norm under gated
+weight gradients) gives the full mode's dx bits in one launch, and gated
+training steps launch each mode by the mask with one host sync a step.
+The dense decode attention kernel (row 3) is held against its plain version at
 the shapes of ``chip_smoke.py`` phase 15 (the eval shape, the S and
 valid_len of ``tests/test_kernels.py``, ragged S, head dim 128), against
 row 1 on a gathered view, in f32 against f64, and forced to each split of a
@@ -320,6 +323,39 @@ def test_rmsnorm_bwd_matches_plain(cuda_device, n, dtype):
     assert _bits_equal(gx, dx) and _bits_equal(gs, ds)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 4, 33, 4096, 8192])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_bwd_dx_only(cuda_device, n, dtype):
+    """The dx-only mode (a frozen layer's norm): one launch counted as
+    ``rmsnorm_bwd_dx``, dx within the tolerance of the plain version and
+    bit-equal to the full mode's dx; ``norms.apply`` takes it when the
+    scale needs no gradient."""
+    from repro_torch.models.layers import norms
+    g = torch.Generator(device=cuda_device).manual_seed(n + 1)
+    mu = 1 + 0.5 * torch.randn(896, generator=g, device=cuda_device)
+    x = (mu + torch.randn(n, 896, generator=g, device=cuda_device)).to(dtype)
+    s = (1 + 0.1 * torch.randn(896, generator=g, device=cuda_device)).to(
+        dtype)
+    dy = (1 + torch.randn(n, 896, generator=g, device=cuda_device)).to(dtype)
+    before = dict(ops.LAUNCHES)
+    dx, ds = ops.rmsnorm_bwd(dy, x, s, 1e-6, with_dscale=False)
+    torch.cuda.synchronize()
+    assert ds is None and dx.dtype == dtype
+    assert {k: ops.LAUNCHES[k] - before[k] for k in before} == {
+        k: int(k == "rmsnorm_bwd_dx") for k in before}
+    pdx, pds = ref.rmsnorm_bwd(dy, x, s, 1e-6, with_dscale=False)
+    assert pds is None
+    _close(dx, pdx, dtype)
+    full_dx, _ = ops.rmsnorm_bwd(dy, x, s, 1e-6)
+    assert _bits_equal(dx, full_dx)
+    xg = x.clone().requires_grad_()
+    (gx,) = torch.autograd.grad(norms.apply({"scale": s}, xg, 1e-6), (xg,),
+                                dy)
+    assert ops.LAUNCHES["rmsnorm_bwd_dx"] == before["rmsnorm_bwd_dx"] + 2
+    assert _bits_equal(gx, dx)
+
+
 # ------------------------------------------- banked residency (row 9) and repairs
 
 
@@ -459,6 +495,53 @@ def test_banked_step_syncs_the_host_once(cuda_device, async_swap):
     syncs = [w for w in caught if "synchronizing" in str(w.message)]
     assert len(syncs) == 4, [str(w.message) for w in caught]
     assert tr.step_fn.swap_stats.steps == 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("residency", ["device", "banked"])
+def test_gated_steps_launch_by_the_mask(cuda_device, residency):
+    """Four gated adagradselect steps of the smoke config: the RMSNorm
+    backward runs its full mode once per norm of a selected layer and the
+    final norm, its dx-only mode once per norm of a frozen layer; one host
+    sync a step (the mask read; the banked step's ids ride in it)."""
+    import warnings
+
+    from repro_torch.configs.base import (OptimizerConfig, SelectConfig,
+                                          TrainConfig)
+    from repro_torch.train.trainer import Trainer
+    cfg = _card_smoke().replace(gate_weight_grads=True)
+    tr = Trainer(TrainConfig(
+        model=cfg, seq_len=48, global_batch=4, steps=5,
+        select=SelectConfig(k_percent=40, steps_per_epoch=2),
+        optimizer=OptimizerConfig(
+            moment_residency=residency,
+            offload="host" if residency == "banked" else "none")),
+        device="cuda")
+    tr.train(1)
+    torch.cuda.synchronize()
+    state, masks = tr.state, []
+    before = dict(ops.LAUNCHES)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for step in range(1, 5):
+                batch = tr._device_batch(tr.data.batch_at(step))
+                state, metrics = tr.step_fn(state, batch)
+                masks.append(metrics["mask"])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # (the first use of the mode also warns that it is a prototype)
+    syncs = [w for w in caught
+             if "called a synchronizing" in str(w.message)]
+    assert len(syncs) == 4, [str(w.message) for w in caught]
+    nl = cfg.num_layers
+    sel = sum(int(m[1:1 + nl].sum()) for m in masks)
+    got = {k: ops.LAUNCHES[k] - before[k] for k in before}
+    assert got["rmsnorm_bwd"] == 2 * sel + 4
+    assert got["rmsnorm_bwd_dx"] == 2 * (4 * nl - sel)
+    assert 0 < sel < 4 * nl
+    assert torch.isfinite(metrics["loss"]).item()
 
 
 # ------------------------------------------------ flash attention (rows 4-6)

@@ -169,16 +169,13 @@ def test_entry_points_run_on_cpu_when_asked(no_cuda, capsys):
     (lambda: launch_train.main(["--arch", "qwen2.5-0.5b", "--smoke",
                                 "--device", "cpu", "--moment-residency",
                                 "banked", "--offload", "zero1"]), "item 11"),
-    (lambda: Trainer(TrainConfig(
-        model=_cfg().replace(gate_weight_grads=True), seq_len=48,
-        global_batch=2, steps=2), device="cpu"), "item 16"),
     (lambda: Trainer(_tcfg(optimizer=OptimizerConfig(
         moment_dtype="bfloat16")), device="cpu"), "item 17"),
     (lambda: Trainer(_tcfg(optimizer=OptimizerConfig(
         moment_residency="banked", offload="host",
         moment_dtype="bfloat16")), device="cpu"), "item 17"),
 ], ids=["lora", "checkpoint", "eval", "prefetch", "mesh", "jsonl", "trace",
-        "banked-zero1", "gate-weight-grads", "bf16-moments",
+        "banked-zero1", "bf16-moments",
         "bf16-moments-banked"])
 def test_training_features_not_ported_raise(call, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -14,7 +14,9 @@ builds that checkout's kernels. Each run's output goes to a log under
 ``--logs`` (default ``build/phase_ab/``); one JSON line a run follows it on
 stdout: the kernel rows of the phase's summary table (for ``decode`` also
 a digest of row 3's output bits at the eval shape, bf16 and f32, from that
-checkout's kernel on the same inputs), or, for ``eval``, tok/s and the
+checkout's kernel on the same inputs; for ``flash`` one of rows 4-6's at
+the packed training shape and causal at 16 x 2048), or, for ``eval``,
+tok/s and the
 seconds of its two eval calls and the device time and idle share of its
 profiled engine steps.
 
@@ -93,6 +95,8 @@ def _run_phase(checkout: Path, phase: str, params: Path) -> None:
                               .parameters if p in mods), cs.Timer(torch))
         if phase == "decode":
             _row3_bits(cs, torch, ops)
+        if phase == "flash":
+            _flash_bits(cs, torch, ops)
 
 
 def _serve(cs, torch, ops, cfg) -> None:
@@ -148,6 +152,28 @@ def _row3_bits(cs, torch, ops) -> None:
                         "float32": torch.int32}[dtype]).cpu().numpy()
         bits[dtype] = hashlib.sha256(raw.tobytes()).hexdigest()[:16]
     print(f"row 3 bits: {json.dumps(bits)}")
+
+
+def _flash_bits(cs, torch, ops) -> None:
+    """A digest of rows 4-6's output bits (o, lse, dq, dk, dv) at the
+    packed training shape (B 8, S 512, D 64) and causal at B 16 x S 2048,
+    bf16 and f32, on inputs that every checkout's ``_flash_case`` makes
+    alike."""
+    import hashlib
+    bits = {}
+    for dtype in ("bfloat16", "float32"):
+        for label, b, s, seg in (("packed", 8, 512, "packed"),
+                                 ("causal", 16, 2048, None)):
+            q, k, v, do, hm, sg = cs._flash_case(torch, dtype, b, s, 64, seg)
+            o, lse = ops.flash_attention_fwd(q, k, v, hm, segment_ids=sg)
+            outs = (o, lse, *ops.flash_attention_bwd(q, k, v, o, lse, do, hm,
+                                                    segment_ids=sg))
+            h = hashlib.sha256()
+            for t in outs:
+                h.update(t.contiguous().view(torch.uint8).cpu().numpy()
+                         .tobytes())
+            bits[f"{dtype} {label}"] = h.hexdigest()[:16]
+    print(f"flash bits: {json.dumps(bits)}")
 
 
 def _worker(checkout: Path, phase: str, params: Path, log: Path) -> int:
@@ -240,11 +266,13 @@ def _summary(phase: str, text: str) -> dict:
         # the summary tables' kernel rows, phase 15's times by split and
         # row 1's by split
         bits = re.search(r"^row 3 bits: (.*)$", text, re.M)
+        fbits = re.search(r"^flash bits: (.*)$", text, re.M)
         return {"rows": [" ".join(m.split()) for m in re.findall(
             r"^ +(?:[a-z_]+ .*kernel [\d.]+ .*plain"
             r"|(?:bfloat16|float32) +\w+ +B=\d+ +S="
             r"|row 1 .*splits 1-4).*$", text, re.M)],
-                "row3_bits": json.loads(bits[1]) if bits else None}
+                "row3_bits": json.loads(bits[1]) if bits else None,
+                "flash_bits": json.loads(fbits[1]) if fbits else None}
     first = re.search(r"generated in ([\d.]+) s = ([\d.]+) tok/s", text)
     second = re.search(r"second call: .*?, ([\d.]+) s = ([\d.]+) tok/s",
                        text)
