@@ -16,7 +16,9 @@ Phases, each of which makes the run exit non-zero if it fails:
    32 q heads on 8 kv heads at head dim 64 and 128 and pages of 4 and 16,
    and forced to each split 1-4 at 32 x 2048 (bit-identical over two
    launches, timed); RMSNorm
-   (Triton) on [N, 896]; bf16 and f32; max error against the tolerance,
+   (Triton) on [N, D] at the three models' widths (D 896, 2048 and 3072;
+   N 4, and the training path's 8192 or 4096 rows); bf16 and f32; max error
+   against the tolerance,
    on inputs whose outputs are large beside it (a peaked softmax: the
    comparison fails a kernel that returns zeros or a flat average); times from CUDA events with L2 flushed before each launch, and each
    kernel's bound (bytes over 3.35 TB/s, operations over the peak rate of
@@ -36,8 +38,11 @@ Phases, each of which makes the run exit non-zero if it fails:
 6. the training kernels against their plain versions, bf16 and f32, at the
    training path's shapes: the block gradient norms and the masked AdamW
    step (Triton) on the stacked leaves wg [24, 896*4864], wq [24, 896*1024]
-   and ln1 [24, 896] with 5 of 24 rows selected, and the RMSNorm backward
-   (Triton) on [4, 896] and [8*512, 896]; rows with sel = 0 come back
+   and ln1 [24, 896] with 5 of 24 rows selected, and on llama3.2-1b's and
+   phi4-mini's wg [16, 2048*8192] and [32, 3072*8192] with 5 rows
+   selected, and the RMSNorm backward (Triton) on [4, D] and [8*512, D] at
+   D 896, 2048 and 3072, with the registers and spills Triton reports for
+   the compiled RMSNorm kernels (a spill fails); rows with sel = 0 come back
    bit-identical, two launches of the norms and of the RMSNorm backward
    give the same bits; the RMSNorm backward's dx-only mode (a frozen
    layer's norm) at both shapes: one launch, dx within the tolerance of
@@ -86,7 +91,10 @@ Phases, each of which makes the run exit non-zero if it fails:
    D 64; the segment ids of a real ``pack_batch``, and how many of its
    causal 64 x 64 tiles hold an attending pair), ragged S (17, 300, 1000),
    segment boundaries on the tile edges, head dim 128, and segmented but
-   not causal; o, lse, dq, dk and dv within the tolerance on inputs whose
+   not causal, and the training shape at llama3.2-1b's head map (32 q on
+   8 kv heads, D 64) and phi4-mini's (24 q heads padded to 32, 8 kv heads,
+   the padded ones on kv head 7, D 128), causal and packed; o, lse, dq, dk
+   and dv within the tolerance on inputs whose
    rows are large beside it, dq, dk and dv bit-identical over two launches; one
    segment over each row bit-identical to no segments; in f32 with a
    peaked softmax (q = 3
@@ -147,7 +155,7 @@ Phases, each of which makes the run exit non-zero if it fails:
    of the frozen layers all zero, the selected layers' nonzero; for the
    dense run 2 profiled steps with device time, idle share and the
    matrix-product launches;
-18. gated adagradselect, ungated adagradselect and full fine-tuning in 3
+18. gated adagradselect, ungated adagradselect and full fine-tuning in 2
    alternating rounds of 8-step windows: median step times, the port's
    kernels a step, then 2 profiled steps of each (device time, launches,
    matrix products, idle share) and the gated/full step-time ratio;
@@ -157,7 +165,25 @@ Phases, each of which makes the run exit non-zero if it fails:
    within 1e-4 relative, each parameter leaf's update within 1e-2 of the
    CPU's (relative L2; a leaf the CPU left unchanged stays so) and the
    launches of one selected and one frozen layer a step; gated full equal
-   to ungated full on the card bit for bit.
+   to ungated full on the card bit for bit;
+20. llama3.2-1b at full width (16 layers, d_model 2048, 32 q / 8 kv heads,
+   head dim 64, vocab 128256, 18 blocks; random weights from a seeded
+   generator), bf16: phase 7's dense adagradselect run (k = 4 of 18
+   blocks, 8 x 512 tokens, 10 steps) with its checks, launches a step
+   counted for 9 stacked leaves (no QKV bias), the peak beside the one
+   reckoned in PERF.md, and 2 profiled steps;
+21. the greedy eval of phase 16 on phase 20's params, with its checks;
+22. llama3.2-1b in f32 (TF32 off) at full width with 2 layers: phase 8's
+   topk_grad run card vs CPU at k = 2 of 4 blocks, each leaf's update
+   within 1e-2 of the CPU's (relative L2), and phase 5's greedy tokens
+   against a teacher-forced prefill on both layouts;
+23. phi4-mini-3.8b at full width (32 layers, d_model 3072, 24 q heads
+   padded to 32 on 8 kv heads, head dim 128, vocab 200064, 34 blocks),
+   bf16: phase 7's run for 6 steps (k = 7 of 34 blocks), dense residency,
+   the peak beside the one reckoned in PERF.md;
+24. phase 4's paged serving run on phi4-mini (row 1 at head dim 128 over
+   32 padded q heads, row 2 at D 3072);
+25. phase 22's checks on phi4-mini.
 
 Then it prints the kernel summary as one JSON line and, last, the device
 line ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
@@ -206,11 +232,28 @@ FLASH_PARTS = {"flash_fwd_kernel": ("flash_fwd_kernel",),
                "flash_dkv_kernel": ("flash_dkv_kernel",
                                     "flash_dkv_sum_kernel")}
 PACKED_UPDATE_RTOL = 0.1  # phase 14(b): of each leaf's largest CPU update
+UPDATE_GAP = 1e-2   # phases 8, 19, 22, 25: card vs CPU update, relative L2
 MATMUL_WORDS = ("gemm", "nvjet", "xmma", "cutlass", "matmul")
 DECODE_EVAL_VL = (1, 9, 300, 512) * 4  # phase 15's eval shape: 16 rows
 EVAL = dict(num_problems=32, batch_size=16)   # phase 16
 EVAL_CALL_S = 48.0        # phase 16: the most one eval call may take
 EVAL_PROFILE = (8, 2)     # phase 16: engine steps of call 2 skipped, profiled
+# the paper's other two models (phases 20-25): llama3.2-1b trains and is
+# evaluated as qwen2.5-0.5b is in phases 7 and 16, phi4-mini-3.8b trains
+# for PHI4_STEPS steps and serves as in phase 4
+LLAMA, PHI4 = "llama3.2-1b", "phi4-mini-3.8b"
+PHI4_STEPS = 6
+# rows 2 and 2b: qwen2.5-0.5b's d_model, then llama3.2-1b's and phi4-mini's
+# (padded to 2048 and 4096 lanes), at one decode row block and at the
+# training path's 8 x 512 rows
+NORM_SHAPES = ((4, 896), (8192, 896), (4, 2048), (4, 3072), (4096, 2048),
+               (4096, 3072))
+NORM_BWD_SHAPES = ((4, 896), (4096, 896), (4, 2048), (4, 3072),
+                   (4096, 2048), (4096, 3072))
+NORM_MAIN = (4096, 3072)   # the summary line's rows 2 and 2b (phi4-mini)
+NORM_DX_MAIN = (4096, 896)  # 2b's dx-only mode: its path is qwen2.5-0.5b's
+# rows 7 and 8 on the new models' largest stacked leaves (mlp.wg)
+WIDE_LEAVES = {"llama wg": (16, 2048 * 8192), "phi4 wg": (32, 3072 * 8192)}
 
 
 class PhaseFailed(RuntimeError):
@@ -405,30 +448,29 @@ def phase_kernels(torch, ops, ref, timer) -> dict:
             rows.append(row)
             if label == "serving" and dtype == "bfloat16":
                 main["paged_decode_attention"] = row
-        for n in (4, 8192):
+        for n, d in NORM_SHAPES:
             g = torch.Generator(device="cuda").manual_seed(n)
             dt = getattr(torch, dtype)
-            x = torch.randn(n, 896, generator=g, device="cuda").to(dt)
-            s = (1 + 0.1 * torch.randn(896, generator=g, device="cuda")).to(dt)
+            x = torch.randn(n, d, generator=g, device="cuda").to(dt)
+            s = (1 + 0.1 * torch.randn(d, generator=g, device="cuda")).to(dt)
             n0 = ops.LAUNCHES["rmsnorm"]
             out = ops.rmsnorm(x, s, 1e-6)
             torch.cuda.synchronize()
             check(ops.LAUNCHES["rmsnorm"] == n0 + 1,
                   "rmsnorm did not count its launch")
             err = _check_close(torch, out, ref.rmsnorm(x, s, 1e-6), dtype,
-                               f"rmsnorm [{n}, 896]")
+                               f"rmsnorm [{n}, {d}]")
             es = x.element_size()
-            bms, by = bound_ms(2 * n * 896 * es + 896 * es, 4 * n * 896,
-                               dtype)
+            bms, by = bound_ms(2 * n * d * es + d * es, 4 * n * d, dtype)
             row = dict(kernel="rmsnorm", case=f"N={n}", dtype=dtype,
-                       shape=f"[{n}, 896]", max_abs_err=err, tol=TOL[dtype],
+                       shape=f"[{n}, {d}]", max_abs_err=err, tol=TOL[dtype],
                        ms=timer.ms(lambda: ops.rmsnorm(x, s, 1e-6)),
                        plain_ms=timer.ms(lambda: ref.rmsnorm(x, s, 1e-6)),
                        library_ms=timer.ms(lambda: F.rms_norm(
-                           x, (896,), weight=s, eps=1e-6)),
+                           x, (d,), weight=s, eps=1e-6)),
                        bound_ms=bms, bound_by=by)
             rows.append(row)
-            if n == 4 and dtype == "bfloat16":
+            if (n, d) == NORM_MAIN and dtype == "bfloat16":
                 main["rmsnorm"] = row
     _paged_wide(torch, ops, ref)
     _paged_splits(torch, ref, timer)
@@ -529,6 +571,7 @@ def phase_serving(torch, ops, lm, cfg, ServeEngine, ServeConfig,
     params = lm.init(cfg, torch.Generator(device="cuda").manual_seed(0),
                      device="cuda")
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     n_params = sum(t.numel() for t in _leaves(params))
     print(f"serving {cfg.name} ({cfg.num_layers} layers, d_model "
           f"{cfg.d_model}, {cfg.padded_heads} q heads / {cfg.num_kv_heads} "
@@ -587,13 +630,15 @@ def _leaves(tree):
 
 
 def _profile(torch, cfg, params, ServeEngine, ServeConfig, Request):
-    """Where the device time goes in one more serving run."""
+    """Where the device time and the host time go in one more serving
+    run."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, _, wall = _serve_once(torch, cfg, params, ServeEngine,
                                  ServeConfig, Request)
-    events = [e for e in prof.key_averages()
+    averages = prof.key_averages()
+    events = [e for e in averages
               if getattr(e, "device_time_total", 0) > 0
               and e.device_type.name == "CUDA"]
     busy_us = sum(e.device_time_total for e in events)
@@ -609,7 +654,7 @@ def _profile(torch, cfg, params, ServeEngine, ServeConfig, Request):
     for e in sorted(events, key=lambda e: -e.device_time_total)[:12]:
         print(f"    {e.device_time_total / 1e3:9.2f} ms {e.count:7d}x  "
               f"{e.key[:90]}")
-    host = [e for e in prof.key_averages() if e.self_cpu_time_total > 0]
+    host = [e for e in averages if e.self_cpu_time_total > 0]
     print(f"  host ops by self time (profiler on, "
           f"{sum(e.count for e in host)} calls):")
     for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:8]:
@@ -657,7 +702,8 @@ def phase_consistency(torch, ops, lm, cfg, ServeEngine, ServeConfig,
                     f"{int(toks[i])}, teacher-forced prefill {int(want[i])} "
                     f"(top-2 logits {top})")
             checked += len(toks)
-        print(f"consistency (f32, full width, {layout} KV): {checked} greedy "
+        print(f"consistency {cfg.name} (f32, {cfg.num_layers} layers at "
+              f"full width, {layout} KV): {checked} greedy "
               f"tokens of {len(res)} requests equal the teacher-forced "
               f"prefill argmax; kernel launches in that serving run "
               f"({eng.stats['decode_chunks'] * SERVE['decode_chunk']} decode "
@@ -674,170 +720,225 @@ def _bits_equal(torch, a, b) -> bool:
     return a.shape == b.shape and torch.equal(a.view(ib), b.view(ib))
 
 
+def _sel_rows(nl: int) -> tuple:
+    """5 of nl stacked rows selected: qwen2.5-0.5b's TRAIN_SEL_ROWS, else
+    every (nl // 5)-th row from row 1."""
+    return TRAIN_SEL_ROWS if nl == 24 else tuple(range(1, nl, nl // 5))[:5]
+
+
+def _leaf_rows(torch, ops, ref, timer, dtype, leaf, nl, r) -> list:
+    """Rows 7 and 8 on one stacked leaf [nl, r] against their plain
+    versions: the norms bit-identical over two launches, AdamW rows with
+    sel = 0 bit-identical; returns their summary rows."""
+    adam = dict(lr=0.3, b1=0.9, b2=0.999, eps=1e-8, wd=0.1)
+    dt = getattr(torch, dtype)
+    es = torch.tensor([], dtype=dt).element_size()
+    g = torch.Generator(device="cuda").manual_seed(nl * r % 9973)
+
+    def rnd(scale=1.0, shift=0.0):
+        return shift + scale * torch.randn(nl, r, generator=g,
+                                           device="cuda")
+    grad = rnd(1.0, 0.5).to(dt)      # nonzero mean
+    # row 7: per-row sum of squares (f32 sums: f32 tolerance)
+    n0 = ops.LAUNCHES["block_grad_sq_norms"]
+    out = ops.block_grad_sq_norms(grad)
+    again = ops.block_grad_sq_norms(grad)
+    torch.cuda.synchronize()
+    check(ops.LAUNCHES["block_grad_sq_norms"] == n0 + 2,
+          "block_grad_sq_norms did not count its launches")
+    check(_bits_equal(torch, out, again),
+          f"block_grad_sq_norms {leaf} {dtype}: two launches gave "
+          f"different bits")
+    err = _check_close(torch, out[:, None],
+                       ref.block_grad_sq_norms(grad)[:, None],
+                       "float32", f"block_grad_sq_norms {leaf} {dtype}")
+    bms, by = bound_ms(nl * r * es + nl * 4, 2 * nl * r, "float32")
+    rows = [dict(kernel="block_grad_sq_norms", case=leaf, dtype=dtype,
+                 shape=f"[{nl}, {r}]", max_abs_err=err,
+                 tol=TOL["float32"],
+                 ms=timer.ms(lambda: ops.block_grad_sq_norms(grad)),
+                 plain_ms=timer.ms(lambda: ref.block_grad_sq_norms(grad)),
+                 library_ms=timer.ms(lambda: torch.linalg.vector_norm(
+                     grad, dim=1, dtype=torch.float32) ** 2),
+                 bound_ms=bms, bound_by=by)]
+    del out, again
+    # row 8: masked AdamW, in place
+    p, m, v = rnd().to(dt), rnd(0.1, 0.05), rnd(0.01).abs() + 0.01
+    sel_rows = _sel_rows(nl)
+    sel = torch.zeros(nl, device="cuda")
+    sel[list(sel_rows)] = 1.0
+    cnt = torch.arange(1, nl + 1, dtype=torch.float32, device="cuda")
+    args = (sel, cnt, *adam.values())
+    pk, mk, vk = p.clone(), m.clone(), v.clone()
+    n0 = ops.LAUNCHES["masked_adamw"]
+    ops.masked_adamw(pk, grad, mk, vk, *args)
+    torch.cuda.synchronize()
+    check(ops.LAUNCHES["masked_adamw"] == n0 + 1,
+          "masked_adamw did not count its launch")
+    pr, mr, vr = ref.masked_adamw(p, grad, m, v, *args)
+    on = sel > 0
+    err = _check_close(torch, pk[on], pr[on], dtype,
+                       f"masked_adamw p {leaf}")
+    for what, got, want in (("m", mk, mr), ("v", vk, vr)):
+        _check_close(torch, got[on], want[on], "float32",
+                     f"masked_adamw {what} {leaf} {dtype}")
+    del pr, mr, vr
+    for what, new, old in (("p", pk, p), ("m", mk, m), ("v", vk, v)):
+        check(_bits_equal(torch, new[~on], old[~on]),
+              f"masked_adamw {leaf} {dtype}: {what} of a row with "
+              f"sel = 0 changed")
+    moved = (pk[on].float() - p[on].float()).abs().max().item()
+    check(moved > 5 * TOL[dtype], f"masked_adamw {leaf} {dtype}: "
+          f"the step ({moved:.3g}) is too small for the check")
+    n_sel = len(sel_rows)
+    bms, by = bound_ms(n_sel * r * (3 * es + 16) + 2 * nl * 4,
+                       15 * n_sel * r, "float32")
+    rows.append(dict(kernel="masked_adamw", case=leaf, dtype=dtype,
+                     shape=f"[{nl}, {r}], {n_sel} rows selected",
+                     max_abs_err=err, tol=TOL[dtype],
+                     ms=timer.ms(lambda: ops.masked_adamw(pk, grad, mk, vk,
+                                                          *args)),
+                     plain_ms=timer.ms(lambda: ref.masked_adamw(
+                         p, grad, m, v, *args)),
+                     library_ms=None, bound_ms=bms, bound_by=by))
+    return rows
+
+
+def _norm_inputs(torch, dt, n, d, seed=5):
+    """x with nonzero column means, scale near 1, dy = 1 + N(0, 1): the
+    RMSNorm's outputs and gradients are large beside the tolerance."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    mu = 1 + 0.5 * torch.randn(d, generator=g, device="cuda")
+    x = (mu + torch.randn(n, d, generator=g, device="cuda")).to(dt)
+    s = (1 + 0.1 * torch.randn(d, generator=g, device="cuda")).to(dt)
+    dy = (1 + torch.randn(n, d, generator=g, device="cuda")).to(dt)
+    return x, s, dy
+
+
+def _norm_usage(torch, x, s, dy) -> str:
+    """Registers a thread and spills of the compiled forward, row pass (full
+    and dx-only) and column pass of rows 2 and 2b at this shape, as Triton
+    reports them (launched outside the counted wrappers); fails on a spill
+    or when Triton reports neither."""
+    from repro_torch.kernels import rmsnorm as rn
+    kernels = [("fwd", rn.launch(x, s, 1e-6, torch.empty_like(x)))]
+    row, col = rn.launch_bwd(x, s, dy, 1e-6, torch.empty_like(x),
+                             torch.empty_like(s))
+    dx_only, _ = rn.launch_bwd(x, s, dy, 1e-6, torch.empty_like(x), None)
+    kernels += [("row pass", row), ("col sums", col),
+                ("row pass dx-only", dx_only)]
+    out = []
+    for name, k in kernels:
+        regs = getattr(k, "n_regs", None)
+        spills = getattr(k, "n_spills", None)
+        check(spills == 0, f"rmsnorm {name} {tuple(x.shape)} {x.dtype}: "
+              f"{spills} spills ({regs} registers)")
+        out.append(f"{name} {regs} regs")
+    return ", ".join(out) + ", no spills"
+
+
+def _norm_bwd_rows(torch, ops, ref, timer, F, dtype, n, d) -> list:
+    """Row 2b at [n, d] against its plain version: dx and dscale
+    bit-identical over two launches, the dx-only mode in one launch with
+    the full mode's dx bits, no register spills; timed (with the summary
+    rows returned) at the training path's 8 x 512 rows."""
+    dt = getattr(torch, dtype)
+    es = torch.tensor([], dtype=dt).element_size()
+    x, s, dy = _norm_inputs(torch, dt, n, d)
+    n0 = ops.LAUNCHES["rmsnorm_bwd"]
+    dx, ds = ops.rmsnorm_bwd(dy, x, s, 1e-6)
+    dx2, ds2 = ops.rmsnorm_bwd(dy, x, s, 1e-6)
+    torch.cuda.synchronize()
+    check(ops.LAUNCHES["rmsnorm_bwd"] == n0 + 2,
+          "rmsnorm_bwd did not count its launches")
+    check(_bits_equal(torch, dx, dx2) and _bits_equal(torch, ds, ds2),
+          f"rmsnorm_bwd [{n}, {d}] {dtype}: two launches gave different "
+          f"bits")
+    pdx, pds = ref.rmsnorm_bwd(dy, x, s, 1e-6)
+    err = _check_close(torch, dx, pdx, dtype, f"rmsnorm_bwd dx [{n}, {d}]")
+    err = max(err, _check_close(torch, ds[None], pds[None], dtype,
+                                f"rmsnorm_bwd dscale [{n}, {d}]"))
+    # the dx-only mode (a frozen layer's norm): one launch, the plain
+    # dx-only version's dx within the tolerance, the full mode's dx bit for
+    # bit
+    before = dict(ops.LAUNCHES)
+    dxo, dso = ops.rmsnorm_bwd(dy, x, s, 1e-6, with_dscale=False)
+    torch.cuda.synchronize()
+    check({k: ops.LAUNCHES[k] - before[k] for k in before} == {
+        k: int(k == "rmsnorm_bwd_dx") for k in before},
+        f"rmsnorm_bwd dx-only [{n}, {d}] {dtype}: not one rmsnorm_bwd_dx "
+        f"launch")
+    check(dso is None and _bits_equal(torch, dxo, dx),
+          f"rmsnorm_bwd dx-only [{n}, {d}] {dtype}: dx differs from the "
+          f"full mode's bits")
+    pdxo, _ = ref.rmsnorm_bwd(dy, x, s, 1e-6, with_dscale=False)
+    err_dx = _check_close(torch, dxo, pdxo, dtype,
+                          f"rmsnorm_bwd dx-only [{n}, {d}]")
+    usage = _norm_usage(torch, x, s, dy)
+    print(f"  rmsnorm_bwd [{n}, {d}] {dtype}: dx and dscale within the "
+          f"tolerance (max |err| {err:.2e}), bit-identical over two "
+          f"launches; dx-only mode within the tolerance (max |err| "
+          f"{err_dx:.2e}), one launch, the full mode's dx bits; {usage}")
+    if n != TRAIN["global_batch"] * TRAIN["seq_len"]:
+        return []
+    xl = x.clone().requires_grad_()
+    sl = s.clone().requires_grad_()
+    yl = F.rms_norm(xl, (d,), weight=sl, eps=1e-6)
+    bms, by = bound_ms(3 * n * d * es + 2 * d * es, 10 * n * d, "float32")
+    row = dict(kernel="rmsnorm_bwd", case=f"N={n}", dtype=dtype,
+               shape=f"[{n}, {d}]", max_abs_err=err, tol=TOL[dtype],
+               ms=timer.ms(lambda: ops.rmsnorm_bwd(dy, x, s, 1e-6)),
+               plain_ms=timer.ms(lambda: ref.rmsnorm_bwd(dy, x, s, 1e-6)),
+               library_ms=timer.ms(lambda: torch.autograd.grad(
+                   yl, (xl, sl), dy, retain_graph=True),
+                   spin=LONG_SPIN_CYCLES),
+               bound_ms=bms, bound_by=by)
+    # dx-only: reads x and dy, writes dx (and the scale once)
+    yo = F.rms_norm(xl, (d,), weight=s, eps=1e-6)
+    bms, by = bound_ms(3 * n * d * es + d * es, 8 * n * d, "float32")
+    row_dx = dict(kernel="rmsnorm_bwd_dx", case=f"N={n}", dtype=dtype,
+                  shape=f"[{n}, {d}]", max_abs_err=err_dx, tol=TOL[dtype],
+                  ms=timer.ms(lambda: ops.rmsnorm_bwd(
+                      dy, x, s, 1e-6, with_dscale=False)),
+                  plain_ms=timer.ms(lambda: ref.rmsnorm_bwd(
+                      dy, x, s, 1e-6, with_dscale=False)),
+                  library_ms=timer.ms(lambda: torch.autograd.grad(
+                      yo, (xl,), dy, retain_graph=True),
+                      spin=LONG_SPIN_CYCLES),
+                  bound_ms=bms, bound_by=by)
+    return [row, row_dx]
+
+
 def phase_train_kernels(torch, ops, ref, timer) -> dict:
     """Rows 7, 8 and 2b against their plain versions; returns the summary
-    entries of the main path's largest launch (wg, bf16; [4096, 896] bf16
-    for the RMSNorm backward)."""
+    entries of the main path's largest launch (qwen2.5-0.5b's wg, bf16, for
+    rows 7 and 8; [4096, 3072] bf16, phi4-mini's, for the RMSNorm
+    backward, and [4096, 896] for its dx-only mode, which only the gated
+    qwen2.5-0.5b runs take)."""
     F = torch.nn.functional
     rows, main = [], {}
-    adam = dict(lr=0.3, b1=0.9, b2=0.999, eps=1e-8, wd=0.1)
     for dtype in ("bfloat16", "float32"):
-        dt = getattr(torch, dtype)
-        es = torch.tensor([], dtype=dt).element_size()
-        for leaf, (nl, r) in TRAIN_LEAVES.items():
-            g = torch.Generator(device="cuda").manual_seed(nl * r % 9973)
-
-            def rnd(scale=1.0, shift=0.0):
-                return shift + scale * torch.randn(nl, r, generator=g,
-                                                   device="cuda")
-            grad = rnd(1.0, 0.5).to(dt)      # nonzero mean
-            # row 7: per-row sum of squares (f32 sums: f32 tolerance)
-            n0 = ops.LAUNCHES["block_grad_sq_norms"]
-            out = ops.block_grad_sq_norms(grad)
-            again = ops.block_grad_sq_norms(grad)
-            torch.cuda.synchronize()
-            check(ops.LAUNCHES["block_grad_sq_norms"] == n0 + 2,
-                  "block_grad_sq_norms did not count its launches")
-            check(_bits_equal(torch, out, again),
-                  f"block_grad_sq_norms {leaf} {dtype}: two launches gave "
-                  f"different bits")
-            err = _check_close(torch, out[:, None],
-                               ref.block_grad_sq_norms(grad)[:, None],
-                               "float32", f"block_grad_sq_norms {leaf} {dtype}")
-            bms, by = bound_ms(nl * r * es + nl * 4, 2 * nl * r, "float32")
-            row = dict(kernel="block_grad_sq_norms", case=leaf, dtype=dtype,
-                       shape=f"[{nl}, {r}]", max_abs_err=err, tol=TOL[
-                           "float32"],
-                       ms=timer.ms(lambda: ops.block_grad_sq_norms(grad)),
-                       plain_ms=timer.ms(
-                           lambda: ref.block_grad_sq_norms(grad)),
-                       library_ms=timer.ms(lambda: torch.linalg.vector_norm(
-                           grad, dim=1, dtype=torch.float32) ** 2),
-                       bound_ms=bms, bound_by=by)
-            rows.append(row)
+        for leaf, (nl, r) in {**TRAIN_LEAVES, **WIDE_LEAVES}.items():
+            rows += _leaf_rows(torch, ops, ref, timer, dtype, leaf, nl, r)
             if leaf == "wg" and dtype == "bfloat16":
-                main["block_grad_sq_norms"] = row
-            # row 8: masked AdamW, in place
-            p, m, v = rnd().to(dt), rnd(0.1, 0.05), rnd(0.01).abs() + 0.01
-            sel = torch.zeros(nl, device="cuda")
-            sel[list(TRAIN_SEL_ROWS)] = 1.0
-            cnt = torch.arange(1, nl + 1, dtype=torch.float32, device="cuda")
-            args = (sel, cnt, *adam.values())
-            pk, mk, vk = p.clone(), m.clone(), v.clone()
-            n0 = ops.LAUNCHES["masked_adamw"]
-            ops.masked_adamw(pk, grad, mk, vk, *args)
-            torch.cuda.synchronize()
-            check(ops.LAUNCHES["masked_adamw"] == n0 + 1,
-                  "masked_adamw did not count its launch")
-            pr, mr, vr = ref.masked_adamw(p, grad, m, v, *args)
-            on = sel > 0
-            err = _check_close(torch, pk[on], pr[on], dtype,
-                               f"masked_adamw p {leaf}")
-            for what, got, want in (("m", mk, mr), ("v", vk, vr)):
-                _check_close(torch, got[on], want[on], "float32",
-                             f"masked_adamw {what} {leaf} {dtype}")
-            for what, new, old in (("p", pk, p), ("m", mk, m), ("v", vk, v)):
-                check(_bits_equal(torch, new[~on], old[~on]),
-                      f"masked_adamw {leaf} {dtype}: {what} of a row with "
-                      f"sel = 0 changed")
-            moved = (pk.float() - p.float())[on].abs().max().item()
-            check(moved > 5 * TOL[dtype], f"masked_adamw {leaf} {dtype}: "
-                  f"the step ({moved:.3g}) is too small for the check")
-            n_sel = len(TRAIN_SEL_ROWS)
-            bms, by = bound_ms(n_sel * r * (3 * es + 16) + 2 * nl * 4,
-                               15 * n_sel * r, "float32")
-            row = dict(kernel="masked_adamw", case=leaf, dtype=dtype,
-                       shape=f"[{nl}, {r}], {n_sel} rows selected",
-                       max_abs_err=err, tol=TOL[dtype],
-                       ms=timer.ms(lambda: ops.masked_adamw(pk, grad, mk, vk,
-                                                            *args)),
-                       plain_ms=timer.ms(lambda: ref.masked_adamw(
-                           p, grad, m, v, *args)),
-                       library_ms=None, bound_ms=bms, bound_by=by)
-            rows.append(row)
-            if leaf == "wg" and dtype == "bfloat16":
-                main["masked_adamw"] = row
-            del grad, p, m, v, pk, mk, vk, pr, mr, vr
-        # row 2b: RMSNorm backward at [4, 896] and at the training path's
-        # [8 * 512, 896] (timed)
-        d = 896
-        for n in (4, TRAIN["global_batch"] * TRAIN["seq_len"]):
-            g = torch.Generator(device="cuda").manual_seed(5)
-            mu = 1 + 0.5 * torch.randn(d, generator=g, device="cuda")
-            x = (mu + torch.randn(n, d, generator=g, device="cuda")).to(dt)
-            s = (1 + 0.1 * torch.randn(d, generator=g, device="cuda")).to(dt)
-            dy = (1 + torch.randn(n, d, generator=g, device="cuda")).to(dt)
-            n0 = ops.LAUNCHES["rmsnorm_bwd"]
-            dx, ds = ops.rmsnorm_bwd(dy, x, s, 1e-6)
-            dx2, ds2 = ops.rmsnorm_bwd(dy, x, s, 1e-6)
-            torch.cuda.synchronize()
-            check(ops.LAUNCHES["rmsnorm_bwd"] == n0 + 2,
-                  "rmsnorm_bwd did not count its launches")
-            check(_bits_equal(torch, dx, dx2) and _bits_equal(torch, ds, ds2),
-                  f"rmsnorm_bwd [{n}, {d}] {dtype}: two launches gave "
-                  f"different bits")
-            pdx, pds = ref.rmsnorm_bwd(dy, x, s, 1e-6)
-            err = _check_close(torch, dx, pdx, dtype, f"rmsnorm_bwd dx [{n}]")
-            err = max(err, _check_close(torch, ds[None], pds[None], dtype,
-                                        f"rmsnorm_bwd dscale [{n}]"))
-            # the dx-only mode (a frozen layer's norm): one launch, the
-            # plain dx-only version's dx within the tolerance, the full
-            # mode's dx bit for bit
-            before = dict(ops.LAUNCHES)
-            dxo, dso = ops.rmsnorm_bwd(dy, x, s, 1e-6, with_dscale=False)
-            torch.cuda.synchronize()
-            check({k: ops.LAUNCHES[k] - before[k] for k in before} == {
-                k: int(k == "rmsnorm_bwd_dx") for k in before},
-                f"rmsnorm_bwd dx-only [{n}] {dtype}: not one rmsnorm_bwd_dx "
-                f"launch")
-            check(dso is None and _bits_equal(torch, dxo, dx),
-                  f"rmsnorm_bwd dx-only [{n}] {dtype}: dx differs from the "
-                  f"full mode's bits")
-            pdxo, _ = ref.rmsnorm_bwd(dy, x, s, 1e-6, with_dscale=False)
-            err_dx = _check_close(torch, dxo, pdxo, dtype,
-                                  f"rmsnorm_bwd dx-only [{n}]")
-            print(f"  rmsnorm_bwd [{n}, {d}] {dtype}: dx and dscale within "
-                  f"the tolerance (max |err| {err:.2e}), bit-identical over "
-                  f"two launches; dx-only mode within the tolerance (max "
-                  f"|err| {err_dx:.2e}), one launch, the full mode's dx bits")
-        xl = x.clone().requires_grad_()
-        sl = s.clone().requires_grad_()
-        yl = F.rms_norm(xl, (d,), weight=sl, eps=1e-6)
-        bms, by = bound_ms(3 * n * d * es + 2 * d * es, 10 * n * d,
-                           "float32")
-        row = dict(kernel="rmsnorm_bwd", case=f"N={n}", dtype=dtype,
-                   shape=f"[{n}, {d}]", max_abs_err=err, tol=TOL[dtype],
-                   ms=timer.ms(lambda: ops.rmsnorm_bwd(dy, x, s, 1e-6)),
-                   plain_ms=timer.ms(lambda: ref.rmsnorm_bwd(dy, x, s,
-                                                             1e-6)),
-                   library_ms=timer.ms(lambda: torch.autograd.grad(
-                       yl, (xl, sl), dy, retain_graph=True),
-                       spin=LONG_SPIN_CYCLES),
-                   bound_ms=bms, bound_by=by)
-        rows.append(row)
-        # dx-only: reads x and dy, writes dx (and the scale once)
-        yo = F.rms_norm(xl, (d,), weight=s, eps=1e-6)
-        bms, by = bound_ms(3 * n * d * es + d * es, 8 * n * d, "float32")
-        row_dx = dict(kernel="rmsnorm_bwd_dx", case=f"N={n}", dtype=dtype,
-                      shape=f"[{n}, {d}]", max_abs_err=err_dx,
-                      tol=TOL[dtype],
-                      ms=timer.ms(lambda: ops.rmsnorm_bwd(
-                          dy, x, s, 1e-6, with_dscale=False)),
-                      plain_ms=timer.ms(lambda: ref.rmsnorm_bwd(
-                          dy, x, s, 1e-6, with_dscale=False)),
-                      library_ms=timer.ms(lambda: torch.autograd.grad(
-                          yo, (xl,), dy, retain_graph=True),
-                          spin=LONG_SPIN_CYCLES),
-                      bound_ms=bms, bound_by=by)
-        rows.append(row_dx)
-        if dtype == "bfloat16":
-            main["rmsnorm_bwd"] = row
-            main["rmsnorm_bwd_dx"] = row_dx
+                main.update({r["kernel"]: r for r in rows[-2:]})
+            gc.collect()
+            torch.cuda.empty_cache()
+        # row 2b: RMSNorm backward at a decode row block and at the
+        # training path's [8 * 512, D] (timed), D of the three models
+        for n, d in NORM_BWD_SHAPES:
+            rows += _norm_bwd_rows(torch, ops, ref, timer, F, dtype, n, d)
+            if dtype != "bfloat16":
+                continue
+            if (n, d) == NORM_MAIN:
+                main["rmsnorm_bwd"] = rows[-2]
+            if (n, d) == NORM_DX_MAIN:
+                main["rmsnorm_bwd_dx"] = rows[-1]
     print("training kernels vs plain versions (CUDA events, L2 flushed, ms "
           "per call):")
     for r in rows:
         lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        print(f"  {r['kernel']:<20} {r['case']:<7} {r['dtype']:<9} "
+        print(f"  {r['kernel']:<20} {r['case']:<8} {r['dtype']:<9} "
               f"err {r['max_abs_err']:.2e} (rtol=atol {r['tol']:.0e})  "
               f"kernel {r['ms']:.4f}  plain {r['plain_ms']:.4f}  "
               f"library {lib}  bound {r['bound_ms']:.5f} ({r['bound_by']})"
@@ -873,26 +974,30 @@ def _flash_per_step(nl: int) -> dict:
 
 
 def _train_launches(nl: int, adamw: str = "masked_adamw",
-                    sel_layers: int | None = None) -> dict:
+                    sel_layers: int | None = None, leaves: int = 12) -> dict:
     """Kernel launches of one training step of nl layers: the forward's
     norms and, under ``remat="full"``, each layer's two norms again; the
     backward's norms, in the full mode once per norm of a layer that gets
     weight gradients (``sel_layers`` of them under the gate, else all) and
     the final norm, in the dx-only mode once per norm of a frozen layer;
     one block norm and one AdamW launch (``adamw``: dense or banked) a
-    stacked leaf (12); the flash kernels."""
+    stacked [L, ...] leaf of the params' ``layers`` (``leaves``: 12 with
+    QKV bias, 9 without); the flash kernels."""
     sel = nl if sel_layers is None else sel_layers
     want = {"paged_decode_attention": 0, "decode_attention": 0,
-            "block_grad_sq_norms": 12, "masked_adamw": 0,
+            "block_grad_sq_norms": leaves, "masked_adamw": 0,
             "banked_masked_adamw": 0, "rmsnorm": 4 * nl + 1,
             "rmsnorm_bwd": 2 * sel + 1, "rmsnorm_bwd_dx": 2 * (nl - sel),
             **_flash_per_step(nl)}
-    want[adamw] = 12
+    want[adamw] = leaves
     return want
 
 
-def phase_training(torch, ops, cfg, Trainer) -> dict:
-    steps, warm = TRAIN["steps"], TRAIN["warmup"]
+def phase_training(torch, ops, cfg, Trainer, steps=TRAIN["steps"],
+                   keep_eval=True) -> dict:
+    """The dense adagradselect run at full width; with ``keep_eval`` the
+    trained params' eval view, on the host, for the greedy eval."""
+    warm = TRAIN["warmup"]
     tcfg = _train_cfg(cfg, "adagradselect", steps, TRAIN["global_batch"],
                       TRAIN["seq_len"])
     t0 = time.perf_counter()
@@ -923,7 +1028,8 @@ def phase_training(torch, ops, cfg, Trainer) -> dict:
           f"{mask_sum.tolist()}")
     per_step = {name: n / steps for name, n in launches.items()}
     nl = cfg.num_layers
-    want = _train_launches(nl)
+    want = _train_launches(
+        nl, leaves=len(list(_leaves(tr.state["params"]["layers"]))))
     check(per_step == want, f"launches per step {per_step} != the path's "
           f"{want}")
     times = log.step_times[warm:]
@@ -937,14 +1043,14 @@ def phase_training(torch, ops, cfg, Trainer) -> dict:
     print(f"  selected per step: {n_sel}; counts = summed masks "
           f"{mask_sum.int().tolist()}")
     print(f"  launches per step: {json.dumps(per_step)}")
-    _profile_training(torch, tr)
+    prof = _profile_training(torch, tr)
     # phase 16 evaluates these params; they wait on the host, so that the
     # peaks measured in between are those of the phases' own runs
-    eval_params = _to(tr.method.eval_params(cfg, tcfg.optimizer, tr.state),
-                      "cpu")
+    eval_params = (_to(tr.method.eval_params(cfg, tcfg.optimizer, tr.state),
+                       "cpu") if keep_eval else None)
     return {"launches": launches, "step_ms": med * 1e3, "peak": peak,
             "tokens_s": tokens / med, "eval_params": eval_params,
-            "task": tr.data.cfg}
+            "task": tr.data.cfg, "profile": prof}
 
 
 def _is_matmul(key: str) -> bool:
@@ -1011,15 +1117,37 @@ def _to(tree, device):
     return tree
 
 
-def phase_train_consistency(torch, ops, cfg, Trainer) -> None:
-    """The same 3 f32 topk_grad steps on the card and on the CPU."""
+def _update_gap(torch, card_params, cpu_params, before, limit) -> float:
+    """Each leaf's update (params after minus ``before``) on the card
+    against the CPU's, as a relative L2 gap (a wrong or missing update is
+    ~1); fails above ``limit`` or when a leaf the CPU left unchanged moved
+    on the card. Returns the largest gap."""
+    gap = 0.0
+    for a, b, a0 in zip(_leaves(card_params), _leaves(cpu_params), before):
+        dc, dh = a.cpu() - a0, b - a0
+        scale = dh.norm().item()
+        check(scale > 0 or not dc.any(), "a leaf the CPU left unchanged "
+              "moved on the card")
+        if scale > 0:
+            gap = max(gap, (dc - dh).norm().item() / scale)
+    check(gap <= limit, f"updates differ by {gap:.3g} of the CPU's "
+          f"(relative L2, limit {limit:g})")
+    return gap
+
+
+def phase_train_consistency(torch, ops, cfg, Trainer,
+                            k_percent=20.0) -> None:
+    """The same 3 f32 topk_grad steps on the card and on the CPU, each
+    leaf's update held against the CPU's as in phase 19 (``_update_gap``)."""
     steps, lr = 3, 1e-3
     cfg = cfg.replace(dtype="float32", num_layers=2)
     tcfg = _train_cfg(cfg, "topk_grad", steps, 2, 64, lr=lr,
-                      schedule="constant", warmup_steps=0)
+                      schedule="constant", warmup_steps=0,
+                      k_percent=k_percent)
     card = Trainer(tcfg, device="cuda")
     cpu = Trainer(tcfg, device="cpu")
     cpu.state = _to(card.state, "cpu")
+    p0 = [t.clone() for t in _leaves(cpu.state["params"])]
     ops.reset_launches()
     for i in range(steps):
         card.train(1)
@@ -1043,14 +1171,20 @@ def phase_train_consistency(torch, ops, cfg, Trainer) -> None:
         worst = max(worst, (a.cpu() - b).abs().max().item())
     limit = 2 * lr * steps
     check(worst <= limit, f"params differ by {worst} > {limit}")
+    gap = _update_gap(torch, pc, ph, p0, UPDATE_GAP)
     rel = max(abs(a - b) / abs(b) for a, b in zip(card.log.losses,
                                                    cpu.log.losses))
-    print(f"training consistency (f32, TF32 off, {cfg.num_layers} layers at "
-          f"full width, batch 2 x 64, {steps} topk_grad steps, card vs CPU): "
-          f"losses {[round(x, 6) for x in card.log.losses]}, max rel err "
+    print(f"training consistency {cfg.name} (f32, TF32 off, "
+          f"{cfg.num_layers} layers at full width, batch 2 x 64, {steps} "
+          f"topk_grad steps, k = {card.sel_cfg.num_selected(cfg.num_blocks)}"
+          f" of {cfg.num_blocks} blocks, card vs CPU): losses "
+          f"{[round(x, 6) for x in card.log.losses]}, max rel err "
           f"{rel:.2e} (limit 1e-4); masks equal at every step; params max "
-          f"|err| {worst:.3g} (limit {limit:g}); card launches "
+          f"|err| {worst:.3g} (limit {limit:g}); each leaf's update within "
+          f"{gap:.3g} of the CPU's (relative L2, limit {UPDATE_GAP:g}); "
+          f"card launches "
           f"{json.dumps(launches)}")
+    del card, cpu
 
 
 # ------------------------------------------------------- banked residency
@@ -1486,14 +1620,18 @@ def _segment_ids(torch, kind, b, s):
     return ids[None].repeat(b, 1).contiguous()
 
 
-def _flash_case(torch, dtype, b, s, d, seg_kind, seed=0, q_scale=None):
+def _flash_case(torch, dtype, b, s, d, seg_kind, seed=0, q_scale=None,
+                hmap=None):
     """qwen2.5-0.5b's head map (16 q heads, 7 on kv head 0, 9 on kv head
-    1: the two padded ones clamp onto the last); N(0, 1) k, v and do; in
+    1: the two padded ones clamp onto the last), or ``hmap`` (a list, one
+    kv head a q head: ``WIDE_HMAPS``); N(0, 1) k, v and do; in
     bf16 q = 3 N(0, 1), a peaked softmax whose outputs stay large beside
     the 2e-2 tolerance, in f32 q = N(0, 1) unless ``q_scale`` says
     otherwise (the peaked f32 case is held against f64: ``_flash_f64``).
     ``seg_kind``: the segment ids' ``_segment_ids`` kind, or None."""
-    h, kvh = 16, 2
+    if hmap is None:
+        hmap = [min(i // 7, 1) for i in range(16)]
+    h, kvh = len(hmap), max(hmap) + 1
     g = torch.Generator(device="cuda").manual_seed(seed)
     dt = getattr(torch, dtype)
 
@@ -1504,8 +1642,7 @@ def _flash_case(torch, dtype, b, s, d, seg_kind, seed=0, q_scale=None):
         q_scale = 3.0 if dtype == "bfloat16" else 1.0
     q = rnd(b, s, h, d, scale=q_scale)
     k, v, do = rnd(b, s, kvh, d), rnd(b, s, kvh, d), rnd(b, s, h, d)
-    hmap = torch.tensor([min(i // 7, kvh - 1) for i in range(h)],
-                        dtype=torch.int32, device="cuda")
+    hmap = torch.tensor(hmap, dtype=torch.int32, device="cuda")
     return q, k, v, do, hmap, _segment_ids(torch, seg_kind, b, s)
 
 
@@ -1627,7 +1764,14 @@ def phase_flash_kernels(torch, ops, ref, _fa, timer) -> dict:
              ("tile edges", 2, 512, 64, "edges", True),
              ("D=128", 2, 512, 128, "packed", True),
              ("D=128 nc", 2, 512, 128, "packed", False),
-             ("non-causal", 2, 512, 64, "packed", False)]
+             ("non-causal", 2, 512, 64, "packed", False),
+             # the training shape at llama3.2-1b's and phi4-mini's heads
+             ("llama causal", 8, 512, 64, None, True),
+             ("llama packed", 8, 512, 64, "packed", True),
+             ("phi4 causal", 8, 512, 128, None, True),
+             ("phi4 packed", 8, 512, 128, "packed", True)]
+    heads = {"llama": WIDE_HMAPS[64], "phi4": WIDE_HMAPS[128]}
+    timed = ("train", "llama", "phi4")
     work, causal_tiles = _flash_tiles(
         torch, _segment_ids(torch, "packed", 8, 512))
     print(f"  packed training shape (B 8, S 512): {work} of the "
@@ -1637,8 +1781,9 @@ def phase_flash_kernels(torch, ops, ref, _fa, timer) -> dict:
     rows, main = [], {}
     for dtype in ("bfloat16", "float32"):
         for label, b, s, d, seg_kind, causal in cases:
-            q, k, v, do, hm, seg = _flash_case(torch, dtype, b, s, d,
-                                               seg_kind)
+            q, k, v, do, hm, seg = _flash_case(
+                torch, dtype, b, s, d, seg_kind,
+                hmap=heads.get(label.split()[0]))
             mode = dict(causal=causal, segment_ids=seg)
             n0 = dict(ops.LAUNCHES)
             o, lse = ops.flash_attention_fwd(q, k, v, hm, **mode)
@@ -1666,12 +1811,13 @@ def phase_flash_kernels(torch, ops, ref, _fa, timer) -> dict:
                                     ("dv", dv, pv)):
                 errs[name] = _check_close(torch, got, want, dtype,
                                           f"{what} {name}")
-            if label.startswith("train"):
+            if label.startswith(timed):
                 rows += _flash_times(torch, F, ref, _fa, timer, dtype, label,
                                      q, k, v, do, o, lse, hm, seg, errs)
                 if label == "train packed" and dtype == "bfloat16":
                     main.update({r["kernel"]: r for r in rows[-3:]})
-            print(f"  flash {label:<13} {dtype:<9} B={b} S={s} H=16 KVH=2 "
+            print(f"  flash {label:<13} {dtype:<9} B={b} S={s} "
+                  f"H={q.shape[2]} KVH={k.shape[2]} "
                   f"D={d}{f' segmented ({seg_kind})' if seg_kind else ''}"
                   f"{' causal' if causal else ' non-causal'}: max "
                   f"|err| " + ", ".join(f"{n} {e:.2e}"
@@ -1687,7 +1833,7 @@ def phase_flash_kernels(torch, ops, ref, _fa, timer) -> dict:
     print("flash kernels at the training shape (CUDA events, L2 flushed, ms "
           "per call):")
     for r in rows:
-        print(f"  {r['kernel']:<24} {r['case']:<12} {r['dtype']:<9} "
+        print(f"  {r['kernel']:<24} {r['case']:<13} {r['dtype']:<9} "
               f"err {r['max_abs_err']:.2e}  kernel {r['ms']:.4f}  plain "
               f"{r['plain_ms']:.4f}  library {r['library_ms']:.4f}  bound "
               f"{r['bound_ms']:.5f} ({r['bound_by']})  {r['shape']}")
@@ -1791,7 +1937,7 @@ def _flash_times(torch, F, ref, _fa, timer, dtype, label, q, k, v, do, o,
         # each matrix product of the kernel: 2 D flops per attending pair
         # and q head
         bms, by = bound_ms(nbytes, n_mm * 2 * d * h * pairs, dtype)
-        out.append(dict(kernel=kernel, case=label.split()[1], dtype=dtype,
+        out.append(dict(kernel=kernel, case=label, dtype=dtype,
                         shape=shape, max_abs_err=err, tol=TOL[dtype],
                         ms=timer.ms(fn), plain_ms=plain, library_ms=lib,
                         bound_ms=bms, bound_by=by))
@@ -2185,7 +2331,7 @@ def phase_eval(torch, ops, cfg, evaluate, training) -> dict:
     task = training["task"]
     nl = cfg.num_layers
     max_new = task.seq_len - synthetic.prompt_len(task)
-    print(f"greedy eval of {cfg.name} ({cfg.dtype}) after phase 7's "
+    print(f"greedy eval of {cfg.name} ({cfg.dtype}) after its "
           f"adagradselect run: {EVAL['num_problems']} held-out problems of "
           f"the task it trained on ({task}), chunks of {EVAL['batch_size']} "
           f"slots on the dense KV layout, up to {max_new} new tokens each")
@@ -2444,7 +2590,7 @@ def phase_gated_training(torch, ops, cfg, Trainer, dense, banked) -> dict:
     return out
 
 
-def phase_gated_rounds(torch, ops, cfg, Trainer, rounds=3) -> dict:
+def phase_gated_rounds(torch, ops, cfg, Trainer, rounds=2) -> dict:
     """Gated adagradselect, ungated adagradselect and full fine-tuning in
     alternating rounds of 8-step windows (one sync at each window's end),
     then 2 profiled steps of each."""
@@ -2522,17 +2668,8 @@ def phase_gated_consistency(torch, ops, cfg, Trainer) -> None:
           f"layer a step")
     # each leaf's update (params after minus before) on the card against
     # the CPU's, as a relative L2 gap: a wrong or missing update is ~1
-    gap_limit, gap = 1e-2, 0.0
-    for a, b, a0 in zip(_leaves(card.state["params"]),
-                        _leaves(cpu.state["params"]), p0):
-        dc, dh = a.cpu() - a0, b - a0
-        scale = dh.norm().item()
-        check(scale > 0 or not dc.any(), "a leaf the CPU left unchanged "
-              "moved on the card")
-        if scale > 0:
-            gap = max(gap, (dc - dh).norm().item() / scale)
-    check(gap <= gap_limit, f"gated updates differ by {gap:.3g} of the "
-          f"CPU's (relative L2, limit {gap_limit:g})")
+    gap = _update_gap(torch, card.state["params"], cpu.state["params"], p0,
+                      UPDATE_GAP)
     rel = max(abs(a - b) / abs(b) for a, b in zip(card.log.losses,
                                                    cpu.log.losses))
     print(f"gated consistency (f32, TF32 off, 2 layers at full width, batch "
@@ -2540,7 +2677,7 @@ def phase_gated_consistency(torch, ops, cfg, Trainer) -> None:
           f"vs CPU): losses {[round(x, 6) for x in card.log.losses]}, max "
           f"rel err {rel:.2e} (limit 1e-4); masks equal at every step; "
           f"each leaf's update within {gap:.3g} of the CPU's (relative L2, "
-          f"limit {gap_limit:g}); card launches {json.dumps(launches)}")
+          f"limit {UPDATE_GAP:g}); card launches {json.dumps(launches)}")
     del card, cpu
     fcfg = _train_cfg(c32, "full", steps, 2, 64, **opt)
     plain = Trainer(fcfg, device="cuda")
@@ -2557,7 +2694,43 @@ def phase_gated_consistency(torch, ops, cfg, Trainer) -> None:
           f"steps: losses and every parameter)")
 
 
+# ------------------------------------------ the paper's other two models
+
+
+def phase_model_consistency(torch, ops, lm, cfg, Trainer, ServeEngine,
+                            ServeConfig, Request) -> None:
+    """f32 (TF32 off) at full width with 2 layers: phase 8's topk_grad run
+    on the card against the CPU (k = 2 of 4 blocks, each leaf's update
+    within ``UPDATE_GAP`` of the CPU's), then phase 5's greedy tokens
+    against a teacher-forced prefill on the paged and the dense layout."""
+    c2 = cfg.replace(num_layers=2)
+    t0 = time.perf_counter()
+    phase_train_consistency(torch, ops, c2, Trainer, k_percent=50.0)
+    gc.collect()
+    t1 = time.perf_counter()
+    phase_consistency(torch, ops, lm, c2, ServeEngine, ServeConfig, Request)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  {cfg.name} consistency: training {t1 - t0:.1f} s, serving "
+          f"{time.perf_counter() - t1:.1f} s")
+
+
 # ------------------------------------------------------------------ main
+
+
+class _Phases:
+    """The running phase's name, and the seconds each finished phase took
+    (host clock, from its start to the next phase's)."""
+
+    def __init__(self):
+        self.name, self.t0, self.seconds = "start", time.perf_counter(), {}
+
+    def start(self, name: str) -> None:
+        now = time.perf_counter()
+        self.seconds[self.name] = round(now - self.t0, 1)
+        print(f"[phase {self.name!r}: {self.seconds[self.name]} s]",
+              flush=True)
+        self.name, self.t0 = name, now
 
 
 def main() -> int:
@@ -2586,56 +2759,81 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 products in f32
     torch.backends.cudnn.allow_tf32 = False
-    phase = "start"
+    phase = _Phases()
     try:
-        phase = "card"
+        phase.start("card")
         phase_card()
-        phase = "build"
+        phase.start("build")
         phase_build(_build)
-        phase = "kernels"
+        phase.start("kernels")
         main_rows = phase_kernels(torch, ops, ref, Timer(torch))
-        phase = "serving"
+        phase.start("serving")
         cfg = get_config(ARCH)
         serving = phase_serving(torch, ops, lm, cfg, ServeEngine,
                                 ServeConfig, Request)
-        phase = "consistency"
+        phase.start("consistency")
         consistency = phase_consistency(torch, ops, lm, cfg, ServeEngine,
                                         ServeConfig, Request)
-        phase = "train kernels"
+        phase.start("train kernels")
         main_rows.update(phase_train_kernels(torch, ops, ref, Timer(torch)))
-        phase = "training"
+        phase.start("training")
         training = phase_training(torch, ops, cfg, Trainer)
-        phase = "train consistency"
+        phase.start("train consistency")
         phase_train_consistency(torch, ops, cfg, Trainer)
-        phase = "banked kernel"
+        phase.start("banked kernel")
         main_rows.update(phase_banked_kernel(torch, ops, ref, Timer(torch)))
-        phase = "banked training"
+        phase.start("banked training")
         banked = phase_banked_training(torch, ops, cfg, Trainer, training)
-        phase = "banked consistency"
+        phase.start("banked consistency")
         phase_banked_consistency(torch, ops, cfg, Trainer)
-        phase = "flash kernels"
+        phase.start("flash kernels")
         main_rows.update(phase_flash_kernels(torch, ops, ref, _fa,
                                              Timer(torch)))
-        phase = "packed training"
+        phase.start("packed training")
         packed = phase_packed_training(torch, ops, cfg, Trainer, loader,
                                        training)
-        phase = "packed consistency"
+        phase.start("packed consistency")
         phase_packed_consistency(torch, ops, cfg, Trainer, loader, lm, step)
-        phase = "decode kernel"
+        phase.start("decode kernel")
         main_rows.update(phase_decode_kernel(torch, ops, ref, _dec,
                                              Timer(torch)))
-        phase = "eval"
+        phase.start("eval")
         evaluation = phase_eval(torch, ops, cfg, evaluate, training)
-        phase = "gated training"
+        phase.start("gated training")
         gated = phase_gated_training(torch, ops, cfg, Trainer, training,
                                      banked)
-        phase = "gated rounds"
+        phase.start("gated rounds")
         phase_gated_rounds(torch, ops, cfg, Trainer)
-        phase = "gated consistency"
+        phase.start("gated consistency")
         phase_gated_consistency(torch, ops, cfg, Trainer)
+        runs = []       # the new models' main-path runs, for the summary
+        phase.start("llama training")
+        llama_cfg = get_config(LLAMA)
+        llama = phase_training(torch, ops, llama_cfg, Trainer)
+        runs.append(llama)
+        phase.start("llama eval")
+        runs.append(phase_eval(torch, ops, llama_cfg, evaluate, llama))
+        llama["eval_params"] = None
+        phase.start("llama consistency")
+        phase_model_consistency(torch, ops, lm, llama_cfg, Trainer,
+                                ServeEngine, ServeConfig, Request)
+        phase.start("phi4 training")
+        phi4_cfg = get_config(PHI4)
+        runs.append(phase_training(torch, ops, phi4_cfg, Trainer,
+                                   steps=PHI4_STEPS, keep_eval=False))
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase.start("phi4 serving")
+        runs.append(phase_serving(torch, ops, lm, phi4_cfg, ServeEngine,
+                                  ServeConfig, Request))
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase.start("phi4 consistency")
+        phase_model_consistency(torch, ops, lm, phi4_cfg, Trainer,
+                                ServeEngine, ServeConfig, Request)
     except Exception:   # the boundary: report the failed phase, exit non-zero
         traceback.print_exc()
-        print(f"chip_smoke: phase {phase!r} FAILED", file=sys.stderr)
+        print(f"chip_smoke: phase {phase.name!r} FAILED", file=sys.stderr)
         return 1
     sources = {"paged_decode_attention": (
         "cuda", "src/repro_torch/csrc/decode_attention.cu",
@@ -2669,6 +2867,8 @@ def main() -> int:
                                    "src/repro/kernels/flash_attention.py:117"),
         "flash_attention_bwd_dkv": (
             "cuda", flash_src, "src/repro/kernels/flash_attention.py:154")})
+    phase.start("summary")
+    print(f"phase seconds: {json.dumps(phase.seconds)}")
     kernels = []
     for name, (route, source, replaces) in sources.items():
         r = main_rows[name]
@@ -2677,19 +2877,24 @@ def main() -> int:
         # training (7), banked training (10) and packed training (13) for
         # the flash kernels, the dense serving run of phase 5 and the eval
         # (16) for the dense decode kernel, the gated runs (17) for the
-        # RMSNorm backward's dx-only mode
+        # RMSNorm backward's dx-only mode; and for every kernel the new
+        # models' runs (phases 20, 21, 23 and 24), zero where it is off
+        # their path
+        launches = sum(run["launches"][name] for run in runs)
         if name == "rmsnorm_bwd_dx":
-            launches = gated["launches"][name]
+            launches += gated["launches"][name]
         elif name == "decode_attention":
-            launches = (consistency["dense_launches"][name]
-                        + evaluation["launches"][name])
+            launches += (consistency["dense_launches"][name]
+                         + evaluation["launches"][name])
         elif name == "banked_masked_adamw":
-            launches = banked["launches"][name]
+            launches += banked["launches"][name]
         elif name.startswith("flash"):
-            launches = (training["launches"][name]
-                        + banked["launches"][name] + packed["launches"][name])
+            launches += (training["launches"][name]
+                         + banked["launches"][name]
+                         + packed["launches"][name])
         else:
-            launches = serving["launches"][name] + training["launches"][name]
+            launches += (serving["launches"][name]
+                         + training["launches"][name])
         kernels.append(dict(
             name=name, route=route, source=source, replaces=replaces,
             launches=launches, max_abs_err=r["max_abs_err"],

@@ -1,7 +1,7 @@
 """Architecture registry of the port: ``--arch <id>`` resolution.
 
-Only the archs this slice serves are registered; the others raise with the
-ROADMAP item that ports them."""
+The paper's three models are registered; the other archs of the JAX
+package raise with the ROADMAP item that ports them."""
 from __future__ import annotations
 
 import importlib
@@ -11,6 +11,8 @@ from repro_torch.configs.base import ModelConfig  # noqa: F401
 # arch id -> module name
 _ARCH_MODULES = {
     "qwen2.5-0.5b": "qwen2_5_0_5b",
+    "llama3.2-1b": "llama3_2_1b",
+    "phi4-mini-3.8b": "phi4_mini_3_8b",
 }
 
 
@@ -19,8 +21,7 @@ def _module(arch: str):
         raise KeyError(
             f"unknown arch {arch!r} for the PyTorch port; ported: "
             f"{sorted(_ARCH_MODULES)}. Other archs follow ROADMAP Queue A "
-            f"items 15 (the paper's other two models) and 12 (other "
-            f"families)")
+            f"item 12 (other families)")
     return importlib.import_module(
         f"repro_torch.configs.{_ARCH_MODULES[arch]}")
 

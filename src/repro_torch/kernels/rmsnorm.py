@@ -5,7 +5,10 @@ The forward replaces the TPU kernel ``_kernel`` of the JAX package's
 statistics in f32, output in the dtype of x. It is bound by memory: each
 element is read once and written once with ~4 flops between. One program
 normalises one row held whole in registers (``BLOCK`` = next power of two
->= D, masked, 1024 for D = 896), so x is read from device memory once.
+>= D, masked: 1024 for qwen2.5-0.5b's D 896, 2048 for llama3.2-1b's 2048,
+4096 for phi4-mini's 3072), so x is read from device memory once. The
+program's warps grow with ``BLOCK`` (``warps``: 4 up to 1024, then one per
+256 lanes), so that a thread holds at most 8 lanes of a row at any width.
 
 The backward has no TPU kernel to replace: the JAX package differentiates
 its RMSNorm in XLA. The port has one because the forward is a kernel on the
@@ -25,16 +28,19 @@ one:
 - the row pass (``_rmsnorm_bwd``) runs ``bwd_grid``'s programs, at most
   ``BWD_PER_SM`` an SM, each over a contiguous run of rows in [TILE, D]
   tiles (a tile 8 KB of x and as much of dy: 4 rows of bf16 at D 896, 2
-  of f32), 4 warps a program, so that a thread loads 16 bytes of a row.
+  of f32; 2 rows of bf16 at D 2048, one of f32; one row at 3072), with
+  the forward's ``warps``, so that a thread holds 8-32 values of each
+  live [TILE, BLOCK] tensor (x, dy, xhat, g * scale, dx) and at most 8 of
+  the scale and the dscale partial, which span a padded row.
   Its loop is software-pipelined over 3 stages (Triton's pipeliner copies
   the next tiles asynchronously while this one is computed), which is
   what keeps enough bytes in flight on an SM with so few programs. Its
   dscale partial, the sum over its rows of dy * xhat, stays in f32
   registers across its tiles and is written once: at most 2 x 132 partial
-  rows (0.95 MB at D 896);
+  rows (0.95 MB at D 896, 3.2 MB at 3072);
 - the column pass (``_col_sums``) adds the partials of ``COL_BLOCK``
-  columns a program (112 programs at D 896), all of them in one
-  [PARTS, COL_BLOCK] tile, in a fixed order.
+  columns a program (112 programs at D 896, 384 at 3072, the last masked),
+  all of them in one [PARTS, COL_BLOCK] tile, in a fixed order.
 
 A frozen layer's norm (gated weight gradients, ``core/gated.py``) needs
 no dscale: the dx-only mode compiles the row pass with ``DSCALE`` off,
@@ -44,7 +50,7 @@ bound, in one launch instead of two.
 
 No atomics and a fixed order: on one card the same inputs give the same
 bits. A row is held whole in registers, padded to the next power of two
-(1024 for D = 896): the masked lanes load nothing.
+(``MAX_D`` at most): the masked lanes load nothing.
 
 Triton is imported, and the kernel compiled, at the first launch: this
 module imports on machines without Triton (the CPU tests use the plain
@@ -57,11 +63,11 @@ import torch
 
 from repro_torch.kernels import _build
 
-MAX_D = 1024   # one row per program, held in registers by 4 warps
+MAX_D = 4096   # a padded row held in registers by ``warps(MAX_D)`` warps
 BWD_PER_SM = 2          # row-pass programs an SM: partial rows of dscale
 BWD_TILE_BYTES = 8192   # a row-pass tile of x (and one of dy)
 BWD_STAGES = 3          # the row pass's pipelined loop
-COL_BLOCK = 8           # columns a program of the column sum (112 at 896)
+COL_BLOCK = 8           # columns a program of the column sum
 MAX_COL_PARTS = 256     # partial rows a tile of the column sum
 tl = None       # triton.language, bound at the first launch
 _compiled = None
@@ -71,6 +77,12 @@ _SMS: dict = {}  # device -> its SM count, read once
 def _pow2(n: int) -> int:
     """The least power of two >= n (n >= 1)."""
     return 1 << (n - 1).bit_length()
+
+
+def warps(block: int) -> int:
+    """Warps of a program over rows padded to ``block`` lanes: 4 up to
+    1024 lanes (8 a thread), then one warp per 256 lanes (16 at 4096)."""
+    return max(4, block // 256)
 
 
 def bwd_grid(n: int, d: int, sms: int, itemsize: int) -> tuple:
@@ -171,24 +183,27 @@ def load():
     return _compiled
 
 
-def launch(x2d, scale, eps: float, out) -> None:
+def launch(x2d, scale, eps: float, out):
     """x2d, out: [N, D] contiguous CUDA tensors; scale: [D]. Launches one
     program per row on the current stream (Triton's launcher raises if the
-    launch is refused)."""
+    launch is refused); returns Triton's compiled kernel (its ``n_regs``
+    and ``n_spills``)."""
     triton, kernel, _, _ = load()
     n, d = x2d.shape
     block = triton.next_power_of_2(d)
-    kernel[(n,)](x2d, scale, out, d, eps, BLOCK=block, num_warps=4)
+    return kernel[(n,)](x2d, scale, out, d, eps, BLOCK=block,
+                        num_warps=warps(block))
 
 
-def launch_bwd(x2d, scale, dy2d, eps: float, dx, dscale) -> None:
+def launch_bwd(x2d, scale, dy2d, eps: float, dx, dscale) -> tuple:
     """x2d, dy2d, dx: [N, D] contiguous CUDA tensors, N >= 1; scale,
     dscale: [D]. Launches the row pass over ``bwd_grid``'s programs and the
     column sum on the current stream; the [programs, D] f32 partials are
     scratch allocated here. ``dscale=None``: the dx-only mode, the row pass
     alone with its column sums compiled out (``DSCALE``), no partials and
-    no column pass. Both modes run the same grid, tiles and row arithmetic,
-    so their dx has the same bits."""
+    no column pass. Both modes run the same grid, tiles, warps and row
+    arithmetic, so their dx has the same bits. Returns Triton's compiled
+    row pass and column pass (None in the dx-only mode)."""
     triton, _, bwd, col_sums = load()
     n, d = x2d.shape
     progs, rows, tile = bwd_grid(n, d, _sms(x2d.device), x2d.element_size())
@@ -196,11 +211,12 @@ def launch_bwd(x2d, scale, dy2d, eps: float, dx, dscale) -> None:
     # dx-only: part_ptr is never written; dx stands in for it
     part = (torch.empty((progs, d), dtype=torch.float32, device=x2d.device)
             if full else dx)
-    bwd[(progs,)](x2d, scale, dy2d, dx, part, n, d, rows, eps, TILE=tile,
-                  BLOCK=triton.next_power_of_2(d), STAGES=BWD_STAGES,
-                  DSCALE=full, num_warps=4)
+    block = triton.next_power_of_2(d)
+    row_pass = bwd[(progs,)](x2d, scale, dy2d, dx, part, n, d, rows, eps,
+                             TILE=tile, BLOCK=block, STAGES=BWD_STAGES,
+                             DSCALE=full, num_warps=warps(block))
     if not full:
-        return
-    col_sums[(-(-d // COL_BLOCK),)](part, dscale, progs, d,
-                                    PARTS=min(MAX_COL_PARTS, _pow2(progs)),
-                                    COL_BLOCK=COL_BLOCK, num_warps=4)
+        return row_pass, None
+    return row_pass, col_sums[(-(-d // COL_BLOCK),)](
+        part, dscale, progs, d, PARTS=min(MAX_COL_PARTS, _pow2(progs)),
+        COL_BLOCK=COL_BLOCK, num_warps=4)

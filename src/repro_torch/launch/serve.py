@@ -4,8 +4,8 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-0.5b \
       --kv-layout paged [--smoke] [--device cuda]
 
-Mirrors the flags of the JAX package's ``launch/serve.py`` that the port
-supports. Reports the first (warmup) pass — which builds the kernels — and
+``--arch`` takes qwen2.5-0.5b, llama3.2-1b or phi4-mini-3.8b. Mirrors the
+flags of the JAX package's ``launch/serve.py`` that the port supports. Reports the first (warmup) pass — which builds the kernels — and
 the steady-state tok/s of a second pass separately, then the engine's
 ``stats``, the page-pool stats and the kernels' launch counts of the timed
 pass.

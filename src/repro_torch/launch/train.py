@@ -9,6 +9,10 @@ On the CPU, through the plain PyTorch versions of the kernels:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-0.5b \
       --smoke --device cpu --steps 4 --seq-len 48 --global-batch 4
 
+``--arch`` takes the paper's three models: qwen2.5-0.5b, llama3.2-1b and
+phi4-mini-3.8b (``chip_smoke.py`` phases 20 and 23 print the peak device
+memory of their full-width training).
+
 Banked moment residency (paper §3.3): ``--moment-residency banked`` with
 ``--offload host`` (the full store in pinned host RAM) or ``--offload
 none`` (the store on the card), and ``--async-swap on|off`` (the predicted

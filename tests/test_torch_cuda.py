@@ -26,6 +26,9 @@ f64 evaluation. Three packed training steps make no host sync either.
 The RMSNorm backward's dx-only mode (a frozen layer's norm under gated
 weight gradients) gives the full mode's dx bits in one launch, and gated
 training steps launch each mode by the mask with one host sync a step.
+Rows 2 and 2b are also held at llama3.2-1b's and phi4-mini's widths (D
+2048 and 3072) and at ``MAX_D``, without register spills, and refuse a
+wider row.
 The dense decode attention kernel (row 3) is held against its plain version at
 the shapes of ``chip_smoke.py`` phase 15 (the eval shape, the S and
 valid_len of ``tests/test_kernels.py``, ragged S, head dim 128), against
@@ -354,6 +357,65 @@ def test_rmsnorm_bwd_dx_only(cuda_device, n, dtype):
                                 dy)
     assert ops.LAUNCHES["rmsnorm_bwd_dx"] == before["rmsnorm_bwd_dx"] + 2
     assert _bits_equal(gx, dx)
+
+
+def _wide_rows(dev, n, d, dtype, seed):
+    """x with nonzero column means, scale near 1 and dy = 1 + N(0, 1): the
+    outputs of rows 2 and 2b are large beside the tolerance."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mu = 1 + 0.5 * torch.randn(d, generator=g, device=dev)
+    x = (mu + torch.randn(n, d, generator=g, device=dev)).to(dtype)
+    s = (1 + 0.1 * torch.randn(d, generator=g, device=dev)).to(dtype)
+    dy = (1 + torch.randn(n, d, generator=g, device=dev)).to(dtype)
+    return x, s, dy
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4, 4096])
+@pytest.mark.parametrize("d", [2048, 3072, 4096])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_wide_rows(cuda_device, n, d, dtype):
+    """Rows 2 and 2b at llama3.2-1b's and phi4-mini's widths (2048, 3072)
+    and at ``MAX_D``: the forward, the backward and its dx-only mode within
+    the tolerance of their plain versions, dx and dscale bit-identical over
+    two launches, dx-only's dx the full mode's bits, and no compiled kernel
+    spilling registers."""
+    from repro_torch.kernels import rmsnorm as rn
+    x, s, dy = _wide_rows(cuda_device, n, d, dtype, seed=d + n)
+    n0 = dict(ops.LAUNCHES)
+    y = ops.rmsnorm(x, s, 1e-6)
+    dx, ds = ops.rmsnorm_bwd(dy, x, s, 1e-6)
+    dx2, ds2 = ops.rmsnorm_bwd(dy, x, s, 1e-6)
+    dxo, dso = ops.rmsnorm_bwd(dy, x, s, 1e-6, with_dscale=False)
+    torch.cuda.synchronize()
+    assert {k: ops.LAUNCHES[k] - n0[k] for k in n0} == {
+        k: {"rmsnorm": 1, "rmsnorm_bwd": 2, "rmsnorm_bwd_dx": 1}.get(k, 0)
+        for k in n0}
+    _close(y, ref.rmsnorm(x, s, 1e-6), dtype)
+    pdx, pds = ref.rmsnorm_bwd(dy, x, s, 1e-6)
+    _close(dx, pdx, dtype)
+    torch.testing.assert_close(ds.float(), pds.float(), **TOL[dtype])
+    assert _bits_equal(dx, dx2) and _bits_equal(ds, ds2)
+    assert dso is None and _bits_equal(dxo, dx)
+    out = torch.empty_like(x)
+    kernels = [rn.launch(x, s, 1e-6, out), *rn.launch_bwd(
+        x, s, dy, 1e-6, torch.empty_like(x), torch.empty_like(s))]
+    for k in kernels:
+        assert k.n_spills == 0, (k.name, k.n_regs, k.n_spills)
+
+
+@pytest.mark.cuda
+def test_rmsnorm_refuses_rows_wider_than_max_d(cuda_device):
+    from repro_torch.kernels import rmsnorm as rn
+    x, s, dy = _wide_rows(cuda_device, 2, rn.MAX_D + 1, torch.float32, 1)
+    before = dict(ops.LAUNCHES)
+    with pytest.raises(ValueError, match=f"D <= {rn.MAX_D}"):
+        ops.rmsnorm(x, s)
+    with pytest.raises(ValueError, match=f"D <= {rn.MAX_D}"):
+        ops.rmsnorm_bwd(dy, x, s)
+    with pytest.raises(ValueError, match=f"D <= {rn.MAX_D}"):
+        ops.rmsnorm_bwd(dy, x, s, with_dscale=False)
+    assert ops.LAUNCHES == before
 
 
 # ------------------------------------------- banked residency (row 9) and repairs

@@ -416,7 +416,8 @@ def test_rmsnorm_bwd_vs_jax(shape, dtype):
 
 @pytest.mark.parametrize("sms", [1, 8, 132])
 @pytest.mark.parametrize("n, d", [(1, 896), (4, 896), (33, 64), (4096, 896),
-                                  (8192, 896), (4097, 1024), (100000, 896)])
+                                  (8192, 896), (4097, 1024), (100000, 896),
+                                  (4096, 2048), (4096, 3072)])
 @pytest.mark.parametrize("itemsize", [2, 4])
 def test_rmsnorm_bwd_grid_covers_every_row_once(n, d, sms, itemsize):
     """Row 2b's row pass: at most 2 programs (partial rows of dscale) an

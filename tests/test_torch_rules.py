@@ -182,12 +182,26 @@ def test_training_features_not_ported_raise(call, item):
         call()
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "phi4-mini-3.8b"])
+@pytest.mark.parametrize("arch", ["yi-9b", "mamba2-2.7b"])
 def test_unknown_arch_names_its_items(arch):
-    """An arch the port has not registered raises with the Queue A items
-    that port it."""
-    with pytest.raises(KeyError, match="items 15 .* and 12"):
+    """An arch the port has not registered raises with the Queue A item
+    that ports it."""
+    with pytest.raises(KeyError, match="item 12"):
         get_smoke_config(arch)
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "phi4-mini-3.8b"])
+def test_launchers_take_the_papers_other_models(arch, capsys):
+    """``--arch`` takes the paper's other two models: their SMOKE configs
+    train and serve on the CPU through the plain versions."""
+    assert launch_train.main(["--arch", arch, "--smoke", "--device", "cpu",
+                              "--steps", "2", "--seq-len", "48",
+                              "--global-batch", "2"]) == 0
+    assert "final loss" in capsys.readouterr().out
+    assert launch_serve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                              "--kv-layout", "paged",
+                              "--new-tokens", "4"]) == 0
+    assert "steady state" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("offload", ["host", "none"])
@@ -268,6 +282,21 @@ def test_wrappers_raise_for_cuda_tensors_without_a_build(missing_builds):
     row = _fake(torch.ones(3))
     with pytest.raises(_build.KernelBuildFailure, match="triton"):
         ops.masked_adamw(x, x, x, x, row, row, 1e-3, 0.9, 0.999, 1e-8, 0.0)
+    assert ops.LAUNCHES == before
+
+
+@pytest.mark.parametrize("fn", ["rmsnorm", "rmsnorm_bwd", "rmsnorm_bwd_dx"])
+def test_rmsnorm_refuses_d_above_max_d(fn):
+    """A CUDA row wider than the RMSNorm kernels take raises before any
+    launch, and never gives way to the plain version."""
+    d = rn.MAX_D + 8
+    x, s = _fake(torch.zeros(2, d)), _fake(torch.ones(d))
+    before = dict(ops.LAUNCHES)
+    with pytest.raises(ValueError, match=f"D <= {rn.MAX_D}"):
+        if fn == "rmsnorm":
+            ops.rmsnorm(x, s)
+        else:
+            ops.rmsnorm_bwd(x, x, s, with_dscale=fn == "rmsnorm_bwd")
     assert ops.LAUNCHES == before
 
 
