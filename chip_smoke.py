@@ -27,7 +27,9 @@ Phases, each of which makes the run exit non-zero if it fails:
    seeded generator, the paged engine (4 slots, page 16, decode chunk 8,
    max_len 512), 8 requests of prompt lengths 7..255 and 32 new tokens
    each; tok/s, the engine stats, the kernels' launch counts in that run,
-   and where the device time went (``torch.profiler``) in a second run;
+   and where the device and host time went (``torch.profiler``) in two
+   engine steps of a further run (the second wave's admission and two
+   decode chunks);
 5. consistency at full width in f32: the engine's greedy tokens equal the
    argmax of one teacher-forced ``prefill`` (a path without the decode
    kernels) at every generated position, on the paged layout and on the
@@ -46,9 +48,13 @@ Phases, each of which makes the run exit non-zero if it fails:
    bit-identical, two launches of the norms and of the RMSNorm backward
    give the same bits; the RMSNorm backward's dx-only mode (a frozen
    layer's norm) at both shapes: one launch, dx within the tolerance of
-   its plain version and the full mode's dx bit for bit; times as in phase
-   3, beside each kernel's bytes bound and a library yardstick where one
-   exists;
+   its plain version and the full mode's dx bit for bit; the masked AdamW
+   with bf16 m and v (``moment_dtype="bfloat16"``) on the same bf16 leaves:
+   m and v within one bf16 ulp of the plain version, p within the
+   tolerance, unselected rows bit-identical, a tie rounded to even, and the
+   compiled kernel's PTX converting with ``cvt.rn.bf16``; times as in
+   phase 3, beside each kernel's bytes bound and a library yardstick where
+   one exists;
 7. training at full width: the port's ``Trainer`` on qwen2.5-0.5b in bf16,
    adagradselect, dense residency, global batch 8 x 512 tokens, 10 steps;
    median step time after 2 warm-up steps, tokens/s, peak device memory,
@@ -66,7 +72,9 @@ Phases, each of which makes the run exit non-zero if it fails:
    4 leaf rows out of order and one free slot, one real slot unselected:
    free and unselected rows bit-identical in p and in the banks, and the
    same bits as the dense masked AdamW run on a dense copy whose m and v
-   hold the bank rows at the slot positions; times as in phase 6;
+   hold the bank rows at the slot positions; with bf16 params also with
+   bf16 m and v banks (within one bf16 ulp of the plain version, row 8's
+   bf16-moment bits); times as in phase 6;
 10. banked training at full width (paper §3.3): the port's ``Trainer`` as
    in phase 7 but with ``moment_residency="banked"``, ``offload="host"``
    (a pinned host store) and the async swap planner; 2 warm-up steps, then
@@ -184,6 +192,27 @@ Phases, each of which makes the run exit non-zero if it fails:
 24. phase 4's paged serving run on phi4-mini (row 1 at head dim 128 over
    32 padded q heads, row 2 at D 3072);
 25. phase 22's checks on phi4-mini.
+26. bf16 moments (``OptimizerConfig(moment_dtype="bfloat16")``) at full
+   width: phase 7's dense run and phase 10's async banked run (one log
+   window) on qwen2.5-0.5b with bf16 m and v: step time, tokens/s, device
+   time, launches (rows 8 and 9 counted as ``*_bf16m``) and peak beside
+   phases 7 and 10, the moments' device bytes half of the f32 ones;
+27. phi4-mini-3.8b dense with bf16 moments, 4 steps: the peak beside
+   phase 23's;
+28. phase 8's card-vs-CPU check with bf16 moments (f32 params, 2 layers):
+   each leaf's update within ``UPDATE_GAP`` of the CPU's;
+29. checkpoint and resume at full width (qwen2.5-0.5b, bf16 params), dense
+   f32 moments, banked host f32 and dense bf16 moments: 6 steps straight,
+   twice; 3 steps with ``checkpoint_every=3``; a new ``Trainer`` that
+   restores and runs 3 more. Where the two straight runs agree bit for
+   bit the resumed run must too (params, moments, counts, the selection
+   state, the losses of steps 4-6), else it is held to their spread; the
+   bytes on disk, the stall the save added to the loop (the wait on the
+   previous writer and the snapshot), the writer's and the restore's
+   seconds. Dense f32's second straight run saves every ``SAVE_EVERY``
+   steps: its wall time and each save's stall beside the first run's, and
+   it must still equal that run. The files go under ``build/`` and are
+   removed.
 
 Then it prints the kernel summary as one JSON line and, last, the device
 line ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
@@ -238,11 +267,13 @@ DECODE_EVAL_VL = (1, 9, 300, 512) * 4  # phase 15's eval shape: 16 rows
 EVAL = dict(num_problems=32, batch_size=16)   # phase 16
 EVAL_CALL_S = 48.0        # phase 16: the most one eval call may take
 EVAL_PROFILE = (8, 2)     # phase 16: engine steps of call 2 skipped, profiled
+SERVE_PROFILE = (4, 2)    # phases 4, 24: engine steps skipped, profiled
 # the paper's other two models (phases 20-25): llama3.2-1b trains and is
 # evaluated as qwen2.5-0.5b is in phases 7 and 16, phi4-mini-3.8b trains
 # for PHI4_STEPS steps and serves as in phase 4
 LLAMA, PHI4 = "llama3.2-1b", "phi4-mini-3.8b"
 PHI4_STEPS = 6
+PHI4_BF16_STEPS = 4   # phase 27: phi4-mini with bf16 moments
 # rows 2 and 2b: qwen2.5-0.5b's d_model, then llama3.2-1b's and phi4-mini's
 # (padded to 2048 and 4096 lanes), at one decode row block and at the
 # training path's 8 x 512 rows
@@ -630,13 +661,16 @@ def _leaves(tree):
 
 
 def _profile(torch, cfg, params, ServeEngine, ServeConfig, Request):
-    """Where the device time and the host time go in one more serving
-    run."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _, _, wall = _serve_once(torch, cfg, params, ServeEngine,
-                                 ServeConfig, Request)
+    """Where the device time and the host time go in engine steps
+    ``SERVE_PROFILE[0]`` onwards of one more serving run (``SERVE_PROFILE[1]``
+    steps: the second wave's admission, its 4 prefills and 2 decode
+    chunks), the host's ops recorded too."""
+    from torch.profiler import ProfilerActivity
+    _, _, prof, wall = _profiled_steps(
+        torch, ServeEngine, SERVE_PROFILE,
+        [ProfilerActivity.CPU, ProfilerActivity.CUDA],
+        lambda: _serve_once(torch, cfg, params, ServeEngine, ServeConfig,
+                            Request))
     averages = prof.key_averages()
     events = [e for e in averages
               if getattr(e, "device_time_total", 0) > 0
@@ -646,7 +680,9 @@ def _profile(torch, cfg, params, ServeEngine, ServeConfig, Request):
         print("  profile: the profiler saw no device time (not measured)")
         return
     row1 = [e for e in events if "decode_kernel" in e.key]
-    print(f"  profile (one more run, profiler on): wall {wall * 1e3:.1f} ms,"
+    print(f"  profile (engine steps {SERVE_PROFILE[0]} to "
+          f"{sum(SERVE_PROFILE) - 1} of one more run, profiler on): wall "
+          f"{wall * 1e3:.1f} ms,"
           f" device kernels {busy_us / 1e3:.1f} ms, device idle share "
           f"{max(0.0, 1 - busy_us / 1e6 / wall):.3f}; row 1 "
           f"{sum(e.device_time_total for e in row1) / 1e3:.2f} ms in "
@@ -801,7 +837,107 @@ def _leaf_rows(torch, ops, ref, timer, dtype, leaf, nl, r) -> list:
                      plain_ms=timer.ms(lambda: ref.masked_adamw(
                          p, grad, m, v, *args)),
                      library_ms=None, bound_ms=bms, bound_by=by))
+    if dtype == "bfloat16":   # bf16 moments train with bf16 params
+        del pk, mk, vk
+        rows.append(_adamw_bf16m_row(torch, ops, ref, timer, dtype, leaf, p,
+                                     grad, m.bfloat16(), v.bfloat16(), sel,
+                                     cnt, adam))
     return rows
+
+
+def _bf16_gap(torch, got, want, terms) -> float:
+    """How far bf16 moments from the kernel are from the plain version's,
+    in units of one bf16 ulp at the larger of the two plus the f32
+    rounding of the update's terms (``terms``: |b m| + |(1 - b) g|, or the
+    same of v): the kernel may contract b m + (1 - b) g into an FMA, which
+    moves the f32 sum by an f32 ulp of its terms, and where the sum cancels
+    to near zero that is more than a bf16 ulp of the result. At most 1
+    means within one bf16 ulp of the plain version (or of the f32
+    rounding where the moment cancels)."""
+    a, b = got.float(), want.float()
+    big = torch.maximum(a.abs(), b.abs())
+    ulp = torch.exp2(torch.floor(torch.log2(big.clamp(min=2.0 ** -126)))
+                     - 7)
+    return ((a - b).abs() / (ulp + 2.0 ** -22 * terms)).max().item()
+
+
+def _bf16_terms(b1, b2, m, v, grad):
+    """The magnitudes of the terms of m' and v' (``_bf16_gap``)."""
+    g = grad.float()
+    return (b1 * m.float().abs() + (1 - b1) * g.abs(),
+            b2 * v.float().abs() + (1 - b2) * g * g)
+
+
+def _adamw_bf16m_row(torch, ops, ref, timer, dtype, leaf, p, grad, m, v,
+                     sel, cnt, adam) -> dict:
+    """Row 8 with bf16 m and v against its plain version: m and v within
+    one bf16 ulp (``_bf16_gap``), p within the tolerance, rows with sel = 0
+    bit-identical; counted as ``masked_adamw_bf16m``."""
+    nl, r = p.shape
+    es, ems = p.element_size(), m.element_size()
+    args = (sel, cnt, *adam.values())
+    pk, mk, vk = p.clone(), m.clone(), v.clone()
+    n0 = ops.LAUNCHES["masked_adamw_bf16m"]
+    ops.masked_adamw(pk, grad, mk, vk, *args)
+    torch.cuda.synchronize()
+    check(ops.LAUNCHES["masked_adamw_bf16m"] == n0 + 1,
+          "masked_adamw_bf16m did not count its launch")
+    pr, mr, vr = ref.masked_adamw(p, grad, m, v, *args)
+    on = sel > 0
+    err = _check_close(torch, pk[on], pr[on], dtype,
+                       f"masked_adamw_bf16m p {leaf}")
+    tm, tv = _bf16_terms(adam["b1"], adam["b2"], m[on], v[on], grad[on])
+    gap = max(_bf16_gap(torch, mk[on], mr[on], tm),
+              _bf16_gap(torch, vk[on], vr[on], tv))
+    check(gap <= 1, f"masked_adamw_bf16m {leaf} {dtype}: m or v {gap:.3g} "
+          f"bf16 ulps from the plain version")
+    del pr, mr, vr, tm, tv
+    for what, new, old in (("p", pk, p), ("m", mk, m), ("v", vk, v)):
+        check(_bits_equal(torch, new[~on], old[~on]),
+              f"masked_adamw_bf16m {leaf} {dtype}: {what} of a row with "
+              f"sel = 0 changed")
+    moved = (pk[on].float() - p[on].float()).abs().max().item()
+    check(moved > 5 * TOL[dtype], f"masked_adamw_bf16m {leaf} {dtype}: "
+          f"the step ({moved:.3g}) is too small for the check")
+    n_sel = int(on.sum().item())
+    # p and g read, p written (3 es); m and v read and written (4 ems)
+    bms, by = bound_ms(n_sel * r * (3 * es + 4 * ems) + 2 * nl * 4,
+                       15 * n_sel * r, "float32")
+    return dict(kernel="masked_adamw_bf16m", case=leaf, dtype=dtype,
+                shape=f"[{nl}, {r}], {n_sel} rows selected, bf16 m/v "
+                f"within {gap:.2f} ulp", max_abs_err=err, tol=TOL[dtype],
+                ms=timer.ms(lambda: ops.masked_adamw(pk, grad, mk, vk,
+                                                     *args)),
+                plain_ms=timer.ms(lambda: ref.masked_adamw(p, grad, m, v,
+                                                           *args)),
+                library_ms=None, bound_ms=bms, bound_by=by)
+
+
+def _bf16m_rounding(torch) -> str:
+    """The bf16-moment store rounds to nearest even: b1 = b2 = 0 makes
+    m' = g exactly (f32 params), and g on a tie between two bf16 values
+    must be stored as the even one; the compiled kernel's PTX converts with
+    ``cvt.rn`` (launched outside the counted wrapper)."""
+    from repro_torch.kernels import masked_adamw as _ma
+    step = 2.0 ** -8     # half a bf16 ulp at 1
+    g = torch.tensor([[1 + step, 1 + 3 * step, -(1 + step), 1 + 5 * step]],
+                     device="cuda")
+    want = torch.tensor([[1.0, 1 + 2 ** -6, -1.0, 1 + 2 ** -6]],
+                        dtype=torch.bfloat16, device="cuda")
+    m = torch.zeros_like(g, dtype=torch.bfloat16)
+    v = torch.zeros_like(m)
+    one = torch.ones(1, device="cuda")
+    kernel = _ma.launch(torch.ones_like(g), g, m, v, one, one, 1e-3, 0.0,
+                        0.0, 1e-8, 0.0)
+    torch.cuda.synchronize()
+    check(_bits_equal(torch, m, want), f"bf16 moments: ties stored as "
+          f"{m.float().tolist()}, want {want.float().tolist()}")
+    ptx = kernel.asm["ptx"]
+    rn, rz = ptx.count("cvt.rn.bf16"), ptx.count("cvt.rz.bf16")
+    check(rn > 0 and rz == 0, f"bf16 moments: the PTX holds {rn} cvt.rn and "
+          f"{rz} cvt.rz bf16 conversions")
+    return (f"bf16-moment store: ties to even, as XLA's convert; PTX "
+            f"{rn} cvt.rn.bf16 conversions, no cvt.rz")
 
 
 def _norm_inputs(torch, dt, n, d, seed=5):
@@ -921,7 +1057,7 @@ def phase_train_kernels(torch, ops, ref, timer) -> dict:
         for leaf, (nl, r) in {**TRAIN_LEAVES, **WIDE_LEAVES}.items():
             rows += _leaf_rows(torch, ops, ref, timer, dtype, leaf, nl, r)
             if leaf == "wg" and dtype == "bfloat16":
-                main.update({r["kernel"]: r for r in rows[-2:]})
+                main.update({r["kernel"]: r for r in rows[-3:]})
             gc.collect()
             torch.cuda.empty_cache()
         # row 2b: RMSNorm backward at a decode row block and at the
@@ -943,6 +1079,7 @@ def phase_train_kernels(torch, ops, ref, timer) -> dict:
               f"kernel {r['ms']:.4f}  plain {r['plain_ms']:.4f}  "
               f"library {lib}  bound {r['bound_ms']:.5f} ({r['bound_by']})"
               f"  {r['shape']}")
+    print(f"  {_bf16m_rounding(torch)}")
     print("  yardsticks: torch.linalg.vector_norm(g, dim=1, dtype=f32)**2 "
           "(row 7), the autograd of F.rms_norm (2b; dx-only: with respect "
           "to x alone); masked_adamw has none (no single call takes "
@@ -973,6 +1110,12 @@ def _flash_per_step(nl: int) -> dict:
             "flash_attention_bwd_dkv": nl}
 
 
+def _adamw_name(row: str, moment_dtype: str) -> str:
+    """The launch count of row 8 or 9 (``ops.LAUNCHES``) under a moment
+    dtype: bf16 moments count apart."""
+    return row + ("_bf16m" if moment_dtype == "bfloat16" else "")
+
+
 def _train_launches(nl: int, adamw: str = "masked_adamw",
                     sel_layers: int | None = None, leaves: int = 12) -> dict:
     """Kernel launches of one training step of nl layers: the forward's
@@ -986,7 +1129,8 @@ def _train_launches(nl: int, adamw: str = "masked_adamw",
     sel = nl if sel_layers is None else sel_layers
     want = {"paged_decode_attention": 0, "decode_attention": 0,
             "block_grad_sq_norms": leaves, "masked_adamw": 0,
-            "banked_masked_adamw": 0, "rmsnorm": 4 * nl + 1,
+            "masked_adamw_bf16m": 0, "banked_masked_adamw": 0,
+            "banked_masked_adamw_bf16m": 0, "rmsnorm": 4 * nl + 1,
             "rmsnorm_bwd": 2 * sel + 1, "rmsnorm_bwd_dx": 2 * (nl - sel),
             **_flash_per_step(nl)}
     want[adamw] = leaves
@@ -994,19 +1138,21 @@ def _train_launches(nl: int, adamw: str = "masked_adamw",
 
 
 def phase_training(torch, ops, cfg, Trainer, steps=TRAIN["steps"],
-                   keep_eval=True) -> dict:
-    """The dense adagradselect run at full width; with ``keep_eval`` the
-    trained params' eval view, on the host, for the greedy eval."""
+                   keep_eval=True, moment_dtype="float32") -> dict:
+    """The dense adagradselect run at full width, its moments in
+    ``moment_dtype``; with ``keep_eval`` the trained params' eval view, on
+    the host, for the greedy eval."""
     warm = TRAIN["warmup"]
     tcfg = _train_cfg(cfg, "adagradselect", steps, TRAIN["global_batch"],
-                      TRAIN["seq_len"])
+                      TRAIN["seq_len"], moment_dtype=moment_dtype)
     t0 = time.perf_counter()
     tr = Trainer(tcfg, device="cuda")
     torch.cuda.synchronize()
     nb = cfg.num_blocks
     k = tr.sel_cfg.num_selected(nb)
     print(f"training {cfg.name} ({cfg.num_layers} layers, {cfg.dtype}, "
-          f"{nb} blocks, k = {k}): adagradselect, dense residency, batch "
+          f"{nb} blocks, k = {k}): adagradselect, dense residency, "
+          f"{moment_dtype} moments, batch "
           f"{TRAIN['global_batch']} x {TRAIN['seq_len']} tokens, {steps} "
           f"steps; init {time.perf_counter() - t0:.2f} s")
     torch.cuda.reset_peak_memory_stats()
@@ -1029,7 +1175,8 @@ def phase_training(torch, ops, cfg, Trainer, steps=TRAIN["steps"],
     per_step = {name: n / steps for name, n in launches.items()}
     nl = cfg.num_layers
     want = _train_launches(
-        nl, leaves=len(list(_leaves(tr.state["params"]["layers"]))))
+        nl, _adamw_name("masked_adamw", moment_dtype),
+        leaves=len(list(_leaves(tr.state["params"]["layers"]))))
     check(per_step == want, f"launches per step {per_step} != the path's "
           f"{want}")
     times = log.step_times[warm:]
@@ -1135,15 +1282,16 @@ def _update_gap(torch, card_params, cpu_params, before, limit) -> float:
     return gap
 
 
-def phase_train_consistency(torch, ops, cfg, Trainer,
-                            k_percent=20.0) -> None:
+def phase_train_consistency(torch, ops, cfg, Trainer, k_percent=20.0,
+                            moment_dtype="float32") -> None:
     """The same 3 f32 topk_grad steps on the card and on the CPU, each
-    leaf's update held against the CPU's as in phase 19 (``_update_gap``)."""
+    leaf's update held against the CPU's as in phase 19 (``_update_gap``);
+    the moments in ``moment_dtype``."""
     steps, lr = 3, 1e-3
     cfg = cfg.replace(dtype="float32", num_layers=2)
     tcfg = _train_cfg(cfg, "topk_grad", steps, 2, 64, lr=lr,
                       schedule="constant", warmup_steps=0,
-                      k_percent=k_percent)
+                      k_percent=k_percent, moment_dtype=moment_dtype)
     card = Trainer(tcfg, device="cuda")
     cpu = Trainer(tcfg, device="cpu")
     cpu.state = _to(card.state, "cpu")
@@ -1162,7 +1310,8 @@ def phase_train_consistency(torch, ops, cfg, Trainer,
     launches = dict(ops.LAUNCHES)
     check(all(launches[n] > 0 for n in ("rmsnorm", "rmsnorm_bwd",
                                         "block_grad_sq_norms",
-                                        "masked_adamw",
+                                        _adamw_name("masked_adamw",
+                                                    moment_dtype),
                                         *_flash_per_step(1))),
           f"a training kernel did not run on the card: {launches}")
     worst = 0.0
@@ -1175,6 +1324,7 @@ def phase_train_consistency(torch, ops, cfg, Trainer,
     rel = max(abs(a - b) / abs(b) for a, b in zip(card.log.losses,
                                                    cpu.log.losses))
     print(f"training consistency {cfg.name} (f32, TF32 off, "
+          f"{moment_dtype} moments, "
           f"{cfg.num_layers} layers at full width, batch 2 x 64, {steps} "
           f"topk_grad steps, k = {card.sel_cfg.num_selected(cfg.num_blocks)}"
           f" of {cfg.num_blocks} blocks, card vs CPU): losses "
@@ -1190,92 +1340,110 @@ def phase_train_consistency(torch, ops, cfg, Trainer,
 # ------------------------------------------------------- banked residency
 
 
-def phase_banked_kernel(torch, ops, ref, timer) -> dict:
-    """Row 9 against its plain version and against row 8; returns the
-    summary entry of the main path's largest launch (wg, bf16)."""
-    rows, main = [], {}
+def _banked_case(torch, ops, ref, timer, dtype, leaf, nl, r,
+                 moments="float32") -> dict:
+    """Row 9 on one stacked leaf [nl, r] with [5, r] banks in ``moments``
+    (f32, or bf16 as ``banked_masked_adamw_bf16m``) against its plain
+    version and against row 8 on a dense copy; returns its summary row."""
     adam = (0.3, 0.9, 0.999, 1e-8, 0.1)
     cap = len(BANK_SLOTS)
-    for dtype in ("bfloat16", "float32"):
-        dt = getattr(torch, dtype)
-        es = torch.tensor([], dtype=dt).element_size()
-        for leaf, (nl, r) in TRAIN_LEAVES.items():
-            g = torch.Generator(device="cuda").manual_seed(nl * r % 7919)
+    dt, mdt = getattr(torch, dtype), getattr(torch, moments)
+    name = _adamw_name("banked_masked_adamw", moments)
+    es = torch.tensor([], dtype=dt).element_size()
+    ems = torch.tensor([], dtype=mdt).element_size()
+    g = torch.Generator(device="cuda").manual_seed(nl * r % 7919)
 
-            def rnd(n, scale=1.0, shift=0.0):
-                return shift + scale * torch.randn(n, r, generator=g,
-                                                   device="cuda")
-            p, grad = rnd(nl).to(dt), rnd(nl, 1.0, 0.5).to(dt)
-            m, v = rnd(cap, 0.1, 0.05), rnd(cap, 0.01).abs() + 0.01
-            slots = torch.tensor(BANK_SLOTS, dtype=torch.int32,
-                                 device="cuda")
-            sel = torch.tensor(BANK_SEL, device="cuda")
-            cnt = torch.arange(1, cap + 1, dtype=torch.float32,
-                               device="cuda")
-            args = (slots, sel, cnt, *adam)
-            pk, mk, vk = p.clone(), m.clone(), v.clone()
-            n0 = ops.LAUNCHES["banked_masked_adamw"]
-            ops.banked_masked_adamw(pk, grad, mk, vk, *args)
-            torch.cuda.synchronize()
-            check(ops.LAUNCHES["banked_masked_adamw"] == n0 + 1,
-                  "banked_masked_adamw did not count its launch")
-            pr, mr, vr = ref.banked_masked_adamw(p, grad, m, v, *args)
-            on = (slots < nl) & (sel > 0)          # active bank rows
-            touched = torch.zeros(nl, dtype=torch.bool, device="cuda")
-            touched[slots[on].long()] = True        # their leaf rows
-            err = _check_close(torch, pk[touched], pr[touched], dtype,
-                               f"banked_masked_adamw p {leaf}")
-            for what, got, want in (("m", mk, mr), ("v", vk, vr)):
-                _check_close(torch, got[on], want[on], "float32",
-                             f"banked_masked_adamw {what} {leaf} {dtype}")
-            check(_bits_equal(torch, pk[~touched], p[~touched]),
-                  f"banked_masked_adamw {leaf} {dtype}: a p row no active "
-                  f"slot holds changed")
-            for what, new, old in (("m", mk, m), ("v", vk, v)):
-                check(_bits_equal(torch, new[~on], old[~on]),
-                      f"banked_masked_adamw {leaf} {dtype}: {what} of a free "
-                      f"or unselected bank row changed")
-            moved = (pk.float() - p.float())[touched].abs().max().item()
-            check(moved > 5 * TOL[dtype], f"banked_masked_adamw {leaf} "
-                  f"{dtype}: the step ({moved:.3g}) is too small for the "
-                  f"check")
-            # row 8 on a dense copy holding the bank rows at their slots
-            real = [i for i, s in enumerate(BANK_SLOTS) if s < nl]
-            held = [BANK_SLOTS[i] for i in real]
-            pd = p.clone()
-            md = torch.zeros(nl, r, device="cuda")
-            vd = torch.zeros(nl, r, device="cuda")
-            md[held], vd[held] = m[real], v[real]
-            seld = torch.zeros(nl, device="cuda")
-            cntd = torch.zeros(nl, device="cuda")
-            seld[held], cntd[held] = sel[real], cnt[real]
-            ops.masked_adamw(pd, grad, md, vd, seld, cntd, *adam)
-            torch.cuda.synchronize()
-            check(_bits_equal(torch, pk, pd)
-                  and _bits_equal(torch, mk[real], md[held])
-                  and _bits_equal(torch, vk[real], vd[held]),
-                  f"banked_masked_adamw {leaf} {dtype}: not the same bits "
-                  f"as masked_adamw on the same rows")
-            del md, vd, pd
-            n_on = int(on.sum().item())
-            bms, by = bound_ms(n_on * r * (3 * es + 16) + cap * 12,
-                               15 * n_on * r, "float32")
-            row = dict(kernel="banked_masked_adamw", case=leaf, dtype=dtype,
-                       shape=f"p [{nl}, {r}], banks [{cap}, {r}], {n_on} "
-                       f"active rows", max_abs_err=err, tol=TOL[dtype],
-                       ms=timer.ms(lambda: ops.banked_masked_adamw(
-                           pk, grad, mk, vk, *args)),
-                       plain_ms=timer.ms(lambda: ref.banked_masked_adamw(
-                           p, grad, m, v, *args)),
-                       library_ms=None, bound_ms=bms, bound_by=by)
-            rows.append(row)
-            if leaf == "wg" and dtype == "bfloat16":
-                main["banked_masked_adamw"] = row
-            del p, grad, m, v, pk, mk, vk, pr, mr, vr
+    def rnd(n, scale=1.0, shift=0.0):
+        return shift + scale * torch.randn(n, r, generator=g, device="cuda")
+    p, grad = rnd(nl).to(dt), rnd(nl, 1.0, 0.5).to(dt)
+    m, v = rnd(cap, 0.1, 0.05).to(mdt), (rnd(cap, 0.01).abs() + 0.01).to(mdt)
+    slots = torch.tensor(BANK_SLOTS, dtype=torch.int32, device="cuda")
+    sel = torch.tensor(BANK_SEL, device="cuda")
+    cnt = torch.arange(1, cap + 1, dtype=torch.float32, device="cuda")
+    args = (slots, sel, cnt, *adam)
+    pk, mk, vk = p.clone(), m.clone(), v.clone()
+    n0 = ops.LAUNCHES[name]
+    ops.banked_masked_adamw(pk, grad, mk, vk, *args)
+    torch.cuda.synchronize()
+    check(ops.LAUNCHES[name] == n0 + 1, f"{name} did not count its launch")
+    pr, mr, vr = ref.banked_masked_adamw(p, grad, m, v, *args)
+    on = (slots < nl) & (sel > 0)          # active bank rows
+    touched = torch.zeros(nl, dtype=torch.bool, device="cuda")
+    touched[slots[on].long()] = True        # their leaf rows
+    err = _check_close(torch, pk[touched], pr[touched], dtype,
+                       f"{name} p {leaf}")
+    note = ""
+    if moments == "bfloat16":
+        rows = slots[on].long()
+        tm, tv = _bf16_terms(adam[1], adam[2], m[on], v[on], grad[rows])
+        gap = max(_bf16_gap(torch, mk[on], mr[on], tm),
+                  _bf16_gap(torch, vk[on], vr[on], tv))
+        check(gap <= 1, f"{name} {leaf} {dtype}: m or v {gap:.3g} bf16 ulps "
+              f"from the plain version")
+        note = f", bf16 m/v within {gap:.2f} ulp"
+    else:
+        for what, got, want in (("m", mk, mr), ("v", vk, vr)):
+            _check_close(torch, got[on], want[on], "float32",
+                         f"{name} {what} {leaf} {dtype}")
+    check(_bits_equal(torch, pk[~touched], p[~touched]),
+          f"{name} {leaf} {dtype}: a p row no active slot holds changed")
+    for what, new, old in (("m", mk, m), ("v", vk, v)):
+        check(_bits_equal(torch, new[~on], old[~on]),
+              f"{name} {leaf} {dtype}: {what} of a free or unselected bank "
+              f"row changed")
+    moved = (pk.float() - p.float())[touched].abs().max().item()
+    check(moved > 5 * TOL[dtype], f"{name} {leaf} {dtype}: the step "
+          f"({moved:.3g}) is too small for the check")
+    # row 8 on a dense copy holding the bank rows at their slots
+    real = [i for i, s in enumerate(BANK_SLOTS) if s < nl]
+    held = [BANK_SLOTS[i] for i in real]
+    pd = p.clone()
+    md = torch.zeros(nl, r, dtype=mdt, device="cuda")
+    vd = torch.zeros(nl, r, dtype=mdt, device="cuda")
+    md[held], vd[held] = m[real], v[real]
+    seld = torch.zeros(nl, device="cuda")
+    cntd = torch.zeros(nl, device="cuda")
+    seld[held], cntd[held] = sel[real], cnt[real]
+    ops.masked_adamw(pd, grad, md, vd, seld, cntd, *adam)
+    torch.cuda.synchronize()
+    check(_bits_equal(torch, pk, pd)
+          and _bits_equal(torch, mk[real], md[held])
+          and _bits_equal(torch, vk[real], vd[held]),
+          f"{name} {leaf} {dtype}: not the same bits as masked_adamw on the "
+          f"same rows")
+    del md, vd, pd, pr, mr, vr
+    n_on = int(on.sum().item())
+    bms, by = bound_ms(n_on * r * (3 * es + 4 * ems) + cap * 12,
+                       15 * n_on * r, "float32")
+    return dict(kernel=name, case=leaf, dtype=dtype,
+                shape=f"p [{nl}, {r}], banks [{cap}, {r}], {n_on} active "
+                f"rows{note}", max_abs_err=err, tol=TOL[dtype],
+                ms=timer.ms(lambda: ops.banked_masked_adamw(
+                    pk, grad, mk, vk, *args)),
+                plain_ms=timer.ms(lambda: ref.banked_masked_adamw(
+                    p, grad, m, v, *args)),
+                library_ms=None, bound_ms=bms, bound_by=by)
+
+
+def phase_banked_kernel(torch, ops, ref, timer) -> dict:
+    """Row 9 against its plain version and against row 8, f32 moments, and
+    bf16 moments under bf16 params; returns the summary entries of the
+    main path's largest launch (wg, bf16)."""
+    rows, main = [], {}
+    for dtype in ("bfloat16", "float32"):
+        # bf16 moments train with bf16 params
+        kinds = ("float32", "bfloat16") if dtype == "bfloat16" else (
+            "float32",)
+        for leaf, (nl, r) in TRAIN_LEAVES.items():
+            for moments in kinds:
+                rows.append(_banked_case(torch, ops, ref, timer, dtype, leaf,
+                                         nl, r, moments))
+                if leaf == "wg" and dtype == "bfloat16":
+                    main[rows[-1]["kernel"]] = rows[-1]
     print("banked masked AdamW vs plain version and vs masked_adamw (CUDA "
           "events, L2 flushed, ms per call):")
     for r in rows:
-        print(f"  {r['kernel']:<20} {r['case']:<4} {r['dtype']:<9} "
+        print(f"  {r['kernel']:<25} {r['case']:<4} {r['dtype']:<9} "
               f"err {r['max_abs_err']:.2e} (rtol=atol {r['tol']:.0e})  "
               f"kernel {r['ms']:.4f}  plain {r['plain_ms']:.4f}  library -"
               f"  bound {r['bound_ms']:.5f} ({r['bound_by']})  {r['shape']}")
@@ -1313,100 +1481,113 @@ def _block_nonzero(torch, partition, moments) -> list:
     return out
 
 
-def phase_banked_training(torch, ops, cfg, Trainer, dense) -> dict:
+def _banked_run(torch, ops, cfg, Trainer, dense, async_swap=True,
+                moment_dtype="float32", profile=True) -> dict:
+    """Phase 7's run with banked residency and a pinned host store, its
+    moments in ``moment_dtype``: 2 warm-up steps, then one log window (the
+    main path's run); its checks and prints beside the dense run
+    ``dense``."""
     from repro_torch.core import masked_adamw
     from repro_torch.core import partition as part_mod
     from repro_torch.core.offload import resident_opt_bytes
     steps, warm = TRAIN["steps"], TRAIN["warmup"]
     tokens = TRAIN["global_batch"] * TRAIN["seq_len"]
     nl = cfg.num_layers
-    out = {}
-    for async_swap in (True, False):
-        gc.collect()
-        torch.cuda.empty_cache()
-        tcfg = _train_cfg(cfg, "adagradselect", steps, TRAIN["global_batch"],
-                          TRAIN["seq_len"], log_every=steps + 1,
-                          moment_residency="banked", offload="host",
-                          async_swap=async_swap)
-        t0 = time.perf_counter()
-        tr = Trainer(tcfg, device="cuda")
-        torch.cuda.synchronize()
-        init_s = time.perf_counter() - t0
-        pn = part_mod.build_partition(cfg)
-        k = tr.sel_cfg.num_selected(pn.num_blocks)
-        opt = tr.state["opt"]
-        per_block = part_mod.params_per_block(pn, tr.state["params"])
-        cap = opt["banks"]["layers"]["slots"].shape[0]
-        reckoned = 8 * int(cap * per_block[1] + per_block[0]
-                           + per_block[pn.num_blocks - 1])
-        bank_mv = sum(t.numel() * t.element_size() for b in
-                      opt["banks"].values() for mom in ("m", "v")
-                      for t in part_mod.leaves(b[mom]))
-        res = resident_opt_bytes(opt)
-        small = sum(b["slots"].numel() * 4 for b in opt["banks"].values()) \
-            + opt["counts"].numel() * 4
-        check(bank_mv == reckoned and res["device"] == reckoned + small,
-              f"device moment bytes {bank_mv} (state {res['device']}) != "
-              f"reckoned {reckoned} (+ {small} of slots and counts)")
-        check(all(t.is_pinned() for t in part_mod.leaves(opt["store"])),
-              "the host store is not pinned")
-        label = "async" if async_swap else "sync"
-        print(f"banked training ({label} swap) {cfg.name}: adagradselect, "
-              f"k = {k} of {pn.num_blocks} blocks, offload host (pinned), "
-              f"bank capacity {cap}; batch {TRAIN['global_batch']} x "
-              f"{TRAIN['seq_len']}; init {init_s:.2f} s")
-        print(f"  optimizer state: device {res['device']:,} B (banks' m, v "
-              f"{bank_mv:,} = reckoned {reckoned:,}), host {res['host']:,} B "
-              f"(dense m, v would take {8 * int(per_block.sum()):,} B on the "
-              f"card)")
-        masks = _record_masks(tr)
-        torch.cuda.reset_peak_memory_stats()
-        tr.train(warm)
-        ops.reset_launches()                 # the main path's run
-        tr.train(steps - warm)               # one log window
-        launches = dict(ops.LAUNCHES)
-        peak = torch.cuda.max_memory_allocated()
-        log = tr.log
-        check(len(log.losses) == steps
-              and all(math.isfinite(x) for x in log.losses),
-              f"losses {log.losses}")
-        n = steps - warm
-        per_step = {name: c / n for name, c in launches.items()}
-        want = _train_launches(nl, "banked_masked_adamw")
-        check(per_step == want, f"launches per step {per_step} != the "
-              f"banked path's {want}")
-        counts = opt["counts"]
-        check(int(counts.sum().item()) == k * steps
-              and all(int(mk.sum()) == k for mk in masks),
-              f"counts sum {counts.sum().item()} != {k} x {steps}")
-        m_full, v_full = masked_adamw.materialize_moments(pn, opt)
-        nz = [a or b for a, b in zip(_block_nonzero(torch, pn, m_full),
-                                     _block_nonzero(torch, pn, v_full))]
-        counted = (counts.cpu() > 0).tolist()
-        check(nz == counted, f"moments nonzero on blocks "
-              f"{[i for i, f in enumerate(nz) if f]}, counted "
-              f"{[i for i, f in enumerate(counted) if f]}")
-        del m_full, v_full
-        step_s = log.step_times[-1]
-        stats = tr.step_fn.swap_stats.as_dict()
-        print(f"  losses: {[round(x, 4) for x in log.losses]}")
-        print(f"  step time (mean of the {n}-step window): "
-              f"{step_s * 1e3:.2f} ms = {tokens / step_s:.0f} tokens/s "
-              f"(dense, phase 7: median {dense['step_ms']:.2f} ms = "
-              f"{dense['tokens_s']:.0f} tokens/s)")
-        print(f"  peak device memory: {peak / 2**30:.2f} GiB (dense, phase "
-              f"7: {dense['peak'] / 2**30:.2f} GiB)")
-        print(f"  swap stats: {json.dumps(stats)}")
-        print(f"  launches per step: {json.dumps(per_step)}; counts "
-              f"{counts.int().tolist()} (sum {int(counts.sum().item())}); "
-              f"moments nonzero on exactly the counted blocks")
-        check(peak < dense["peak"], f"banked peak {peak} is not below the "
-              f"dense peak {dense['peak']}")
-        if async_swap:
-            _profile_training(torch, tr)
-        out[label] = {"launches": launches, "step_ms": step_s * 1e3,
-                      "peak": peak, "stats": stats}
-        del tr, opt, counts, masks
+    gc.collect()
+    torch.cuda.empty_cache()
+    tcfg = _train_cfg(cfg, "adagradselect", steps, TRAIN["global_batch"],
+                      TRAIN["seq_len"], log_every=steps + 1,
+                      moment_residency="banked", offload="host",
+                      async_swap=async_swap, moment_dtype=moment_dtype)
+    t0 = time.perf_counter()
+    tr = Trainer(tcfg, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    pn = part_mod.build_partition(cfg)
+    k = tr.sel_cfg.num_selected(pn.num_blocks)
+    opt = tr.state["opt"]
+    per_block = part_mod.params_per_block(pn, tr.state["params"])
+    cap = opt["banks"]["layers"]["slots"].shape[0]
+    # m and v, bytes a parameter
+    mv = 2 * torch.tensor([], dtype=getattr(torch, moment_dtype)).element_size()
+    reckoned = mv * int(cap * per_block[1] + per_block[0]
+                        + per_block[pn.num_blocks - 1])
+    bank_mv = sum(t.numel() * t.element_size() for b in
+                  opt["banks"].values() for mom in ("m", "v")
+                  for t in part_mod.leaves(b[mom]))
+    res = resident_opt_bytes(opt)
+    small = sum(b["slots"].numel() * 4 for b in opt["banks"].values()) \
+        + opt["counts"].numel() * 4
+    check(bank_mv == reckoned and res["device"] == reckoned + small,
+          f"device moment bytes {bank_mv} (state {res['device']}) != "
+          f"reckoned {reckoned} (+ {small} of slots and counts)")
+    store = part_mod.leaves(opt["store"])
+    check(all(t.is_pinned() and t.dtype == getattr(torch, moment_dtype)
+              for t in store),
+          f"the host store is not pinned {moment_dtype}")
+    label = "async" if async_swap else "sync"
+    print(f"banked training ({label} swap) {cfg.name}: adagradselect, "
+          f"k = {k} of {pn.num_blocks} blocks, offload host (pinned), "
+          f"{moment_dtype} moments, bank capacity {cap}; batch "
+          f"{TRAIN['global_batch']} x {TRAIN['seq_len']}; init "
+          f"{init_s:.2f} s")
+    print(f"  optimizer state: device {res['device']:,} B (banks' m, v "
+          f"{bank_mv:,} = reckoned {reckoned:,}), host {res['host']:,} B "
+          f"(dense m, v would take {mv * int(per_block.sum()):,} B on the "
+          f"card)")
+    masks = _record_masks(tr)
+    torch.cuda.reset_peak_memory_stats()
+    tr.train(warm)
+    ops.reset_launches()                 # the main path's run
+    tr.train(steps - warm)               # one log window
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    log = tr.log
+    check(len(log.losses) == steps
+          and all(math.isfinite(x) for x in log.losses),
+          f"losses {log.losses}")
+    n = steps - warm
+    per_step = {name: c / n for name, c in launches.items()}
+    want = _train_launches(nl, _adamw_name("banked_masked_adamw",
+                                           moment_dtype))
+    check(per_step == want, f"launches per step {per_step} != the "
+          f"banked path's {want}")
+    counts = opt["counts"]
+    check(int(counts.sum().item()) == k * steps
+          and all(int(mk.sum()) == k for mk in masks),
+          f"counts sum {counts.sum().item()} != {k} x {steps}")
+    m_full, v_full = masked_adamw.materialize_moments(pn, opt)
+    nz = [a or b for a, b in zip(_block_nonzero(torch, pn, m_full),
+                                 _block_nonzero(torch, pn, v_full))]
+    counted = (counts.cpu() > 0).tolist()
+    check(nz == counted, f"moments nonzero on blocks "
+          f"{[i for i, f in enumerate(nz) if f]}, counted "
+          f"{[i for i, f in enumerate(counted) if f]}")
+    del m_full, v_full
+    step_s = log.step_times[-1]
+    stats = tr.step_fn.swap_stats.as_dict()
+    print(f"  losses: {[round(x, 4) for x in log.losses]}")
+    print(f"  step time (mean of the {n}-step window): "
+          f"{step_s * 1e3:.2f} ms = {tokens / step_s:.0f} tokens/s "
+          f"(dense, phase 7: median {dense['step_ms']:.2f} ms = "
+          f"{dense['tokens_s']:.0f} tokens/s)")
+    print(f"  peak device memory: {peak / 2**30:.2f} GiB (dense, phase "
+          f"7: {dense['peak'] / 2**30:.2f} GiB)")
+    print(f"  swap stats: {json.dumps(stats)}")
+    print(f"  launches per step: {json.dumps(per_step)}; counts "
+          f"{counts.int().tolist()} (sum {int(counts.sum().item())}); "
+          f"moments nonzero on exactly the counted blocks")
+    check(peak < dense["peak"], f"banked peak {peak} is not below the "
+          f"dense peak {dense['peak']}")
+    prof = _profile_training(torch, tr) if profile else {}
+    return {"launches": launches, "step_ms": step_s * 1e3, "peak": peak,
+            "stats": stats, "profile": prof}
+
+
+def phase_banked_training(torch, ops, cfg, Trainer, dense) -> dict:
+    out = {"async": _banked_run(torch, ops, cfg, Trainer, dense, True),
+           "sync": _banked_run(torch, ops, cfg, Trainer, dense, False,
+                               profile=False)}
     print(f"banked step time: async {out['async']['step_ms']:.2f} ms, sync "
           f"{out['sync']['step_ms']:.2f} ms, dense (phase 7) "
           f"{dense['step_ms']:.2f} ms")
@@ -2391,14 +2572,24 @@ def _eval_profiled(torch, evaluate, params, cfg, task):
     """The second eval call, with engine steps EVAL_PROFILE[0] onwards
     (EVAL_PROFILE[1] decode chunks of the first 16 problems) under the
     profiler, which records the device's activity only (the host's ops
-    would take it longer to process than the run takes). The engine's
-    ``step`` is wrapped for this call only. Returns the run, its seconds,
-    the profiler and the wall time of the profiled steps."""
-    from torch.profiler import ProfilerActivity, profile
-    engine = evaluate.ServeEngine
+    would take it longer to process than the run takes). Returns the run,
+    its seconds, the profiler and the wall time of the profiled steps."""
+    from torch.profiler import ProfilerActivity
+    return _profiled_steps(
+        torch, evaluate.ServeEngine, EVAL_PROFILE, [ProfilerActivity.CUDA],
+        lambda: evaluate.greedy_eval(params, cfg, task, **EVAL,
+                                     device="cuda"))
+
+
+def _profiled_steps(torch, engine, steps, activities, run):
+    """``run()`` with engine steps ``steps[0]`` .. ``steps[0] + steps[1] -
+    1`` of its ``ServeEngine`` (``engine``, whose ``step`` is wrapped for
+    this call only) under the profiler. Returns what ``run`` returned, its
+    seconds, the profiler and the wall time of the profiled steps."""
+    from torch.profiler import profile
     plain_step = engine.step
-    skip, n = EVAL_PROFILE
-    prof = profile(activities=[ProfilerActivity.CUDA])
+    skip, n = steps
+    prof = profile(activities=activities)
     seen = {"steps": 0}
 
     def step(self):
@@ -2417,14 +2608,14 @@ def _eval_profiled(torch, evaluate, params, cfg, task):
     engine.step = step
     try:
         t0 = time.perf_counter()
-        run = evaluate.greedy_eval(params, cfg, task, **EVAL, device="cuda")
+        out = run()
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
     finally:
         engine.step = plain_step
-    check("wall" in seen, f"the second eval call ran {seen['steps']} engine "
-          f"steps, fewer than the {skip + n} the profile needs")
-    return run, sec, prof, seen["wall"]
+    check("wall" in seen, f"the run took {seen['steps']} engine steps, "
+          f"fewer than the {skip + n} the profile needs")
+    return out, sec, prof, seen["wall"]
 
 
 def _print_eval_profile(prof, wall) -> None:
@@ -2715,6 +2906,201 @@ def phase_model_consistency(torch, ops, lm, cfg, Trainer, ServeEngine,
           f"{time.perf_counter() - t1:.1f} s")
 
 
+# ------------------------------------------------------------ bf16 moments
+
+
+def _device_ms(run: dict) -> str:
+    prof = run.get("profile") or {}
+    return (f"{prof['device_ms']:.1f} ms in {prof['launches']} launches "
+            f"(2 steps), idle {prof['idle']:.3f}" if prof
+            else "not measured")
+
+
+def phase_bf16_moments(torch, ops, cfg, Trainer, dense, banked) -> dict:
+    """Phase 7's dense run and phase 10's async banked run with bf16 m and
+    v, beside the f32-moment runs ``dense`` and ``banked``."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"dense": phase_training(torch, ops, cfg, Trainer, keep_eval=False,
+                                   moment_dtype="bfloat16")}
+    out["banked"] = _banked_run(torch, ops, cfg, Trainer, out["dense"],
+                                moment_dtype="bfloat16")
+    for kind, f32 in (("dense", dense), ("banked", banked)):
+        r = out[kind]
+        ran = {k: v for k, v in r["launches"].items()
+               if k.endswith("adamw_bf16m") and v}
+        print(f"bf16 moments, {kind}: step {r['step_ms']:.2f} ms (f32 "
+              f"moments {f32['step_ms']:.2f}), device {_device_ms(r)} (f32 "
+              f"moments {_device_ms(f32)}), peak {r['peak'] / 2**30:.2f} "
+              f"GiB (f32 moments {f32['peak'] / 2**30:.2f}); bf16-moment "
+              f"launches {json.dumps(ran)}")
+        check(r["peak"] < f32["peak"], f"bf16 moments, {kind}: peak "
+              f"{r['peak']} not below the f32 moments' {f32['peak']}")
+    return out
+
+
+# ---------------------------------------------------- checkpoint and resume
+
+
+CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
+# dense f32 also runs its second straight run with a save every
+# ``SAVE_EVERY`` steps: the loop's cost of saves closer together than the
+# writer takes, against the first run without
+SAVE_EVERY_CASE, SAVE_EVERY = "dense f32", 2
+CKPT_CASES = {"dense f32": {},
+              "banked host f32": dict(moment_residency="banked",
+                                      offload="host", async_swap=True),
+              "dense bf16 moments": dict(moment_dtype="bfloat16")}
+
+
+def _state_bytes(torch, state) -> int:
+    return sum(x.numel() * x.element_size() for x in _leaves(state)
+               if isinstance(x, torch.Tensor))
+
+
+def _final(torch, tr) -> dict:
+    """What a resumed run is held to: the state's tensors (moments
+    materialised for the banked layout), its ints and slot_map, and the
+    losses."""
+    from repro_torch.checkpoint import manager
+    from repro_torch.core import masked_adamw
+    from repro_torch.core import partition as part_mod
+    state = dict(tr.state)
+    opt = state["opt"]
+    if "store" in opt:
+        m, v = masked_adamw.materialize_moments(
+            part_mod.build_partition(tr.tcfg.model), opt)
+        state["opt"] = {**{k: x for k, x in opt.items() if k != "store"},
+                        "m": m, "v": v}
+    flat = {path: (x.detach().clone() if isinstance(x, torch.Tensor)
+                   else x.copy() if hasattr(x, "copy") else x)
+            for path, x in manager.flatten(state)}
+    return {"flat": flat, "losses": list(tr.log.losses)}
+
+
+def _diff(torch, a: dict, b: dict) -> dict:
+    """{path: max |a - b|} of the leaves whose bits differ (ints and arrays
+    as inf); the losses under "losses"."""
+    import numpy as np
+    out = {}
+    for path, x in a["flat"].items():
+        y = b["flat"][path]
+        if isinstance(x, torch.Tensor):
+            if x.is_floating_point():
+                ib = {4: torch.int32, 2: torch.int16}[x.element_size()]
+                if not torch.equal(x.view(ib), y.to(x.device).view(ib)):
+                    out[path] = (x.float() - y.to(x.device).float()
+                                 ).abs().max().item()
+            elif not torch.equal(x, y.to(x.device)):
+                out[path] = math.inf
+        elif not np.array_equal(np.asarray(x), np.asarray(y)):
+            out[path] = math.inf
+    la, lb = a["losses"], b["losses"]
+    if la != lb:
+        out["losses"] = max(abs(p - q) for p, q in zip(la, lb))
+    return out
+
+
+def phase_checkpoint(torch, Trainer, cfg) -> dict:
+    """Checkpoint and resume at full width in the three configurations of
+    ``CKPT_CASES``; the files go under ``CKPT_DIR``, which is removed."""
+    out = {}
+    try:
+        for label, opt in CKPT_CASES.items():
+            gc.collect()
+            torch.cuda.empty_cache()
+            out[label] = _checkpoint_case(torch, Trainer, cfg, label, opt)
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    return out
+
+
+def _checkpoint_case(torch, Trainer, cfg, label, opt) -> dict:
+    steps, every = 6, 3
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+
+    def tcfg(ckdir="", save_every=every):
+        t = _train_cfg(cfg, "adagradselect", steps, TRAIN["global_batch"],
+                       TRAIN["seq_len"], **opt)
+        return dataclasses.replace(t, checkpoint_dir=ckdir,
+                                   checkpoint_every=save_every,
+                                   checkpoint_keep=1)
+    straight, walls, saves = [], [], []
+    for run in range(2):
+        ckdir = ""
+        if run == 1 and label == SAVE_EVERY_CASE:
+            ckdir = str(CKPT_DIR / "interval")
+        tr = Trainer(tcfg(ckdir, SAVE_EVERY), device="cuda")
+        if run == 0:
+            CKPT_DIR.mkdir(parents=True, exist_ok=True)
+            need = 2 * _state_bytes(torch, tr.state)
+            free = shutil.disk_usage(CKPT_DIR).free
+            check(free >= need, f"checkpoint {label}: {free:,} bytes free "
+                  f"under {CKPT_DIR}, need twice the state's {need // 2:,}")
+        if ckdir:
+            def save_and_record(*a, _ckpt=tr.ckpt, _save=tr.ckpt.save, **k):
+                _save(*a, **k)
+                saves.append(dict(_ckpt.last_save))
+            tr.ckpt.save = save_and_record
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.train(steps)   # waits for the last save's writer
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        straight.append(_final(torch, tr))
+        del tr
+    shutil.rmtree(CKPT_DIR / "interval", ignore_errors=True)
+    first = Trainer(tcfg(str(CKPT_DIR)), device="cuda")
+    first.train(every)
+    save = dict(first.ckpt.last_save)
+    del first
+    gc.collect()
+    torch.cuda.empty_cache()
+    resumed = Trainer(tcfg(str(CKPT_DIR)), device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    at = resumed.maybe_restore()
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    check(at == every, f"checkpoint {label}: restored step {at}, want "
+          f"{every}")
+    resumed.train(steps - every)
+    got = _final(torch, resumed)
+    del resumed
+    got["losses"] = straight[0]["losses"][:every] + got["losses"]
+    spread = _diff(torch, straight[0], straight[1])
+    off = _diff(torch, straight[0], got)
+    if spread:
+        print(f"  {label}: the two straight runs differ in "
+              f"{json.dumps(spread)}")
+    bad = {k: v for k, v in off.items() if v > spread.get(k, 0.0)}
+    check(not bad, f"checkpoint {label}: the resumed run differs from the "
+          f"straight one beyond their spread in {json.dumps(bad)}")
+    print(f"checkpoint {label} ({cfg.name}, bf16 params, {steps} steps, "
+          f"save at {every}): {save['bytes']:,} bytes on disk; save "
+          f"stalled the loop {save['stall_s']:.3f} s (snapshot "
+          f"{save['snapshot_s']:.3f} s), writer "
+          f"{save['write_s']:.3f} s, restore {restore_s:.3f} s; resumed = "
+          f"straight "
+          f"{'bit for bit' if not off else 'within the straight runs spread'}"
+          f" ({len(got['flat'])} leaves and the losses of steps "
+          f"{every + 1}-{steps}: {[round(x, 5) for x in got['losses'][every:]]})")
+    if saves:
+        tok = steps * TRAIN["global_batch"] * TRAIN["seq_len"]
+        print(f"checkpoint {label}: {steps} steps without saves "
+              f"{walls[0]:.3f} s ({tok / walls[0]:,.0f} tok/s), with a save "
+              f"every {SAVE_EVERY} steps {walls[1]:.3f} s "
+              f"({tok / walls[1]:,.0f} tok/s, the last writer waited "
+              f"for); each save's stall "
+              f"{[round(x['stall_s'], 3) for x in saves]} s, of it the wait "
+              f"on the previous writer "
+              f"{[round(x['wait_s'], 3) for x in saves]} s; the saving run "
+              f"= the first "
+              f"{'bit for bit' if not spread else 'NOT bit for bit'}")
+    return {**save, "restore_s": restore_s, "bit_equal": not off,
+            "walls": walls, "saves": saves}
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -2819,8 +3205,9 @@ def main() -> int:
                                 ServeEngine, ServeConfig, Request)
         phase.start("phi4 training")
         phi4_cfg = get_config(PHI4)
-        runs.append(phase_training(torch, ops, phi4_cfg, Trainer,
-                                   steps=PHI4_STEPS, keep_eval=False))
+        phi4 = phase_training(torch, ops, phi4_cfg, Trainer,
+                              steps=PHI4_STEPS, keep_eval=False)
+        runs.append(phi4)
         gc.collect()
         torch.cuda.empty_cache()
         phase.start("phi4 serving")
@@ -2831,6 +3218,29 @@ def main() -> int:
         phase.start("phi4 consistency")
         phase_model_consistency(torch, ops, lm, phi4_cfg, Trainer,
                                 ServeEngine, ServeConfig, Request)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase.start("bf16 moments training")
+        bf16m = phase_bf16_moments(torch, ops, cfg, Trainer, training,
+                                   banked)
+        runs += [bf16m["dense"], bf16m["banked"]]
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase.start("phi4 bf16 moments")
+        phi4_bf16 = phase_training(torch, ops, phi4_cfg, Trainer,
+                                   steps=PHI4_BF16_STEPS, keep_eval=False,
+                                   moment_dtype="bfloat16")
+        runs.append(phi4_bf16)
+        print(f"phi4-mini peak with bf16 moments: "
+              f"{phi4_bf16['peak'] / 2**30:.2f} GiB (f32 moments, phase 23: "
+              f"{phi4['peak'] / 2**30:.2f} GiB)")
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase.start("bf16 moments consistency")
+        phase_train_consistency(torch, ops, cfg, Trainer,
+                                moment_dtype="bfloat16")
+        phase.start("checkpoint")
+        phase_checkpoint(torch, Trainer, cfg)
     except Exception:   # the boundary: report the failed phase, exit non-zero
         traceback.print_exc()
         print(f"chip_smoke: phase {phase.name!r} FAILED", file=sys.stderr)
@@ -2858,6 +3268,13 @@ def main() -> int:
                          "src/repro/kernels/masked_adamw.py:34"),
         "banked_masked_adamw": (
             "triton", "src/repro_torch/kernels/masked_adamw.py",
+            "src/repro/kernels/masked_adamw.py:80"),
+        # rows 8 and 9 with bf16 moments: the same sources, counted apart
+        "masked_adamw_bf16m": (
+            "triton", "src/repro_torch/kernels/masked_adamw.py",
+            "src/repro/kernels/masked_adamw.py:34"),
+        "banked_masked_adamw_bf16m": (
+            "triton", "src/repro_torch/kernels/masked_adamw.py",
             "src/repro/kernels/masked_adamw.py:80")}
     flash_src = "src/repro_torch/csrc/flash_attention.cu"
     sources.update({
@@ -2878,8 +3295,8 @@ def main() -> int:
         # the flash kernels, the dense serving run of phase 5 and the eval
         # (16) for the dense decode kernel, the gated runs (17) for the
         # RMSNorm backward's dx-only mode; and for every kernel the new
-        # models' runs (phases 20, 21, 23 and 24), zero where it is off
-        # their path
+        # models' runs (phases 20, 21, 23 and 24) and the bf16-moment runs
+        # (phases 26 and 27), zero where it is off their path
         launches = sum(run["launches"][name] for run in runs)
         if name == "rmsnorm_bwd_dx":
             launches += gated["launches"][name]

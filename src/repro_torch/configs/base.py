@@ -197,8 +197,8 @@ class OptimizerConfig:
     warmup_steps: int = 20
     schedule: str = "cosine"       # "constant" | "cosine" | "linear"
     total_steps: int = 1000
-    # paper 3.3: where the AdamW moments live. "device": full f32 m/v on
-    # the card (the dense masked AdamW); "banked": [k]-slot banks on the
+    # paper 3.3: where the AdamW moments live. "device": full m/v on the
+    # card (the dense masked AdamW); "banked": [k]-slot banks on the
     # card over a full store placed by ``offload`` ("host" or "none";
     # "zero1" is ROADMAP Queue A item 11).
     moment_residency: str = "device"  # "device" | "banked"
@@ -208,7 +208,7 @@ class OptimizerConfig:
     # host, and the swap planner has yet to earn its staged rows' memory
     # (PERF.md §6, PR 17).
     async_swap: bool = False
-    moment_dtype: str = "float32"  # "float32" | "bfloat16"
+    moment_dtype: str = "float32"  # "float32" | "bfloat16" (halves m/v)
     accum_dtype: str = "float32"   # microbatch grad-accumulation buffer
     # LoRA baseline
     lora_rank: int = 0

@@ -7,13 +7,21 @@ tensors: the same key paths, the same stacked [L, ...] layout and, unless a
 ``dtype`` is given, the same dtype. ``params_to_numpy`` is its inverse.
 ``train_state_from_numpy`` converts a whole TrainState of the
 masked-selection family, dense or banked residency, so both packages can
-take the same step from the same state.
+take the same step from the same state; ``train_state_from_checkpoint``
+does so for a ``step_N/proc_0.npz`` that the JAX package's
+``CheckpointManager`` wrote. bf16 leaves may come as ``ml_dtypes.bfloat16``
+(what JAX hands out) or as the raw 2-byte void (``|V2``) that the
+reference's checkpoint writer leaves of them; both are viewed as bf16, bit
+for bit. (The port's own files hold bf16 as uint16 bits and restore
+through ``CheckpointManager.restore``, which reads every 2-byte leaf by its
+target's dtype.)
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.manager import CheckpointManager, unflatten
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
@@ -27,7 +35,9 @@ def _leaf_to_tensor(arr, device, dtype) -> torch.Tensor:
     # a copy: the port updates parameters and moments in place, and the
     # array may be a read-only view of a JAX buffer
     arr = np.array(arr)
-    if arr.dtype.name == "bfloat16":   # ml_dtypes.bfloat16, as JAX hands out
+    # ml_dtypes.bfloat16, as JAX hands out, or the |V2 a reference
+    # checkpoint restores it as
+    if arr.dtype.name == "bfloat16" or arr.dtype == np.dtype("V2"):
         t = torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
     elif arr.dtype in _NP_TO_TORCH:
         t = torch.from_numpy(arr)
@@ -149,3 +159,15 @@ def train_state_from_numpy(state: dict, cfg: ModelConfig, device="cuda",
         "sel": out_sel,
         "step": int(np.asarray(state["step"])),
     }
+
+
+def train_state_from_checkpoint(directory: str, cfg: ModelConfig,
+                                step: int | None = None, device="cuda",
+                                offload: str = "host") -> tuple[dict, int]:
+    """(the port's TrainState, step) from a checkpoint directory that the
+    JAX package's ``CheckpointManager`` wrote (the latest step unless one is
+    given), dense or banked, f32 or bf16: ``train_state_from_numpy`` on its
+    leaves, each read as the file holds it."""
+    flat, step = CheckpointManager(directory).load_flat(step)
+    return train_state_from_numpy(unflatten(flat), cfg, device,
+                                  offload), step

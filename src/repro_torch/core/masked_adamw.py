@@ -4,8 +4,11 @@ residency.
 
 Selected blocks take a standard AdamW step (moments + weight decay);
 unselected blocks keep parameters AND moments bit-identical. Bias
-correction uses per-block step counts. Moments are f32 whatever the
-parameter dtype.
+correction uses per-block step counts. Moments are in
+``OptimizerConfig.moment_dtype`` (f32, or bf16 to halve their bytes)
+whatever the parameter dtype; the arithmetic is f32 either way, and bf16
+moments are rounded (to nearest even) only when stored, as the reference's
+XLA path does.
 
 The update is IN PLACE on the parameters and moments (the reference returns
 new arrays): the stacked leaves go through ``ops.masked_adamw`` (the kernel
@@ -38,13 +41,17 @@ from repro_torch.core.partition import (BlockPartition, leaf_masks, leaves,
 from repro_torch.kernels import ops
 
 
-def init_opt_state(partition: BlockPartition, params: dict) -> dict:
-    """Zero f32 moments congruent with ``params`` and zero per-block
-    counts, on the device of the parameters."""
+def init_opt_state(partition: BlockPartition, params: dict,
+                   moment_dtype: torch.dtype = torch.float32) -> dict:
+    """Zero moments in ``moment_dtype`` congruent with ``params`` and zero
+    f32 per-block counts, on the device of the parameters."""
     dev = leaves(params)[0].device
+
+    def zeros(x):
+        return torch.zeros(x.shape, dtype=moment_dtype, device=dev)
     return {
-        "m": tree_map(lambda x: torch.zeros(x.shape, device=dev), params),
-        "v": tree_map(lambda x: torch.zeros(x.shape, device=dev), params),
+        "m": tree_map(zeros, params),
+        "v": tree_map(zeros, params),
         "counts": torch.zeros(partition.num_blocks, device=dev),
     }
 
@@ -67,10 +74,12 @@ def clip_by_global_norm(grads, max_norm: float):
 
 def _adamw_rows(cfg: OptimizerConfig, p, g, m, v, sel, cnt, lr):
     """The masked-AdamW formula on one unstacked leaf, in plain torch (0-d
-    ``sel`` and ``cnt``); writes p, m and v in place."""
+    ``sel`` and ``cnt``); writes p, m and v in place (``copy_`` rounds the
+    f32 m and v to the moment dtype)."""
     gf = g.float()
-    m2 = torch.where(sel > 0, cfg.b1 * m + (1 - cfg.b1) * gf, m)
-    v2 = torch.where(sel > 0, cfg.b2 * v + (1 - cfg.b2) * gf * gf, v)
+    mf, vf = m.float(), v.float()
+    m2 = torch.where(sel > 0, cfg.b1 * mf + (1 - cfg.b1) * gf, mf)
+    v2 = torch.where(sel > 0, cfg.b2 * vf + (1 - cfg.b2) * gf * gf, vf)
     c = torch.clamp(cnt, min=1.0)
     mhat = m2 / (1 - cfg.b1 ** c)
     vhat = v2 / (1 - cfg.b2 ** c)
@@ -116,7 +125,8 @@ def bank_capacity(group, k_slots: int) -> int:
 
 
 def init_banked_opt_state(partition: BlockPartition, params: dict,
-                          k_slots: int, store_policy: str = "host") -> dict:
+                          k_slots: int, store_policy: str = "host",
+                          moment_dtype: torch.dtype = torch.float32) -> dict:
     """Compact banked optimizer state, on the device of ``params``:
 
       banks[key] — per group: ``m``/``v`` trees with leading axis ``cap =
@@ -128,7 +138,9 @@ def init_banked_opt_state(partition: BlockPartition, params: dict,
                    host and drives the boundary.
       counts     — per-block bias-correction step counts, as in the dense
                    layout.
-      store      — the full f32 store (``offload.init_full_store``).
+      store      — the full store (``offload.init_full_store``).
+
+    Banks and store hold ``moment_dtype``.
 
     Nothing is resident at first; the first boundary admits the first
     selection's zero rows from the store."""
@@ -139,7 +151,7 @@ def init_banked_opt_state(partition: BlockPartition, params: dict,
 
         def zeros(x, cap=cap, stacked=g.stacked):
             shape = (cap,) + tuple(x.shape[1:]) if stacked else x.shape
-            return torch.zeros(shape, device=dev)
+            return torch.zeros(shape, dtype=moment_dtype, device=dev)
         banks[g.key] = {
             "m": tree_map(zeros, params[g.key]),
             "v": tree_map(zeros, params[g.key]),
@@ -150,7 +162,8 @@ def init_banked_opt_state(partition: BlockPartition, params: dict,
         "banks": banks,
         "slot_map": np.full((partition.num_blocks,), -1, np.int32),
         "counts": torch.zeros(partition.num_blocks, device=dev),
-        "store": offload.init_full_store(partition, params, store_policy),
+        "store": offload.init_full_store(partition, params, store_policy,
+                                         moment_dtype),
     }
 
 
@@ -239,7 +252,7 @@ def prefetch_admissions(plans: list, banks: dict, store: dict) -> dict:
         rows = []
         for bank_leaf, store_leaf in pairs:
             out = torch.empty((len(plan.ad_blocks),) + bank_leaf.shape[1:],
-                              device=bank_leaf.device)
+                              dtype=bank_leaf.dtype, device=bank_leaf.device)
             offload.store_read_rows(store_leaf, plan.ad_blocks, out)
             rows.append(out)
         staged[plan.key] = rows

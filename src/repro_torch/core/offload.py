@@ -3,7 +3,8 @@ port of the banked-store half of the JAX package's ``core/offload.py``.
 
 Under ``moment_residency="banked"`` the card holds only compact [k]-slot
 moment banks (``masked_adamw.init_banked_opt_state``); this module owns the
-full-shape f32 store behind them. ``offload`` picks its place:
+full-shape store behind them, in the moment dtype (f32 or bf16). ``offload``
+picks its place:
 
   "host" — CPU tensors in host RAM, the paper's design. When the banks live
            on the card the store is *pinned*, so a block's moments go
@@ -13,9 +14,8 @@ full-shape f32 store behind them. ``offload`` picks its place:
            reference keeps it for testing).
 
 The reference's ``"zero1"`` store is sharded over a data-parallel mesh,
-which the port has not got (ROADMAP Queue A item 11). Its
-``ensure_store_residency`` re-places a store after a checkpoint restore and
-comes with checkpoints (item 3).
+which the port has not got (ROADMAP Queue A item 11).
+``ensure_store_residency`` re-places a store after a checkpoint restore.
 
 ``optimizer_memory_report`` is the §3.3 model (Mem = 2 * P_selected * B);
 ``resident_opt_bytes`` measures an actual optimizer state, device against
@@ -35,10 +35,11 @@ STORE_POLICIES = ("host", "none")
 
 
 def init_full_store(partition: BlockPartition, params: dict,
-                    policy: str = "host") -> dict:
-    """Zero f32 m/v store congruent with ``params``: ``{group key: {"m":
-    tree, "v": tree}}``, placed per ``policy`` (see the module
-    docstring)."""
+                    policy: str = "host",
+                    moment_dtype: torch.dtype = torch.float32) -> dict:
+    """Zero m/v store in ``moment_dtype`` congruent with ``params``:
+    ``{group key: {"m": tree, "v": tree}}``, placed per ``policy`` (see the
+    module docstring)."""
     if policy == "zero1":
         raise NotImplementedError(
             "offload='zero1' (a store sharded over a data-parallel mesh) is "
@@ -51,13 +52,33 @@ def init_full_store(partition: BlockPartition, params: dict,
         pin = dev.type == "cuda"
 
         def zeros(x):
-            return torch.zeros(x.shape, pin_memory=pin)
+            return torch.zeros(x.shape, dtype=moment_dtype, pin_memory=pin)
     else:
         def zeros(x):
-            return torch.zeros(x.shape, device=dev)
+            return torch.zeros(x.shape, dtype=moment_dtype, device=dev)
     return {g.key: {"m": tree_map(zeros, params[g.key]),
                     "v": tree_map(zeros, params[g.key])}
             for g in partition.groups}
+
+
+def ensure_store_residency(store: dict, policy: str, device) -> dict:
+    """Re-place a full store on its configured side, after a checkpoint
+    restore has brought every leaf to host RAM: ``"host"`` keeps CPU
+    tensors, pinned when ``device`` (that of the banks) is the card, so the
+    boundary's copies stay asynchronous; ``"none"`` moves them to
+    ``device``. A leaf already in place is kept as it is."""
+    if policy not in STORE_POLICIES:
+        raise ValueError(f"unknown store policy {policy!r}; expected one of "
+                         f"{STORE_POLICIES}")
+    dev = torch.device(device)
+
+    def place(x):
+        if policy == "none":
+            return x.to(dev)
+        x = x.cpu()
+        return x.pin_memory() if dev.type == "cuda" and not x.is_pinned() \
+            else x
+    return tree_map(place, store)
 
 
 def store_read_rows(leaf: torch.Tensor, blocks, out: torch.Tensor) -> None:
@@ -106,6 +127,13 @@ def resident_opt_bytes(opt_state: dict) -> dict:
             host += x.nbytes
     visit(opt_state)
     return {"device": dev, "host": host}
+
+
+def moment_itemsize(opt_state: dict) -> int:
+    """Bytes of one moment element (4 for f32, 2 for bf16) of a dense or
+    banked optimizer state: the B of the memory model below."""
+    moments = opt_state["m"] if "m" in opt_state else opt_state["store"]
+    return leaves(moments)[0].element_size()
 
 
 @dataclass(frozen=True)

@@ -5,8 +5,18 @@ dense and banked.
 ``kernels/masked_adamw.py``: over a stacked leaf viewed as [L, R], the rows
 whose ``sel`` is nonzero take an AdamW step with their own bias-correction
 count ``c = max(counts[row], 1)``; the other rows keep p, m and v bit for
-bit. p and g are in the parameter dtype, m and v in f32, the arithmetic in
-f32, in the reference's order of operations.
+bit. p and g are in the parameter dtype, m and v in the moment dtype (f32,
+or bf16 under ``OptimizerConfig(moment_dtype="bfloat16")``), the
+arithmetic in f32, in the order of the reference's XLA path
+(``core/masked_adamw.py`` ``_adamw_rows``): m and v are widened on load,
+the new m and v stay f32 through the bias correction and the parameter
+step, and are rounded to the moment dtype only when stored. Triton's
+``.to(tl.bfloat16)`` rounds to nearest even (``cvt.rn.bf16.f32``), as
+XLA's convert does. The compiler may contract ``b1 * m + omb1 * g`` into
+an FMA, so an f32 moment can differ from the plain version's in its last
+bit, and a bf16 one by one bf16 ulp (more only where the sum cancels to
+near zero). Triton compiles one variant per pointer dtype, so the f32 and
+bf16 moments share this source; ``ops.py`` counts their launches apart.
 
 ``_banked_masked_adamw`` replaces ``_banked_kernel`` (banked residency,
 paper §3.3): m and v are [cap, R] banks whose row i holds the moments of
@@ -20,7 +30,8 @@ here a program just stops. Both kernels call one tile body
 banked step gives the same bits as the dense one on the same rows.
 
 It is bound by memory: a selected element reads p, g, m, v and writes p, m,
-v (3 x 2 + 16 = 22 bytes at bf16 params) with ~15 flops between. The kernel
+v (3 x 2 + 16 = 22 bytes at bf16 params and f32 moments, 3 x 2 + 8 = 14
+with bf16 moments) with ~15 flops between. The kernel
 updates p, m and v in place (the reference returns new arrays), so it moves
 nothing else; the banked kernel moves the same bytes for the same selected
 rows. One program per (``TILES * BLOCK`` elements, row) walks its
@@ -69,16 +80,17 @@ def _adamw_tile_fn(p_ptrs, g_ptrs, m_ptrs, v_ptrs, mask, lr, b1, b2, omb1,
                    omb2, eps, wd, bc1, bc2):
     p = tl.load(p_ptrs, mask=mask, other=0.0).to(tl.float32)
     g = tl.load(g_ptrs, mask=mask, other=0.0).to(tl.float32)
-    m = tl.load(m_ptrs, mask=mask, other=0.0)
-    v = tl.load(v_ptrs, mask=mask, other=0.0)
+    m = tl.load(m_ptrs, mask=mask, other=0.0).to(tl.float32)
+    v = tl.load(v_ptrs, mask=mask, other=0.0).to(tl.float32)
     m2 = b1 * m + omb1 * g
     v2 = b2 * v + omb2 * g * g
     mhat = tl.div_rn(m2, bc1)
     vhat = tl.div_rn(v2, bc2)
     step = lr * (tl.div_rn(mhat, tl.sqrt_rn(vhat) + eps) + wd * p)
     tl.store(p_ptrs, (p - step).to(p_ptrs.dtype.element_ty), mask=mask)
-    tl.store(m_ptrs, m2, mask=mask)
-    tl.store(v_ptrs, v2, mask=mask)
+    # rounded to the moment dtype only here (to nearest even for bf16)
+    tl.store(m_ptrs, m2.to(m_ptrs.dtype.element_ty), mask=mask)
+    tl.store(v_ptrs, v2.to(v_ptrs.dtype.element_ty), mask=mask)
 
 
 def _masked_adamw(p_ptr, g_ptr, m_ptr, v_ptr, sel_ptr, cnt_ptr, R,
@@ -148,29 +160,29 @@ def _scalars(lr, b1, b2, eps, wd):
             1.0 - float(b2), float(eps), float(wd))
 
 
-def launch(p2d, g2d, m2d, v2d, sel, counts, lr, b1, b2, eps, wd) -> None:
-    """p2d, g2d: [L, R] in the param dtype; m2d, v2d: [L, R] f32; sel,
-    counts: [L] f32 — contiguous CUDA tensors already checked by
+def launch(p2d, g2d, m2d, v2d, sel, counts, lr, b1, b2, eps, wd):
+    """p2d, g2d: [L, R] in the param dtype; m2d, v2d: [L, R] f32 or bf16;
+    sel, counts: [L] f32 — contiguous CUDA tensors already checked by
     ``ops.masked_adamw``. Updates p2d, m2d and v2d in place on the current
-    stream."""
+    stream; returns Triton's compiled kernel (its ``asm`` holds the PTX)."""
     kernel, _ = load()
     n_rows, r = p2d.shape
     grid, tiles = _grid(r, n_rows)
-    kernel[grid](p2d, g2d, m2d, v2d, sel, counts, r,
-                 *_scalars(lr, b1, b2, eps, wd), BLOCK=BLOCK, TILES=tiles,
-                 num_warps=8)
+    return kernel[grid](p2d, g2d, m2d, v2d, sel, counts, r,
+                        *_scalars(lr, b1, b2, eps, wd), BLOCK=BLOCK,
+                        TILES=tiles, num_warps=8)
 
 
 def launch_banked(p2d, g2d, m2d, v2d, slots, sel, counts, lr, b1, b2, eps,
-                  wd) -> None:
-    """p2d, g2d: [L, R] in the param dtype; m2d, v2d: [cap, R] f32 banks;
-    slots: [cap] int32; sel, counts: [cap] f32 — contiguous CUDA tensors
-    already checked by ``ops.banked_masked_adamw``. Updates the p rows
+                  wd):
+    """p2d, g2d: [L, R] in the param dtype; m2d, v2d: [cap, R] banks (f32 or
+    bf16); slots: [cap] int32; sel, counts: [cap] f32 — contiguous CUDA
+    tensors already checked by ``ops.banked_masked_adamw``. Updates the p rows
     ``slots[i]`` (sel[i] > 0, slots[i] < L) and bank rows i of m2d and v2d
-    in place on the current stream."""
+    in place on the current stream; returns Triton's compiled kernel."""
     _, kernel = load()
     n_leaf, r = p2d.shape
     grid, tiles = _grid(r, m2d.shape[0])
-    kernel[grid](p2d, g2d, m2d, v2d, slots, sel, counts, n_leaf, r,
-                 *_scalars(lr, b1, b2, eps, wd), BLOCK=BLOCK, TILES=tiles,
-                 num_warps=8)
+    return kernel[grid](p2d, g2d, m2d, v2d, slots, sel, counts, n_leaf, r,
+                        *_scalars(lr, b1, b2, eps, wd), BLOCK=BLOCK,
+                        TILES=tiles, num_warps=8)

@@ -24,7 +24,8 @@ from repro_torch.kernels import rmsnorm as _rn
 LAUNCHES = {"paged_decode_attention": 0, "decode_attention": 0,
             "rmsnorm": 0, "rmsnorm_bwd": 0, "rmsnorm_bwd_dx": 0,
             "block_grad_sq_norms": 0, "masked_adamw": 0,
-            "banked_masked_adamw": 0, "flash_attention_fwd": 0,
+            "masked_adamw_bf16m": 0, "banked_masked_adamw": 0,
+            "banked_masked_adamw_bf16m": 0, "flash_attention_fwd": 0,
             "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
 _FLOATS = (torch.float32, torch.bfloat16)
 
@@ -255,11 +256,32 @@ def block_grad_sq_norms(g):
     return out
 
 
+def _check_adamw_dtypes(name, p, g, m, v, sel, counts) -> None:
+    """Rows 8 and 9: p and g of one float dtype, m and v of one (f32 or
+    bf16, independent of p's), sel and counts f32."""
+    if p.dtype not in _FLOATS or g.dtype != p.dtype:
+        _fail(name, f"p and g must share a dtype of float32 or bfloat16, "
+              f"got {p.dtype}/{g.dtype}")
+    if m.dtype not in _FLOATS or v.dtype != m.dtype:
+        _fail(name, f"m and v must share a moment dtype of float32 or "
+              f"bfloat16, got {m.dtype}/{v.dtype}")
+    for label, t in (("sel", sel), ("counts", counts)):
+        if t.dtype != torch.float32:
+            _fail(name, f"{label} must be float32, got {t.dtype}")
+
+
+def _moment_name(name: str, m: torch.Tensor) -> str:
+    """The launch count of rows 8 and 9: bf16 moments count apart."""
+    return name + "_bf16m" if m.dtype == torch.bfloat16 else name
+
+
 def masked_adamw(p, g, m, v, sel, counts, lr, b1, b2, eps, wd):
     """Masked AdamW over a stacked leaf, IN PLACE on p, m and v. p, g:
-    [L, ...] in the param dtype; m, v: [L, ...] f32; sel, counts: [L] f32
-    (counts = post-increment per-block steps); lr and the hyper-parameters
-    are Python floats. Rows with sel = 0 keep p, m and v bit for bit.
+    [L, ...] in the param dtype; m, v: [L, ...] of one moment dtype, f32 or
+    bf16 (computed in f32, rounded to nearest even when stored); sel,
+    counts: [L] f32 (counts = post-increment per-block steps); lr and the
+    hyper-parameters are Python floats. Rows with sel = 0 keep p, m and v
+    bit for bit. A launch on bf16 moments counts as ``masked_adamw_bf16m``.
     Returns (p, m, v)."""
     name = "masked_adamw"
     if not _on_card(name, p, g, m, v, sel, counts):
@@ -280,12 +302,7 @@ def masked_adamw(p, g, m, v, sel, counts, lr, b1, b2, eps, wd):
     if sel.shape != (nl,) or counts.shape != (nl,):
         _fail(name, f"sel and counts must be [L={nl}], got "
               f"{tuple(sel.shape)} and {tuple(counts.shape)}")
-    if p.dtype not in _FLOATS or g.dtype != p.dtype:
-        _fail(name, f"p and g must share a dtype of float32 or bfloat16, "
-              f"got {p.dtype}/{g.dtype}")
-    for label, t in (("m", m), ("v", v), ("sel", sel), ("counts", counts)):
-        if t.dtype != torch.float32:
-            _fail(name, f"{label} must be float32, got {t.dtype}")
+    _check_adamw_dtypes(name, p, g, m, v, sel, counts)
     for label, t in (("p", p), ("g", g), ("m", m), ("v", v), ("sel", sel),
                      ("counts", counts)):
         if not t.is_contiguous():
@@ -293,18 +310,20 @@ def masked_adamw(p, g, m, v, sel, counts, lr, b1, b2, eps, wd):
     _ma.load()
     _ma.launch(p.view(nl, -1), g.view(nl, -1), m.view(nl, -1),
                v.view(nl, -1), sel, counts, lr, b1, b2, eps, wd)
-    LAUNCHES[name] += 1
+    LAUNCHES[_moment_name(name, m)] += 1
     return p, m, v
 
 
 def banked_masked_adamw(p, g, m, v, slots, sel, counts, lr, b1, b2, eps,
                         wd):
     """Masked AdamW over the bank rows of a stacked leaf, IN PLACE. p, g:
-    [L, ...] in the param dtype; m, v: [cap, ...] f32 banks whose row i
-    holds the moments of leaf row ``slots[i]`` (int32 [cap]; ``>= L`` is a
-    free slot); sel, counts: [cap] f32. The p rows ``slots[i]`` with sel > 0
-    and the bank rows take the step; free slots, rows with sel = 0 and the
-    leaf rows no slot holds keep their bits. Returns (p, m, v)."""
+    [L, ...] in the param dtype; m, v: [cap, ...] banks of one moment
+    dtype (f32 or bf16, as in ``masked_adamw``) whose row i holds the
+    moments of leaf row ``slots[i]`` (int32 [cap]; ``>= L`` is a free
+    slot); sel, counts: [cap] f32. The p rows ``slots[i]`` with sel > 0 and
+    the bank rows take the step; free slots, rows with sel = 0 and the leaf
+    rows no slot holds keep their bits. A launch on bf16 moments counts as
+    ``banked_masked_adamw_bf16m``. Returns (p, m, v)."""
     name = "banked_masked_adamw"
     if not _on_card(name, p, g, m, v, slots, sel, counts):
         nl, cap = p.shape[0], m.shape[0]
@@ -326,14 +345,9 @@ def banked_masked_adamw(p, g, m, v, slots, sel, counts, lr, b1, b2, eps,
         _fail(name, f"slots, sel and counts must be [cap={cap}], got "
               f"{tuple(slots.shape)}, {tuple(sel.shape)} and "
               f"{tuple(counts.shape)}")
-    if p.dtype not in _FLOATS or g.dtype != p.dtype:
-        _fail(name, f"p and g must share a dtype of float32 or bfloat16, "
-              f"got {p.dtype}/{g.dtype}")
     if slots.dtype != torch.int32:
         _fail(name, f"slots must be int32, got {slots.dtype}")
-    for label, t in (("m", m), ("v", v), ("sel", sel), ("counts", counts)):
-        if t.dtype != torch.float32:
-            _fail(name, f"{label} must be float32, got {t.dtype}")
+    _check_adamw_dtypes(name, p, g, m, v, sel, counts)
     for label, t in (("p", p), ("g", g), ("m", m), ("v", v),
                      ("slots", slots), ("sel", sel), ("counts", counts)):
         if not t.is_contiguous():
@@ -342,7 +356,7 @@ def banked_masked_adamw(p, g, m, v, slots, sel, counts, lr, b1, b2, eps,
     _ma.launch_banked(p.view(nl, -1), g.view(nl, -1), m.view(cap, -1),
                       v.view(cap, -1), slots, sel, counts, lr, b1, b2, eps,
                       wd)
-    LAUNCHES[name] += 1
+    LAUNCHES[_moment_name(name, m)] += 1
     return p, m, v
 
 

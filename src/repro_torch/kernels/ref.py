@@ -106,11 +106,15 @@ def block_grad_sq_norms(g):
 
 
 def masked_adamw(p, g, m, v, sel, counts, lr, b1, b2, eps, wd):
-    """p, g: [L, R] (param dtype); m, v: [L, R] f32; sel, counts: [L] f32
-    (counts = post-increment per-block steps). Returns (p', m', v'), the
-    masked-AdamW step of the JAX package's ``core/masked_adamw.py``: rows
-    with sel = 0 come back unchanged."""
+    """p, g: [L, R] (param dtype); m, v: [L, R] of one moment dtype (f32 or
+    bf16); sel, counts: [L] f32 (counts = post-increment per-block steps).
+    Returns (p', m', v'), the masked-AdamW step of the JAX package's
+    ``core/masked_adamw.py`` XLA path: m and v widened to f32, the step in
+    f32, m' and v' rounded back to the moment dtype last; rows with sel = 0
+    come back unchanged."""
     gf = g.float()
+    mdt = m.dtype
+    m, v = m.float(), v.float()
     selb = (sel > 0)[:, None]
     m2 = torch.where(selb, b1 * m + (1 - b1) * gf, m)
     v2 = torch.where(selb, b2 * v + (1 - b2) * gf * gf, v)
@@ -120,14 +124,14 @@ def masked_adamw(p, g, m, v, sel, counts, lr, b1, b2, eps, wd):
     pf = p.float()
     step = lr * (mhat / (torch.sqrt(vhat) + eps) + wd * pf)
     p2 = torch.where(selb, pf - step, pf)
-    return p2.to(p.dtype), m2, v2
+    return p2.to(p.dtype), m2.to(mdt), v2.to(mdt)
 
 
 def banked_masked_adamw(p, g, m, v, slots, sel, counts, lr, b1, b2, eps,
                         wd):
-    """p, g: [L, R] (param dtype); m, v: [cap, R] f32 banks; slots: [cap]
-    int (bank row i holds leaf row ``slots[i]``; ``>= L`` is a free slot);
-    sel, counts: [cap] f32. Returns (p', m', v'): ``masked_adamw`` on the
+    """p, g: [L, R] (param dtype); m, v: [cap, R] banks (f32 or bf16);
+    slots: [cap] int (bank row i holds leaf row ``slots[i]``; ``>= L`` is a
+    free slot); sel, counts: [cap] f32. Returns (p', m', v'): ``masked_adamw`` on the
     rows gathered through ``slots`` (free slots read zeros and count as
     unselected), the p rows scattered back where the slot is real."""
     n = p.shape[0]

@@ -33,10 +33,22 @@ tokens and the records a step.
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-0.5b \
       --pack --steps 10 --seq-len 512 --global-batch 8
 
+Checkpoints: ``--checkpoint-dir DIR --checkpoint-every N`` saves the
+TrainState every N steps (the data cursor in ``meta.json``); run the same
+command again and it prints "resumed from step N" and trains ``--steps``
+more steps from there, as the reference's launcher does. Each save prints
+its bytes on disk, the stall it added to the loop and the writer's seconds.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-0.5b \
+      --smoke --device cpu --steps 6 --seq-len 48 --global-batch 4 \
+      --checkpoint-dir /tmp/ckpt --checkpoint-every 3
+
+bf16 moments have no flag (the reference's launcher has none):
+``OptimizerConfig(moment_dtype="bfloat16")`` in code.
+
 Flags of the reference whose feature is not ported raise
 ``NotImplementedError`` naming its ROADMAP Queue A item: ``--method lora``
-(4), ``--checkpoint-dir``/``--checkpoint-every`` (3), ``--data jsonl`` and
-``--prefetch-depth`` (8),
+(4), ``--data jsonl`` and ``--prefetch-depth`` (8),
 ``--trace``/``--metrics-json``/``--report`` (10), ``--mesh``, ``--offload
 zero1`` and ``--offload`` under ``--moment-residency device`` (11).
 ``--eval-every`` raises as well: the reference trainer has no eval hook;
@@ -167,8 +179,18 @@ def main(argv=None):
         res = resident_opt_bytes(trainer.state["opt"])
         print(f"resident moment bytes: device {res['device']:,} "
               f"host {res['host']:,}")
+    start = trainer.maybe_restore()
+    if start:
+        print(f"resumed from step {start}")
     ops.reset_launches()
     log = trainer.train()
+    if trainer.ckpt is not None and trainer.ckpt.last_save:
+        ls = trainer.ckpt.last_save
+        print(f"checkpoint: step {ls['step']} in {args.checkpoint_dir}, "
+              f"{ls['bytes']:,} bytes; the save stalled the loop "
+              f"{ls['stall_s']:.3f} s ({ls['wait_s']:.3f} s of it on the "
+              f"previous save's writer), the writer took "
+              f"{ls['write_s']:.3f} s")
     step_s = np.mean(log.step_times[3:])
     tokens = args.global_batch * args.seq_len
     print(f"final loss: {log.losses[-1]:.4f}  "

@@ -7,7 +7,7 @@ selection (core/adagradselect) -> block-masked AdamW, in place.
 
 Two moment residencies (``opt_cfg.moment_residency``):
 
-* ``"device"``: full f32 m/v on the card and the dense masked AdamW. The
+* ``"device"``: full m/v on the card and the dense masked AdamW. The
   step never reads a value back to the host, so consecutive steps queue on
   the card without waiting.
 * ``"banked"`` (paper §3.3): only the selected blocks' moments are on the
@@ -78,10 +78,9 @@ def _check_opt(opt_cfg: OptimizerConfig) -> None:
             f"offload={opt_cfg.offload!r} with moment_residency="
             f"{opt_cfg.moment_residency!r} is not ported yet (ROADMAP Queue "
             f"A item 11, 'Distributed')")
-    if opt_cfg.moment_dtype != "float32":
-        raise NotImplementedError(
-            "the port keeps f32 moments (the masked AdamW kernel takes f32 "
-            "m and v); bf16 moments are ROADMAP Queue A item 17")
+    if opt_cfg.moment_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"unknown moment_dtype {opt_cfg.moment_dtype!r}; "
+                         f"expected 'float32' or 'bfloat16'")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,7 +104,8 @@ class SelectionMethod:
             model_cfg, seed, policy=self.sel_cfg.policy,
             select_k=self.slot_capacity(model_cfg),
             moment_residency=opt_cfg.moment_residency,
-            store_policy=opt_cfg.offload, device=device)
+            store_policy=opt_cfg.offload, device=device,
+            moment_dtype=lm.DTYPES[opt_cfg.moment_dtype])
 
     def make_step(self, model_cfg: ModelConfig, opt_cfg: OptimizerConfig):
         """-> ``step_fn(state, batch) -> (state, metrics)``; ``batch`` holds
@@ -255,12 +255,13 @@ class SelectionMethod:
     def trainable_param_report(self, model_cfg: ModelConfig,
                                state: dict) -> TrainableReport:
         """The §3.3 memory model: P_selected = the k largest blocks (worst
-        case), opt bytes 2 * P_selected * 4; resident = the optimizer
-        state's measured bytes on the card (the host store is reported
-        beside them)."""
+        case), opt bytes 2 * P_selected * B with B the moment dtype's bytes
+        (4 for f32, 2 for bf16); resident = the optimizer state's measured
+        bytes on the card (the host store is reported beside them)."""
         partition = part_mod.build_partition(model_cfg)
         rep = offload.optimizer_memory_report(
             partition, state["params"], self.sel_cfg.k_percent,
+            bytes_per_param=offload.moment_itemsize(state["opt"]),
             opt_state=state["opt"])
         k = self.sel_cfg.num_selected(partition.num_blocks)
         resident = rep.mem_measured_device

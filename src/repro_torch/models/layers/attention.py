@@ -20,7 +20,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import attention_core as core
 from repro_torch.models.layers.rope import (apply_rope, rotary_angles,
-                                            rotary_dims)
+                                            rotary_dims, rotor)
 
 
 def _head_mask(cfg: ModelConfig, dtype, device):
@@ -39,29 +39,31 @@ def _hmap(cfg: ModelConfig) -> np.ndarray:
                       cfg.num_kv_heads - 1)
 
 
-def _project(x, w, bias=None):
-    """einsum("bsd,dhk->bshk") (+ bias [h, k]) as one matrix product."""
-    b, s, d = x.shape
-    x2, w2 = x.reshape(b * s, d), w.reshape(d, -1)
+def _project(x2, w, bs, bias=None):
+    """einsum("bsd,dhk->bshk") (+ bias [h, k]) as one matrix product:
+    ``x2`` is x [B, S, D] as [B * S, D], ``bs`` = (B, S)."""
+    w2 = w.reshape(w.shape[0], -1)
     y = x2 @ w2 if bias is None else torch.addmm(bias.reshape(-1), x2, w2)
-    return y.view(b, s, *w.shape[1:])
+    return y.view(*bs, *w.shape[1:])
 
 
-def _project_qkv(params, cfg: ModelConfig, x, positions, angles=None):
+def _project_qkv(params, cfg: ModelConfig, x, positions, rot_c=None):
+    b, s, d = x.shape
+    x2 = x.reshape(b * s, d)
     bias = cfg.attn_bias
-    q = _project(x, params["wq"], params["bq"] if bias else None)
-    k = _project(x, params["wk"], params["bk"] if bias else None)
-    v = _project(x, params["wv"], params["bv"] if bias else None)
+    q = _project(x2, params["wq"], (b, s), params["bq"] if bias else None)
+    k = _project(x2, params["wk"], (b, s), params["bk"] if bias else None)
+    v = _project(x2, params["wv"], (b, s), params["bv"] if bias else None)
     q = apply_rope(q, positions, cfg.rope_theta, cfg.partial_rotary_factor,
-                   angles)
+                   rot_c)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.partial_rotary_factor,
-                   angles)
+                   rot_c)
     return q, k, v
 
 
-def _out_proj(params, cfg: ModelConfig, out, dtype):
+def _out_proj(params, out, dtype, hm):
+    """``hm``: ``_head_mask`` in ``dtype`` (None when no head is padded)."""
     out = out.to(dtype)
-    hm = _head_mask(cfg, out.dtype, out.device)
     if hm is not None:
         out = out * hm
     b, s, h, dh = out.shape
@@ -93,7 +95,8 @@ def apply(params: dict, cfg: ModelConfig, x, *, positions=None,
             q.contiguous(), k.contiguous(), v.contiguous(),
             _hmap_tensor(cfg, x.device), causal=True,
             segment_ids=segment_ids, softcap=cfg.attn_logit_softcap)
-    return _out_proj(params, cfg, out, x.dtype)
+    return _out_proj(params, out, x.dtype,
+                     _head_mask(cfg, x.dtype, x.device))
 
 
 def apply_prefill(params, cfg: ModelConfig, x, *, cache_len: int = 0):
@@ -104,7 +107,7 @@ def apply_prefill(params, cfg: ModelConfig, x, *, cache_len: int = 0):
     q, k, v = _project_qkv(params, cfg, x, positions)
     out = core.chunked_attention(q, k, v, hmap=_hmap(cfg), causal=True,
                                  softcap=cfg.attn_logit_softcap)
-    out = _out_proj(params, cfg, out, x.dtype)
+    out = _out_proj(params, out, x.dtype, _head_mask(cfg, x.dtype, x.device))
     if cache_len and cache_len > s:
         pad = (0, 0, 0, 0, 0, cache_len - s)
         k = torch.nn.functional.pad(k, pad)
@@ -118,27 +121,31 @@ class DenseStep:
     attention call (the counterpart of ``PagedStep``): the write positions
     and the kernel's small operands, built once per step on the device."""
 
-    rows: torch.Tensor       # [B] long row ids
-    pos: torch.Tensor        # [B] long write position (may be past the cache)
-    at: torch.Tensor         # [B] long write position clamped into the cache
+    flat: torch.Tensor       # [B] long row-major index of (row, write
+    #                          position clamped into the cache) in [B * Smax]
     inside: torch.Tensor     # [B, 1, 1] bool: the write lands in the cache
     valid_len: torch.Tensor  # [B] int32 = pos + 1
     hmap: torch.Tensor       # [H] int32 q-head -> kv-head map
-    angles: tuple            # RoPE (cos, sin) [B, 1, rot/2] of the positions
+    rot_c: torch.Tensor      # RoPE ``rotor`` [B, 1, 1, rot/2] of the positions
+    head_mask: torch.Tensor | None  # ``_head_mask`` in the activations' dtype
 
 
-def dense_step(cfg: ModelConfig, pos, max_len: int) -> DenseStep:
+def _rotor_at(cfg: ModelConfig, pos) -> torch.Tensor:
+    return rotor(rotary_angles(pos[:, None], rotary_dims(
+        cfg.head_dim, cfg.partial_rotary_factor), cfg.rope_theta))
+
+
+def dense_step(cfg: ModelConfig, pos, max_len: int, dtype) -> DenseStep:
     """``pos``: per-row [B] write positions on the device; ``max_len``: the
-    cache length."""
+    cache length; ``dtype``: the activations'."""
     dev = pos.device
     pos = pos.long()
+    rows = torch.arange(pos.shape[0], device=dev)
     return DenseStep(
-        rows=torch.arange(pos.shape[0], device=dev), pos=pos,
-        at=pos.clamp(max=max_len - 1),
+        flat=rows * max_len + pos.clamp(max=max_len - 1),
         inside=(pos < max_len)[:, None, None],
         valid_len=(pos + 1).to(torch.int32), hmap=_hmap_tensor(cfg, dev),
-        angles=rotary_angles(pos[:, None], rotary_dims(
-            cfg.head_dim, cfg.partial_rotary_factor), cfg.rope_theta))
+        rot_c=_rotor_at(cfg, pos), head_mask=_head_mask(cfg, dtype, dev))
 
 
 def apply_decode(params, cfg: ModelConfig, x, k_cache, v_cache,
@@ -152,13 +159,16 @@ def apply_decode(params, cfg: ModelConfig, x, k_cache, v_cache,
     ``cfg.use_pallas == "never"``, which takes ``core.decode_attention``
     (that plain version, on any device). Returns (out [B, 1, D], k_cache,
     v_cache)."""
-    q, k, v = _project_qkv(params, cfg, x, step.pos[:, None], step.angles)
+    q, k, v = _project_qkv(params, cfg, x, None, step.rot_c)
     # each row writes only its own cache row, so the clamped write-back of
-    # the old value for a dropped row cannot collide with another row
+    # the old value for a dropped row cannot collide with another row;
+    # index_select / index_copy_ on the [B * Smax] view cost the host less
+    # than indexing by (rows, positions)
     for cache, new in ((k_cache, k), (v_cache, v)):
-        cache[step.rows, step.at] = torch.where(
+        rows = cache.view(-1, *cache.shape[2:])
+        rows.index_copy_(0, step.flat, torch.where(
             step.inside, new[:, 0].to(cache.dtype),
-            cache[step.rows, step.at])
+            rows.index_select(0, step.flat)))
     if cfg.use_pallas == "never":
         out = core.decode_attention(q, k_cache, v_cache, step.valid_len,
                                     hmap=step.hmap,
@@ -167,7 +177,7 @@ def apply_decode(params, cfg: ModelConfig, x, k_cache, v_cache,
         out = ops.decode_attention(q.contiguous(), k_cache, v_cache,
                                    step.valid_len, step.hmap,
                                    softcap=cfg.attn_logit_softcap)
-    return _out_proj(params, cfg, out, x.dtype), k_cache, v_cache
+    return _out_proj(params, out, x.dtype, step.head_mask), k_cache, v_cache
 
 
 @dataclass
@@ -180,18 +190,20 @@ class PagedStep:
     instead. Such a row writes to the pool's sink page (the one past the
     allocator's pages, see ``lm.init_paged_cache``), which nothing reads."""
 
-    page: torch.Tensor       # [B] long target page (the sink for dropped rows)
-    off: torch.Tensor        # [B] long target offset within the page
+    flat: torch.Tensor       # [B] long target page (the sink for dropped
+    #                          rows) x page_size + offset within the page
     valid_len: torch.Tensor  # [B] int32 = pos + 1
     pages: torch.Tensor      # [B, max_pages] int32 page tables
     hmap: torch.Tensor       # [H] int32 q-head -> kv-head map
-    angles: tuple            # RoPE (cos, sin) [B, 1, rot/2] of the positions
+    rot_c: torch.Tensor      # RoPE ``rotor`` [B, 1, 1, rot/2] of the positions
+    head_mask: torch.Tensor | None  # ``_head_mask`` in the activations' dtype
 
 
-def paged_step(cfg: ModelConfig, pages, pos, sink: int,
-               page_size: int) -> PagedStep:
+def paged_step(cfg: ModelConfig, pages, pos, sink: int, page_size: int,
+               dtype) -> PagedStep:
     """``sink``: index of the pool's sink page, which is also the table's
-    sentinel (the allocator's ``num_pages``)."""
+    sentinel (the allocator's ``num_pages``); ``dtype``: the
+    activations'."""
     b, maxp = pages.shape
     dev = pages.device
     pos = torch.as_tensor(pos, device=dev).long().expand(b)
@@ -200,12 +212,11 @@ def paged_step(cfg: ModelConfig, pages, pos, sink: int,
                   pidx.clamp(max=maxp - 1)].long()
     valid = (pidx < maxp) & (entry < sink)
     return PagedStep(
-        page=torch.where(valid, entry, sink), off=pos % page_size,
+        flat=torch.where(valid, entry, sink) * page_size + pos % page_size,
         valid_len=(pos + 1).to(torch.int32),
         pages=pages.to(torch.int32).contiguous(),
-        hmap=_hmap_tensor(cfg, dev),
-        angles=rotary_angles(pos[:, None], rotary_dims(
-            cfg.head_dim, cfg.partial_rotary_factor), cfg.rope_theta))
+        hmap=_hmap_tensor(cfg, dev), rot_c=_rotor_at(cfg, pos),
+        head_mask=_head_mask(cfg, dtype, dev))
 
 
 def _hmap_tensor(cfg: ModelConfig, device) -> torch.Tensor:
@@ -223,15 +234,16 @@ def apply_decode_paged(params, cfg: ModelConfig, x, k_pool, v_pool,
     last); ``step``: the step's plan from ``paged_step`` over the
     [B, max_pages] int32 page tables (entries >= num_pages unallocated) and
     the per-row [B] write positions, shared by every layer. The new K/V goes
-    to pool page ``pages[b, pos // page_size]``; writes through sentinel
+    to pool page ``pages[b, pos // page_size]`` (written through the
+    pool's [pages * page_size] view); writes through sentinel
     entries go to the sink page, so a finished slot that keeps riding the
     decode chunk never touches a reassigned page. Attention always goes
     through ``ops.paged_decode_attention`` (the CUDA kernel on the card).
     Returns (out [B, 1, D], k_pool, v_pool)."""
-    positions = (step.valid_len.long() - 1)[:, None]
-    q, k, v = _project_qkv(params, cfg, x, positions, step.angles)
-    k_pool[step.page, step.off] = k[:, 0].to(k_pool.dtype)
-    v_pool[step.page, step.off] = v[:, 0].to(v_pool.dtype)
+    q, k, v = _project_qkv(params, cfg, x, None, step.rot_c)
+    for pool, new in ((k_pool, k), (v_pool, v)):
+        pool.view(-1, *pool.shape[2:]).index_copy_(
+            0, step.flat, new[:, 0].to(pool.dtype))
     out = ops.paged_decode_attention(q.contiguous(), k_pool, v_pool,
                                      step.pages, step.valid_len, step.hmap)
-    return _out_proj(params, cfg, out, x.dtype), k_pool, v_pool
+    return _out_proj(params, out, x.dtype, step.head_mask), k_pool, v_pool

@@ -3,8 +3,9 @@
 ``apply`` is the JAX package's ``norms.apply``. Its forward goes through
 ``ops.rmsnorm`` and its backward through ``ops.rmsnorm_bwd`` (the Triton
 kernels on the card, the plain versions on the CPU), joined by a
-``torch.autograd.Function``; the JAX package lets XLA differentiate it.
-The backward asks for dx only when the scale needs no gradient."""
+``torch.autograd.Function`` when a gradient is wanted; the JAX package
+lets XLA differentiate it. The backward asks for dx only when the scale
+needs no gradient."""
 from __future__ import annotations
 
 import torch
@@ -31,4 +32,9 @@ class _RMSNorm(torch.autograd.Function):
 
 
 def apply(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    return _RMSNorm.apply(x.contiguous(), params["scale"], eps)
+    x, scale = x.contiguous(), params["scale"]
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return _RMSNorm.apply(x, scale, eps)
+    # nothing to differentiate (decode, eval): no autograd node, whose
+    # Python costs a host-bound decode step more than the launch
+    return ops.rmsnorm(x, scale, eps)

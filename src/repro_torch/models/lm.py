@@ -114,10 +114,17 @@ def init(cfg: ModelConfig, generator: torch.Generator | None = None, *,
     return walk(param_specs(cfg))
 
 
-def layer_params(stacked: dict, i: int) -> dict:
-    """Block ``i``'s parameters: index the leading [L] axis of every leaf."""
-    return {k: (layer_params(v, i) if isinstance(v, dict) else v[i])
-            for k, v in stacked.items()}
+def layers_of(stacked: dict, n: int) -> list[dict]:
+    """The ``n`` blocks' parameters, each leaf split along its leading [L]
+    axis by one ``unbind`` (a leaf's layers are views of it): one call a
+    leaf, not one a leaf and block, for a decode step bound by the host."""
+    split = _split(stacked)
+    return [_layer(split, i) for i in range(n)]
+
+
+def _split(tree: dict) -> dict:
+    return {k: (_split(v) if isinstance(v, dict) else v.unbind(0))
+            for k, v in tree.items()}
 
 
 def _embed_tokens(params, cfg: ModelConfig, tokens):
@@ -324,9 +331,8 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict, max_len: int, *,
     b, s = tokens.shape
     x = _embed_tokens(params, cfg, tokens)
     ks, vs = [], []
-    for i in range(cfg.num_layers):
-        x, (k, v) = blocks.attn_block_prefill(
-            layer_params(params["layers"], i), cfg, x, cache_len=max_len)
+    for p_l in layers_of(params["layers"], cfg.num_layers):
+        x, (k, v) = blocks.attn_block_prefill(p_l, cfg, x, cache_len=max_len)
         ks.append(k)
         vs.append(v)
     cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
@@ -403,19 +409,19 @@ def decode_step(params: dict, cfg: ModelConfig, tokens, cache: dict):
     b = tokens.shape[0]
     pos = cache["pos"].long().expand(b)
     x = _embed_tokens(params, cfg, tokens)
+    layers = zip(layers_of(params["layers"], cfg.num_layers),
+                 cache["k"].unbind(0), cache["v"].unbind(0))
     if "pages" in cache:
         sink, ps = cache["k"].shape[1] - 1, cache["k"].shape[2]
-        step = attention.paged_step(cfg, cache["pages"], pos, sink, ps)
-        for i in range(cfg.num_layers):
-            x, _, _ = blocks.attn_block_decode_paged(
-                layer_params(params["layers"], i), cfg, x, cache["k"][i],
-                cache["v"][i], step)
+        step = attention.paged_step(cfg, cache["pages"], pos, sink, ps,
+                                    x.dtype)
+        for p_l, k_l, v_l in layers:
+            x, _, _ = blocks.attn_block_decode_paged(p_l, cfg, x, k_l, v_l,
+                                                     step)
     else:
-        step = attention.dense_step(cfg, pos, cache["k"].shape[2])
-        for i in range(cfg.num_layers):
-            x, _, _ = blocks.attn_block_decode(
-                layer_params(params["layers"], i), cfg, x, cache["k"][i],
-                cache["v"][i], step)
+        step = attention.dense_step(cfg, pos, cache["k"].shape[2], x.dtype)
+        for p_l, k_l, v_l in layers:
+            x, _, _ = blocks.attn_block_decode(p_l, cfg, x, k_l, v_l, step)
     x = norms.apply(params["final_norm"], x, cfg.norm_eps)
     logits = _logits(params, cfg, x)[:, 0]
     cache["pos"] = (pos + 1).to(torch.int32)

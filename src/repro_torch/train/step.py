@@ -96,7 +96,8 @@ def init_train_state(model_cfg: ModelConfig, seed: int = 0,
                      select_k: int | None = None,
                      moment_residency: str = "device",
                      store_policy: str = "host",
-                     device="cuda") -> dict:
+                     device="cuda",
+                     moment_dtype: torch.dtype = torch.float32) -> dict:
     """TrainState of the masked-selection family: params (random, from a
     generator seeded with ``seed`` on ``device``) + masked-AdamW moments +
     the policy's selection state + the step (a Python int).
@@ -108,7 +109,7 @@ def init_train_state(model_cfg: ModelConfig, seed: int = 0,
     pinned on the card; "none": ``device``; see
     ``masked_adamw.init_banked_opt_state``). ``select_k`` sets both the
     bank capacity and the length of the selection state's ``indices``
-    (default: ``num_blocks``)."""
+    (default: ``num_blocks``). The moments are in ``moment_dtype``."""
     if moment_residency not in ("device", "banked"):
         raise ValueError(f"unknown moment_residency {moment_residency!r}; "
                          f"expected 'device' or 'banked'")
@@ -119,9 +120,9 @@ def init_train_state(model_cfg: ModelConfig, seed: int = 0,
     if moment_residency == "banked":
         k = select_k if select_k is not None else partition.num_blocks
         opt = masked_adamw.init_banked_opt_state(partition, params, k,
-                                                 store_policy)
+                                                 store_policy, moment_dtype)
     else:
-        opt = masked_adamw.init_opt_state(partition, params)
+        opt = masked_adamw.init_opt_state(partition, params, moment_dtype)
     return {
         "params": params,
         "opt": opt,

@@ -23,8 +23,19 @@ last batch it trained on with ``restore_cursor``, so the next ``train``
 call continues the record stream. The log keeps each step's records and
 non-pad tokens.
 
-Not ported, and raising with their ROADMAP Queue A item: checkpoints (item
-3), ``prefetch_depth > 0`` (item 8), ``mesh`` (item 11). ``eval_every > 0``
+Checkpoints (``tcfg.checkpoint_dir``, ``checkpoint_every``,
+``checkpoint_keep``), as the reference's: every ``checkpoint_every`` steps
+the loop quiesces the swap planner and saves the whole TrainState with the
+data cursor in ``meta.json`` (``checkpoint.manager``: the snapshot is
+taken in stream order, the file is written on a writer thread); ``train``
+waits for the last save before it returns. ``maybe_restore()`` resumes from
+the latest checkpoint and re-places the state: tensors on the trainer's
+device, the banked store per ``offload`` (``offload.ensure_store_residency``),
+``slot_map`` as numpy and the steps and seed as ints. A save synchronises
+the card once; between saves the step's host syncs are unchanged.
+
+Not ported, and raising with their ROADMAP Queue A item:
+``prefetch_depth > 0`` (item 8), ``mesh`` (item 11). ``eval_every > 0``
 raises too: the reference trainer stores it and never reads it (it has no
 eval hook); its callers train, then evaluate
 ``train.evaluate.math_accuracy`` on ``method.eval_params(...)``, as the
@@ -40,7 +51,9 @@ from dataclasses import dataclass, field
 import torch
 
 from repro_torch import methods
+from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.base import TrainConfig
+from repro_torch.core import offload
 from repro_torch.data import loader as data_loader
 from repro_torch.data import tokenizer
 from repro_torch.data.pipeline import StepIndexedAdapter
@@ -82,9 +95,6 @@ class Trainer:
         if prefetch_depth:
             _not_ported("prefetch_depth > 0 (the Prefetcher)",
                         "8, 'Packed SFT pipeline'")
-        if tcfg.checkpoint_dir or tcfg.checkpoint_every:
-            _not_ported("checkpointing", "3, 'Method registry, trainer and "
-                        "launcher' (its checkpoint part)")
         if tcfg.eval_every:
             raise NotImplementedError(
                 f"eval_every={tcfg.eval_every}: the reference trainer has no "
@@ -101,7 +111,48 @@ class Trainer:
         self.data = data_source or data_loader.make_source(
             "synthetic_math", seq_len=tcfg.seq_len,
             global_batch=tcfg.global_batch, seed=tcfg.seed)
+        self.ckpt = (CheckpointManager(tcfg.checkpoint_dir,
+                                       tcfg.checkpoint_keep)
+                     if tcfg.checkpoint_dir else None)
         self.log = TrainLog()
+
+    # ------------------------------------------------------------- resume
+    def maybe_restore(self) -> int:
+        """Resume from the latest checkpoint, if there is one; returns its
+        step (0 when there is none). Streaming sources resume their record
+        stream from the cursor saved beside the state."""
+        if self.ckpt is None or self.ckpt.latest_step() is None:
+            return 0
+        self._quiesce()
+        host, step = self.ckpt.restore(self.state)
+        self.state = None   # free the initial state before placing
+        self.state = self._place(host)
+        cursor = self.ckpt.load_meta(step).get("data_cursor")
+        if cursor is not None and hasattr(self.data, "restore_cursor"):
+            self.data.restore_cursor(cursor)
+        return step
+
+    def _place(self, host: dict) -> dict:
+        """A restored host state on its sides: every tensor on the
+        trainer's device but the banked store, which goes where
+        ``offload`` keeps it; numpy arrays and ints as they are."""
+        def to_dev(x, path=""):
+            if path == "opt/store":
+                return offload.ensure_store_residency(
+                    x, self.tcfg.optimizer.offload, self.device)
+            if isinstance(x, dict):
+                return {k: to_dev(v, f"{path}/{k}" if path else k)
+                        for k, v in x.items()}
+            return x.to(self.device) if isinstance(x, torch.Tensor) else x
+        return to_dev(host)
+
+    def _quiesce(self) -> None:
+        """Order the card after any dispatched banked boundary (which
+        writes the host store and holds bank rows) before the state is
+        read or replaced."""
+        planner = getattr(self.step_fn, "swap_planner", None)
+        if planner is not None:
+            planner.quiesce()
 
     def _device_batch(self, batch: dict) -> dict:
         """The batch on the state's device. On the card each array is staged
@@ -167,14 +218,21 @@ class Trainer:
                              if not isinstance(v, torch.Tensor)
                              or v.ndim == 0}
                     self.log.metrics.append({"step": step, **small})
+                if (self.ckpt is not None and tcfg.checkpoint_every
+                        and (step + 1) % tcfg.checkpoint_every == 0):
+                    # the cursor rides in meta.json: a restore resumes the
+                    # record stream right after this step's batch
+                    self._quiesce()
+                    self.ckpt.save(step + 1, self.state,
+                                   extra_meta={"data_cursor": cursor})
         finally:
             # banked residency: order the card after any dispatched boundary
             # before the caller reads the state
-            planner = getattr(self.step_fn, "swap_planner", None)
-            if planner is not None:
-                planner.quiesce()
+            self._quiesce()
             # commit consumption: the stream resumes after the last batch
             # the loop trained on
             if cursor is not None and hasattr(self.data, "restore_cursor"):
                 self.data.restore_cursor(cursor)
+        if self.ckpt is not None:
+            self.ckpt.wait()
         return self.log

@@ -11,7 +11,10 @@ training kernels (block gradient norms, masked AdamW, RMSNorm backward) are
 checked on ragged rows, with bit-identical unselected AdamW rows and
 bit-reproducible norms, on inputs whose outputs are large beside the
 tolerance. The banked masked AdamW (row 9) is held against its plain
-version and, bit for bit, against row 8 on the same rows. Tied scores in
+version and, bit for bit, against row 8 on the same rows; with bf16 m and v
+rows 8 and 9 are held within one bf16 ulp of the plain version, a tie
+rounds to even, and dense bf16-moment steps make no host sync. A banked
+checkpoint with its pinned store round-trips on the card. Tied scores in
 ``topk_mask`` go to the lower index on the card too, and three dense
 training steps with their batch uploads make no host sync. The flash
 attention kernels (rows 4-6) are swept over the S of the JAX package's
@@ -485,6 +488,153 @@ def test_banked_masked_adamw_matches_plain_and_row8(cuda_device, shape,
     torch.cuda.synchronize()
     assert _bits_equal(pk, pd)
     assert _bits_equal(mk[real], md[rows]) and _bits_equal(vk[real], vd[rows])
+
+
+def _bf16_gap(got, want, terms):
+    """The gap between bf16 moments in units of one bf16 ulp at the larger
+    value plus the f32 rounding of the update's terms (the kernel may
+    contract b m + (1 - b) g into an FMA; where the sum cancels to near
+    zero that moves it by more than a bf16 ulp of the result): at most 1
+    is "within one bf16 ulp"."""
+    a, b = got.float(), want.float()
+    big = torch.maximum(a.abs(), b.abs()).clamp(min=2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
+    return ((a - b).abs() / (ulp + 2.0 ** -22 * terms)).max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, slots", [((4, 100), [2, 4, 0, 3]),
+                                          ((5, 5000), [4, 1, 5, 0, 2]),
+                                          ((24, 896), [20, 3, 24, 11, 7])])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bf16_moment_adamw_matches_plain(cuda_device, shape, slots, dtype):
+    """Rows 8 and 9 with bf16 m and v (``moment_dtype="bfloat16"``): m and
+    v within one bf16 ulp of the plain version, p within the tolerance,
+    unselected rows and free slots keep their bits, row 9 gives row 8's
+    bits, and the launches count as ``*_bf16m``."""
+    p, grad, m, v, sl, sel, cnt = _banked_inputs(cuda_device, dtype, shape,
+                                                 slots)
+    m, v = m.bfloat16(), v.bfloat16()
+    args = (0.3, 0.9, 0.999, 1e-8, 0.1)
+    nl = shape[0]
+    real = (sl < nl).nonzero()[:, 0]
+    rows = sl[real].long()
+    md = torch.zeros(shape, dtype=torch.bfloat16, device=cuda_device)
+    vd = torch.zeros(shape, dtype=torch.bfloat16, device=cuda_device)
+    md[rows], vd[rows] = m[real], v[real]
+    seld = torch.zeros(nl, device=cuda_device)
+    cntd = torch.zeros(nl, device=cuda_device)
+    seld[rows], cntd[rows] = sel[real], cnt[real]
+    before = dict(ops.LAUNCHES)
+    pd, mdk, vdk = p.clone(), md.clone(), vd.clone()
+    ops.masked_adamw(pd, grad, mdk, vdk, seld, cntd, *args)
+    pk, mk, vk = p.clone(), m.clone(), v.clone()
+    ops.banked_masked_adamw(pk, grad, mk, vk, sl, sel, cnt, *args)
+    torch.cuda.synchronize()
+    assert {k: ops.LAUNCHES[k] - before[k] for k in before} == {
+        k: int(k in ("masked_adamw_bf16m", "banked_masked_adamw_bf16m"))
+        for k in before}
+    pr, mr, vr = ref.masked_adamw(p, grad, md, vd, seld, cntd, *args)
+    assert mdk.dtype == torch.bfloat16 and vdk.dtype == torch.bfloat16
+    gf = grad.float()
+    tm = 0.9 * md.float().abs() + 0.1 * gf.abs()
+    tv = 0.999 * vd.float().abs() + 0.001 * gf * gf
+    assert _bf16_gap(mdk, mr, tm) <= 1 and _bf16_gap(vdk, vr, tv) <= 1
+    torch.testing.assert_close(pd.float(), pr.float(), **TOL[dtype])
+    off = seld == 0
+    for new, old in ((pd, p), (mdk, md), (vdk, vd)):
+        assert _bits_equal(new[off], old[off])
+    assert _bits_equal(pk, pd)
+    assert _bits_equal(mk[real], mdk[rows]) and _bits_equal(vk[real],
+                                                            vdk[rows])
+    on = (sl < nl) & (sel > 0)
+    assert _bits_equal(mk[~on], m[~on]) and _bits_equal(vk[~on], v[~on])
+
+
+@pytest.mark.cuda
+def test_bf16_moments_round_ties_to_nearest_even(cuda_device):
+    """b1 = b2 = 0 makes m' = g exactly (f32 params): a g on a tie between
+    two bf16 values is stored as the even one, as XLA's convert and
+    PyTorch's cast round."""
+    step = 2.0 ** -8     # half a bf16 ulp at 1
+    g = torch.tensor([[1 + step, 1 + 3 * step, -(1 + step), 1 + 5 * step]],
+                     device=cuda_device)
+    want = torch.tensor([[1.0, 1 + 2 ** -6, -1.0, 1 + 2 ** -6]],
+                        dtype=torch.bfloat16, device=cuda_device)
+    m = torch.zeros_like(g, dtype=torch.bfloat16)
+    v = torch.zeros_like(m)
+    one = torch.ones(1, device=cuda_device)
+    ops.masked_adamw(torch.ones_like(g), g, m, v, one, one, 1e-3, 0.0, 0.0,
+                     1e-8, 0.0)
+    torch.cuda.synchronize()
+    assert _bits_equal(m, want) and _bits_equal(m, g.bfloat16())
+
+
+@pytest.mark.cuda
+def test_bf16_moment_dense_steps_never_sync(cuda_device):
+    """Dense training steps with bf16 moments make no host sync between log
+    boundaries, as the f32 ones do."""
+    from repro_torch.configs.base import OptimizerConfig, TrainConfig
+    from repro_torch.train.trainer import Trainer
+    tr = Trainer(TrainConfig(model=_card_smoke(), seq_len=48,
+                             global_batch=4, steps=4,
+                             optimizer=OptimizerConfig(
+                                 moment_dtype="bfloat16")), device="cuda")
+    tr.train(1)
+    torch.cuda.synchronize()
+    state = tr.state
+    n0 = ops.LAUNCHES["masked_adamw_bf16m"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for step in range(1, 4):
+            batch = tr._device_batch(tr.data.batch_at(step))
+            state, _ = tr.step_fn(state, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert ops.LAUNCHES["masked_adamw_bf16m"] > n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("moments", ["float32", "bfloat16"])
+def test_banked_checkpoint_round_trip_on_the_card(cuda_device, tmp_path,
+                                                  moments):
+    """A banked state with its pinned host store saved on the card and
+    restored by a new Trainer: every leaf's bits, the store pinned again,
+    the banks on the card, and the next step equal to the saver's."""
+    from repro_torch.checkpoint import manager
+    from repro_torch.configs.base import OptimizerConfig, TrainConfig
+    from repro_torch.core import partition as part
+    from repro_torch.train.trainer import Trainer
+
+    def tcfg():
+        return TrainConfig(
+            model=_card_smoke(), seq_len=48, global_batch=4, steps=3,
+            checkpoint_dir=str(tmp_path), checkpoint_every=2,
+            optimizer=OptimizerConfig(moment_residency="banked",
+                                      offload="host", async_swap=True,
+                                      moment_dtype=moments))
+    saver = Trainer(tcfg(), device="cuda")
+    saver.train(2)
+    resumed = Trainer(tcfg(), device="cuda")
+    assert resumed.maybe_restore() == 2
+    store = part.leaves(resumed.state["opt"]["store"])
+    assert all(t.is_pinned() for t in store)
+    assert store[0].dtype == getattr(torch, moments)
+    assert resumed.state["opt"]["counts"].is_cuda
+    for (path, a), (_, b) in zip(manager.flatten(saver.state),
+                                 manager.flatten(resumed.state)):
+        if isinstance(a, torch.Tensor):
+            same = (_bits_equal(a, b) if a.is_floating_point()
+                    else a.dtype == b.dtype and torch.equal(a, b))
+            assert a.device == b.device and same, path
+        else:
+            assert np.array_equal(a, b), path
+    saver.train(1)
+    resumed.train(1)
+    assert resumed.log.losses == saver.log.losses[2:]
+    for a, b in zip(part.leaves(saver.state["params"]),
+                    part.leaves(resumed.state["params"])):
+        assert _bits_equal(a, b)
 
 
 @pytest.mark.cuda

@@ -186,7 +186,7 @@ def _worker(checkout: Path, phase: str, params: Path, log: Path) -> int:
 
 def _serve_summary(text: str) -> dict:
     run = re.search(r"^  run: .*= ([\d.]+) tok/s", text, re.M)
-    prof = re.search(r"profile \(one more run, profiler on\): wall ([\d.]+) "
+    prof = re.search(r"profile \(.*?profiler on\): wall ([\d.]+) "
                      r"ms, device kernels ([\d.]+) ms, device idle share "
                      r"([\d.]+)", text)
     # the profile's top kernels: the paged decode is the one named *decode*
