@@ -182,7 +182,8 @@ Phases, each of which makes the run exit non-zero if it fails:
    reckoned in PERF.md, and 2 profiled steps;
 21. the greedy eval of phase 16 on phase 20's params, with its checks;
 22. llama3.2-1b in f32 (TF32 off) at full width with 2 layers: phase 8's
-   topk_grad run card vs CPU at k = 2 of 4 blocks, each leaf's update
+   topk_grad run card vs CPU for 2 steps (not 3: the CPU's steps at these
+   widths are most of the phase) at k = 2 of 4 blocks, each leaf's update
    within 1e-2 of the CPU's (relative L2), and phase 5's greedy tokens
    against a teacher-forced prefill on both layouts;
 23. phi4-mini-3.8b at full width (32 layers, d_model 3072, 24 q heads
@@ -212,7 +213,26 @@ Phases, each of which makes the run exit non-zero if it fails:
    seconds. Dense f32's second straight run saves every ``SAVE_EVERY``
    steps: its wall time and each save's stall beside the first run's, and
    it must still equal that run. The files go under ``build/`` and are
-   removed.
+   removed;
+30. the full serving stack at full width (qwen2.5-0.5b, bf16, paged, page
+   16, 8 slots, ``prefill_rows`` 4): 4 groups of 4 requests sharing a
+   384-token prefix (16-64 own tokens each) and one 1,536-token prompt,
+   budgets 16-48 new tokens. Every feature off (an ample pool; its peak
+   sizes the small pool at 60%), then every feature on (prefix cache,
+   preemption, prefix-aware admission, stream-out, ``prefill_chunk`` 256
+   (inert: the reference's prefix path takes every admission), a
+   ``PrefixStore`` across engines A and B): tok/s beside the plain run,
+   prefill tokens saved, the stats (hits and a preemption), the pool at the
+   end (the tree's pages only; none after evicting it), every completion
+   streamed, each kernel's launches as the path calls them (a prefill
+   forward or chunk counts as a forward); then chunked prefill with
+   preemption (paged) and with sampling (dense: row 3); the idle share of
+   two profiled engine steps. In f32 at 2 layers: greedy tokens with every
+   feature on and chunked with preemption equal the plain engine's and a
+   teacher-forced prefill; sampled (T 0.8) tokens with preemption and the
+   prefix cache equal those without, three requests alone draw what they
+   draw in the batch and on the dense chunked path; the sampling noise on
+   the card equals the CPU's bit for bit.
 
 Then it prints the kernel summary as one JSON line and, last, the device
 line ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
@@ -274,6 +294,7 @@ SERVE_PROFILE = (4, 2)    # phases 4, 24: engine steps skipped, profiled
 LLAMA, PHI4 = "llama3.2-1b", "phi4-mini-3.8b"
 PHI4_STEPS = 6
 PHI4_BF16_STEPS = 4   # phase 27: phi4-mini with bf16 moments
+MODEL_CONSISTENCY_STEPS = 2  # phases 22, 25: f32 card-vs-CPU training steps
 # rows 2 and 2b: qwen2.5-0.5b's d_model, then llama3.2-1b's and phi4-mini's
 # (padded to 2048 and 4096 lanes), at one decode row block and at the
 # training path's 8 x 512 rows
@@ -637,22 +658,25 @@ def phase_serving(torch, ops, lm, cfg, ServeEngine, ServeConfig,
 
 
 def _check_launches(launches: dict, cfg, stats: dict,
-                    layout="paged") -> None:
+                    layout="paged", jobs=0) -> None:
     """Each kernel of the path ran, as often as the path calls it (and so
     at least once): one decode attention per layer and decode step (the
     paged kernel on the paged layout, the dense one on the dense layout),
-    one RMSNorm per norm (two per block and the final one) and forward
-    (prefill or decode step), and no other kernel."""
+    one RMSNorm per norm (two per block and the final one) and forward,
+    and no other kernel. A forward is a decode step, a single-shot or
+    prefix-path prefill, or a chunk of a chunked prefill: ``jobs`` of the
+    counted prefills were chunked, and their chunks are the forwards."""
     steps = stats["decode_chunks"] * SERVE["decode_chunk"]
+    forwards = stats["prefills"] - jobs + stats["prefill_chunks"]
     want = {k: 0 for k in launches}   # the training kernels: off this path
     attn = {"paged": "paged_decode_attention",
             "dense": "decode_attention"}[layout]
     want.update({
         attn: cfg.num_layers * steps,
-        "rmsnorm": (2 * cfg.num_layers + 1) * (steps + stats["prefills"])})
+        "rmsnorm": (2 * cfg.num_layers + 1) * (steps + forwards)})
     check(launches == want, f"launch counts {launches} != the {layout} "
-          f"path's {want} ({steps} decode steps, {stats['prefills']} "
-          f"prefills)")
+          f"path's {want} ({steps} decode steps, {forwards} prefill "
+          f"forwards)")
 
 
 def _leaves(tree):
@@ -1283,11 +1307,11 @@ def _update_gap(torch, card_params, cpu_params, before, limit) -> float:
 
 
 def phase_train_consistency(torch, ops, cfg, Trainer, k_percent=20.0,
-                            moment_dtype="float32") -> None:
-    """The same 3 f32 topk_grad steps on the card and on the CPU, each
-    leaf's update held against the CPU's as in phase 19 (``_update_gap``);
-    the moments in ``moment_dtype``."""
-    steps, lr = 3, 1e-3
+                            moment_dtype="float32", steps=3) -> None:
+    """The same ``steps`` f32 topk_grad steps on the card and on the CPU,
+    each leaf's update held against the CPU's as in phase 19
+    (``_update_gap``); the moments in ``moment_dtype``."""
+    lr = 1e-3
     cfg = cfg.replace(dtype="float32", num_layers=2)
     tcfg = _train_cfg(cfg, "topk_grad", steps, 2, 64, lr=lr,
                       schedule="constant", warmup_steps=0,
@@ -2891,12 +2915,14 @@ def phase_gated_consistency(torch, ops, cfg, Trainer) -> None:
 def phase_model_consistency(torch, ops, lm, cfg, Trainer, ServeEngine,
                             ServeConfig, Request) -> None:
     """f32 (TF32 off) at full width with 2 layers: phase 8's topk_grad run
-    on the card against the CPU (k = 2 of 4 blocks, each leaf's update
+    (``MODEL_CONSISTENCY_STEPS`` steps) on the card against the CPU (k = 2
+    of 4 blocks, each leaf's update
     within ``UPDATE_GAP`` of the CPU's), then phase 5's greedy tokens
     against a teacher-forced prefill on the paged and the dense layout."""
     c2 = cfg.replace(num_layers=2)
     t0 = time.perf_counter()
-    phase_train_consistency(torch, ops, c2, Trainer, k_percent=50.0)
+    phase_train_consistency(torch, ops, c2, Trainer, k_percent=50.0,
+                            steps=MODEL_CONSISTENCY_STEPS)
     gc.collect()
     t1 = time.perf_counter()
     phase_consistency(torch, ops, lm, c2, ServeEngine, ServeConfig, Request)
@@ -3101,6 +3127,356 @@ def _checkpoint_case(torch, Trainer, cfg, label, opt) -> dict:
             "walls": walls, "saves": saves}
 
 
+# ------------------------------------------------------- the serving stack
+
+# phase 30: 4 groups of 4 requests, each group sharing a 384-token prefix
+# (16-64 tokens of its own), and one 1,536-token prompt; budgets of 16-48
+# new tokens (32 on average: the reference's preemption takes a resident
+# only for a request with less budget left, so equal budgets never preempt)
+STACK_GROUPS, STACK_PREFIX, STACK_LONG = 4, 384, 1536
+STACK_BUDGETS = (48, 16, 40, 24)
+STACK = dict(max_len=2048, num_slots=8, kv_layout="paged", page_size=16,
+             decode_chunk=8, prefill_rows=4)
+STACK_POOL = 0.6        # of the pages the plain run holds at once (peak)
+STACK_TEMPERATURE = 0.8
+STACK_PROFILE = (6, 2)  # engine steps of one more run skipped, profiled
+STACK_SOLO = (0, 5, 16)  # requests served alone in the sampled check
+
+
+def _stack_requests(Request, vocab):
+    import numpy as np
+    rng = np.random.default_rng(3)
+    reqs = []
+    for g in range(STACK_GROUPS):
+        prefix = rng.integers(1, vocab, (STACK_PREFIX,))
+        for j in range(4):
+            own = rng.integers(1, vocab, (int(rng.integers(16, 65)),))
+            reqs.append(Request(
+                uid=len(reqs), tokens=np.concatenate([prefix, own]),
+                max_new_tokens=STACK_BUDGETS[(g + j) % 4],
+                arrival=g + 5 * j))
+    reqs.append(Request(uid=len(reqs), tokens=rng.integers(
+        1, vocab, (STACK_LONG,)), max_new_tokens=32, arrival=1))
+    # submitted in arrival order: the queue admits only past a head that
+    # has arrived
+    return sorted(reqs, key=lambda r: r.arrival)
+
+
+def _stack_configs(num_pages: int, store=None, on_complete=None) -> dict:
+    """The runs of phase 30: every feature off (an ample pool), every
+    feature on (the reference's prefix path takes every admission, so
+    ``prefill_chunk`` is inert there), and the chunked runs: paged with
+    preemption and dense with sampling (row 3)."""
+    on = dict(num_pages=num_pages, prefix_cache=True, preempt=True,
+              prefill_chunk=256, admission="prefix_aware",
+              on_complete=on_complete, prefix_store=store)
+    return {
+        "off": dict(STACK),
+        "on": {**STACK, **on},
+        "chunked": {**STACK, "num_pages": num_pages, "preempt": True,
+                    "prefill_chunk": 256, "on_complete": on_complete},
+        "dense": {**STACK, "kv_layout": "dense", "prefill_chunk": 256,
+                  "temperature": STACK_TEMPERATURE, "rng": 7,
+                  "on_complete": on_complete}}
+
+
+def _stack_run(torch, cfg, params, ServeEngine, ServeConfig, Request, kw,
+               engine=None):
+    """One run of the workload; returns the engine, its RunResult, the
+    seconds and the chunked-prefill jobs it started (each job is one
+    counted prefill whose chunks are the forwards)."""
+    eng = engine or ServeEngine(cfg, params, ServeConfig(**kw),
+                                device="cuda")
+    jobs = {"n": 0}
+    plain = eng._start_job
+
+    def start_job(*args):
+        jobs["n"] += 1
+        return plain(*args)
+    eng._start_job = start_job
+    t0 = time.perf_counter()
+    res = eng.run(_stack_requests(Request, cfg.vocab_size))
+    torch.cuda.synchronize()
+    return eng, res, time.perf_counter() - t0, jobs["n"]
+
+
+def _stack_check_tokens(res, reqs, vocab) -> int:
+    check(sorted(res) == sorted(r.uid for r in reqs),
+          f"answered {sorted(res)} of {len(reqs)} requests")
+    for r in reqs:
+        toks = res[r.uid]
+        check(len(toks) == r.max_new_tokens and (toks >= 0).all()
+              and (toks < vocab).all(),
+              f"request {r.uid}: {len(toks)} of {r.max_new_tokens} tokens, "
+              f"range [{toks.min()}, {toks.max()}]")
+    return sum(len(t) for t in res.values())
+
+
+def phase_serving_stack(torch, ops, lm, cfg, serve) -> dict:
+    """Phase 30: the full serving stack at full width (bf16), the f32
+    exactness checks at 2 layers, and the idle share of two engine
+    steps."""
+    t_phase = time.perf_counter()
+    ServeEngine, ServeConfig, Request = (serve.ServeEngine, serve.ServeConfig,
+                                         serve.Request)
+    params = lm.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                     device="cuda")
+    reqs = _stack_requests(Request, cfg.vocab_size)
+    print(f"serving stack, {cfg.name} at full width ({cfg.dtype}): "
+          f"{len(reqs)} requests ({STACK_GROUPS} groups of 4 sharing a "
+          f"{STACK_PREFIX}-token prefix, 16-64 own tokens; one "
+          f"{STACK_LONG}-token prompt), budgets {STACK_BUDGETS} (mean "
+          f"{sum(STACK_BUDGETS) / 4:.0f}); {STACK}")
+    # warm-up: the plain path's first prefills and decode steps at these
+    # shapes (cuBLAS and Triton pick their kernels), on the first arrivals
+    warm = ServeEngine(cfg, params, ServeConfig(**STACK), device="cuda")
+    warm.run([Request(uid=r.uid, tokens=r.tokens, max_new_tokens=8)
+              for r in reqs if r.arrival <= 1])
+    del warm
+    # the plain run: every feature off, the pool ample; its peak sizes
+    # the small pool
+    ops.reset_launches()
+    eng, res, dt, _ = _stack_run(torch, cfg, params, ServeEngine,
+                                 ServeConfig, Request, STACK)
+    _check_launches(dict(ops.LAUNCHES), cfg, eng.stats)
+    gen = _stack_check_tokens(res, reqs, cfg.vocab_size)
+    peak = eng.page_pool_stats()["peak_live_pages"]
+    num_pages = int(round(STACK_POOL * peak))
+    off = {"tok_s": gen / dt, "stats": dict(eng.stats)}
+    print(f"  features off: {gen} tokens in {dt:.3f} s = "
+          f"{off['tok_s']:.1f} tok/s; peak {peak} pages; stats "
+          f"{json.dumps(eng.stats)}")
+    # every feature on, twice: engine A fills the store, engine B adopts
+    streamed = {}
+    store = serve.PrefixStore()
+    runs = _stack_configs(num_pages, store,
+                          lambda c: streamed.__setitem__(c.uid, c))
+    out = {"launches": {}, "off": off}
+    ops.reset_launches()                     # the main path's run
+    t0 = time.perf_counter()
+    eng_a, res_a, dt_a, _ = _stack_run(torch, cfg, params, ServeEngine,
+                                       ServeConfig, Request, runs["on"])
+    eng_a.close()
+    eng_b, res_b, dt_b, _ = _stack_run(torch, cfg, params, ServeEngine,
+                                       ServeConfig, Request, runs["on"])
+    dt_on = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    out["launches"] = launches
+    stats = {k: eng_a.stats[k] + eng_b.stats[k] for k in eng_a.stats}
+    _check_launches(launches, cfg, stats)
+    for r in (res_a, res_b):
+        _stack_check_tokens(r, reqs, cfg.vocab_size)
+    check(set(streamed) == set(res_b) and all(
+        (streamed[u].tokens == res_b[u]).all() for u in res_b),
+        "stream-out did not deliver every completion of engine B")
+    check(store.stats["adoptions"] == 1, f"store {store.stats}")
+    pool = eng_b.page_pool_stats()
+    tree = eng_b._prefix.cached_pages
+    check(pool["live_pages"] == tree and pool["high_water_pages"]
+          <= num_pages, f"pool {pool}, tree {tree} pages")
+    eng_b._prefix.evict(tree)
+    live = eng_b.page_pool_stats()["live_pages"]
+    check(live == 0, f"{live} pages live after the tree's eviction")
+    for name, e in (("A", eng_a), ("B", eng_b)):
+        st = e.stats
+        check(st["prefix_hits"] > 0 and st["prefill_chunks"] == 0,
+              f"engine {name}: {st}")
+    check(eng_a.stats["preempted"] >= 1, f"engine A: {eng_a.stats}")
+    gen_on = sum(len(t) for t in res_a.values()) + sum(
+        len(t) for t in res_b.values())
+    out["on"] = {"tok_s": gen_on / dt_on, "stats": stats}
+    print(f"  every feature on ({num_pages}-page pool = {STACK_POOL} of "
+          f"the peak; prefix cache, preemption, prefix-aware admission, "
+          f"stream-out, prefill_rows {STACK['prefill_rows']}, a PrefixStore "
+          f"across engines A and B): {gen_on} tokens in {dt_on:.3f} s = "
+          f"{out['on']['tok_s']:.1f} tok/s (A {dt_a:.3f} s, B {dt_b:.3f} "
+          f"s; off {off['tok_s']:.1f} tok/s)")
+    for name, e in (("A", eng_a), ("B", eng_b)):
+        print(f"    engine {name} stats {json.dumps(e.stats)}; prefill "
+              f"tokens saved {off['stats']['prefill_tokens'] - e.stats['prefill_tokens']}"
+              f" of {off['stats']['prefill_tokens']}; admission "
+              f"{json.dumps(e.admission_policy.stats)}")
+    print(f"    page pool at the end: {json.dumps(pool)} ({tree} tree "
+          f"pages; after evicting the tree live_pages = {live}); store "
+          f"{json.dumps(store.stats)}; {len(streamed)} completions streamed")
+    print(f"    kernel launches (A and B): {json.dumps(launches)}")
+    # chunked prefill (the path the prefix cache bypasses): paged with
+    # preemption, then dense with sampling (row 3)
+    for name in ("chunked", "dense"):
+        streamed.clear()
+        ops.reset_launches()
+        e, r, dt, jobs = _stack_run(torch, cfg, params, ServeEngine,
+                                    ServeConfig, Request, runs[name])
+        lc = dict(ops.LAUNCHES)
+        _check_launches(lc, cfg, e.stats, runs[name]["kv_layout"],
+                        jobs=jobs)
+        g = _stack_check_tokens(r, reqs, cfg.vocab_size)
+        check(len(streamed) == len(reqs), f"{len(streamed)} streamed")
+        check(e.stats["prefill_chunks"] > 0, f"{name}: {e.stats}")
+        if name == "chunked":
+            check(e.stats["preempted"] >= 1
+                  and e.page_pool_stats()["live_pages"] == 0,
+                  f"chunked: {e.stats}, {e.page_pool_stats()}")
+        out[name] = {"tok_s": g / dt, "stats": dict(e.stats),
+                     "launches": lc}
+        print(f"  {name} ({'paged, preemption' if name == 'chunked' else 'dense, sampled T ' + str(STACK_TEMPERATURE)}, "
+              f"prefill_chunk 256, stream-out): {g} tokens in {dt:.3f} s = "
+              f"{g / dt:.1f} tok/s; {jobs} chunked jobs; stats "
+              f"{json.dumps(e.stats)}; page pool "
+              f"{json.dumps(e.page_pool_stats())}; launches {json.dumps(lc)}")
+    del eng, eng_a, eng_b, e
+    _stack_profile(torch, cfg, params, ServeEngine, ServeConfig, Request,
+                   runs["on"] | {"prefix_store": None, "on_complete": None})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_f32 = time.perf_counter()
+    _stack_exact(torch, lm, cfg.replace(num_layers=2, dtype="float32"),
+                 serve, num_pages)
+    print(f"  phase time {time.perf_counter() - t_phase:.1f} s (f32 checks "
+          f"{time.perf_counter() - t_f32:.1f} s)")
+    return out
+
+
+def _stack_profile(torch, cfg, params, ServeEngine, ServeConfig, Request,
+                   kw) -> None:
+    """Engine steps ``STACK_PROFILE`` of one more all-on run under the
+    profiler (device activity only): device time, launches, idle share.
+    The run stops after the profiled steps (its engine is dropped)."""
+    from torch.profiler import ProfilerActivity, profile
+    eng = ServeEngine(cfg, params, ServeConfig(**kw), device="cuda")
+    for r in _stack_requests(Request, cfg.vocab_size):
+        eng.submit(r)
+    skip, n = STACK_PROFILE
+    for _ in range(skip):
+        eng.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    check(eng.num_active > 0, "the profiled steps decoded nothing")
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_time_total", 0) > 0
+              and e.device_type.name == "CUDA"]
+    if not events:
+        print("  profile: the profiler saw no device time (not measured)")
+        return
+    busy_us = sum(e.device_time_total for e in events)
+    row1 = [e for e in events if "decode_kernel" in e.key]
+    print(f"  profile (engine steps {skip} to {skip + n - 1} of one more "
+          f"all-on run, profiler on; {json.dumps(eng.stats)} by then): wall "
+          f"{wall * 1e3:.1f} ms, device kernels {busy_us / 1e3:.1f} ms in "
+          f"{sum(e.count for e in events)} launches, device idle share "
+          f"{max(0.0, 1 - busy_us / 1e6 / wall):.3f}; row 1 "
+          f"{sum(e.device_time_total for e in row1) / 1e3:.2f} ms in "
+          f"{sum(e.count for e in row1)} launches")
+    for e in sorted(events, key=lambda e: -e.device_time_total)[:8]:
+        print(f"    {e.device_time_total / 1e3:9.2f} ms {e.count:7d}x  "
+              f"{e.key[:90]}")
+
+
+def _teacher_forced(torch, lm, cfg, params, prompt, toks, rows=16):
+    """Argmax of teacher-forced prefills of ``prompt + toks`` at each
+    generated position, in batches of ``rows`` rows padded to a multiple
+    of 512 positions (``chunked_attention``'s query chunk)."""
+    import numpy as np
+    full = np.concatenate([prompt, toks]).astype(np.int32)
+    width = -(-len(full) // 512) * 512
+    out = []
+    for i in range(0, len(toks), rows):
+        n = min(rows, len(toks) - i)
+        batch = np.zeros((n, width), np.int32)
+        batch[:, :len(full)] = full
+        lengths = torch.arange(n, device="cuda") + len(prompt) + i
+        logits, _ = lm.prefill(params, cfg, {"tokens": torch.as_tensor(
+            batch, device="cuda")}, width, lengths=lengths)
+        check(bool(torch.isfinite(logits[:, :cfg.vocab_size]).all()),
+              "teacher-forced logits not finite")
+        out.append(torch.argmax(logits, dim=-1).cpu().numpy())
+    return np.concatenate(out)
+
+
+def _stack_exact(torch, lm, cfg, serve, num_pages) -> None:
+    """f32 at 2 layers of the model's widths: greedy tokens of the all-on
+    run and the chunked run equal the plain engine's (an ample pool) and a
+    teacher-forced prefill; sampled tokens with preemption equal those
+    without, and a request alone draws what it draws in the batch; the
+    sampling noise on the card has the CPU's bits."""
+    import numpy as np
+
+    from repro_torch.serve import sampling
+    ServeEngine, ServeConfig, Request = (serve.ServeEngine, serve.ServeConfig,
+                                         serve.Request)
+    params = lm.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                     device="cuda")
+    reqs = {r.uid: r for r in _stack_requests(Request, cfg.vocab_size)}
+    runs = _stack_configs(num_pages)
+
+    def run(kw):
+        return _stack_run(torch, cfg, params, ServeEngine, ServeConfig,
+                          Request, kw)
+
+    def same(a, b, what):
+        for uid in b:
+            bad = np.nonzero(a[uid] != b[uid])[0]
+            check(not bad.size, f"{what}: request {uid} differs first at "
+                  f"token {bad[:1].tolist()}")
+
+    plain_eng, plain, _, _ = run(runs["off"])
+    on_eng, on, _, _ = run(runs["on"])
+    chunk_eng, chunked, _, _ = run(runs["chunked"])
+    same(on, plain, "greedy, every feature on vs plain")
+    same(chunked, plain, "greedy, chunked with preemption vs plain")
+    check(on_eng.stats["preempted"] >= 1 and on_eng.stats["prefix_hits"] > 0
+          and chunk_eng.stats["preempted"] >= 1
+          and chunk_eng.stats["prefill_chunks"] > 0,
+          f"f32 runs did not exercise the stack: {on_eng.stats}, "
+          f"{chunk_eng.stats}")
+    checked = 0
+    for uid, toks in sorted(plain.items()):
+        want = _teacher_forced(torch, lm, cfg, params, reqs[uid].tokens,
+                               toks)
+        bad = np.nonzero(want != toks)[0]
+        check(not bad.size, f"request {uid}: engine token differs from the "
+              f"teacher-forced prefill first at {bad[:1].tolist()}")
+        checked += len(toks)
+    print(f"  f32 ({cfg.num_layers} layers at full width): greedy tokens "
+          f"with every feature on ({json.dumps(on_eng.stats)}) and chunked "
+          f"with preemption ({chunk_eng.stats['prefill_chunks']} chunks, "
+          f"{chunk_eng.stats['preempted']} preempted) equal the plain "
+          f"engine's; {checked} tokens equal the teacher-forced prefill")
+    samp = {"temperature": STACK_TEMPERATURE, "rng": 7}
+    s_plain = run(runs["off"] | samp)[1]
+    s_on_eng, s_on, _, _ = run(runs["on"] | samp)
+    same(s_on, s_plain, "sampled, preemption + prefix cache vs plain")
+    check(s_on_eng.stats["preempted"] >= 1, f"{s_on_eng.stats}")
+    d_on = run(runs["dense"])[1]
+    for uid in STACK_SOLO:
+        r = reqs[uid]
+        solo = ServeEngine(cfg, params, ServeConfig(
+            **{**STACK, "num_slots": 1, **samp}), device="cuda").run(
+                [Request(uid=uid, tokens=r.tokens,
+                         max_new_tokens=r.max_new_tokens)])
+        same(solo, {uid: s_plain[uid]}, f"sampled request {uid} alone")
+        same({uid: d_on[uid]}, {uid: s_plain[uid]},
+             f"sampled request {uid} on the dense layout, chunked")
+    keys = torch.tensor([sampling.stream_key(7, uid) for uid in reqs])
+    ctr = torch.arange(len(reqs), dtype=torch.int64) * 5
+    g_cpu = sampling.gumbel(keys, ctr, cfg.padded_vocab_size)
+    g_card = sampling.gumbel(keys.cuda(), ctr.cuda(),
+                             cfg.padded_vocab_size).cpu()
+    check(torch.equal(g_cpu.view(torch.int32), g_card.view(torch.int32)),
+          "sampling noise on the card differs from the CPU's")
+    print(f"  f32 sampled (T {STACK_TEMPERATURE}): with preemption and the "
+          f"prefix cache ({s_on_eng.stats['preempted']} preempted) = "
+          f"without; requests {STACK_SOLO} alone = in the batch, and = on "
+          f"the dense layout with chunked prefill; noise bits of "
+          f"{len(reqs)} x {cfg.padded_vocab_size} draws card = CPU")
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -3135,6 +3511,7 @@ def main() -> int:
         from repro_torch.kernels import _build, ops, ref
         from repro_torch.kernels import decode_attention as _dec
         from repro_torch.kernels import flash_attention as _fa
+        from repro_torch import serve
         from repro_torch.models import lm
         from repro_torch.serve import Request, ServeConfig, ServeEngine
         from repro_torch.train import evaluate, step
@@ -3241,6 +3618,11 @@ def main() -> int:
                                 moment_dtype="bfloat16")
         phase.start("checkpoint")
         phase_checkpoint(torch, Trainer, cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase.start("serving stack")
+        stack = phase_serving_stack(torch, ops, lm, cfg, serve)
+        runs += [stack, stack["chunked"], stack["dense"]]
     except Exception:   # the boundary: report the failed phase, exit non-zero
         traceback.print_exc()
         print(f"chip_smoke: phase {phase.name!r} FAILED", file=sys.stderr)
@@ -3295,8 +3677,10 @@ def main() -> int:
         # the flash kernels, the dense serving run of phase 5 and the eval
         # (16) for the dense decode kernel, the gated runs (17) for the
         # RMSNorm backward's dx-only mode; and for every kernel the new
-        # models' runs (phases 20, 21, 23 and 24) and the bf16-moment runs
-        # (phases 26 and 27), zero where it is off their path
+        # models' runs (phases 20, 21, 23 and 24), the bf16-moment runs
+        # (phases 26 and 27) and the serving stack's timed runs (phase 30:
+        # engines A and B, the chunked paged run, the dense sampled run),
+        # zero where it is off their path
         launches = sum(run["launches"][name] for run in runs)
         if name == "rmsnorm_bwd_dx":
             launches += gated["launches"][name]

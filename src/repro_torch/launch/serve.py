@@ -5,10 +5,19 @@
       --kv-layout paged [--smoke] [--device cuda]
 
 ``--arch`` takes qwen2.5-0.5b, llama3.2-1b or phi4-mini-3.8b. Mirrors the
-flags of the JAX package's ``launch/serve.py`` that the port supports. Reports the first (warmup) pass — which builds the kernels — and
-the steady-state tok/s of a second pass separately, then the engine's
-``stats``, the page-pool stats and the kernels' launch counts of the timed
-pass.
+flags of the JAX package's ``launch/serve.py``: ``--prefill-chunk`` (chunked
+prefill width), ``--prefix-cache`` (the radix prefix cache; the demo batch
+then shares row 0's first half so hits are observable), ``--preempt``
+(preempt-and-requeue when the page pool is exhausted), ``--admission``
+(``prefix_aware`` admits queued requests early when their cached prefix
+pages sit at the LRU eviction frontier) and ``--persist-prefix`` (a
+``PrefixStore`` keeps the radix tree across engine instances, so the timed
+pass prefills suffix-only). ``--trace`` and ``--metrics-json`` raise until
+the observability port (ROADMAP Queue A item 10); ``--fn-cache-limit`` has
+no counterpart (eager PyTorch compiles nothing). Reports the first
+(warmup) pass — which builds the kernels — and the steady-state tok/s of a
+second pass separately, then the engine's ``stats``, the page-pool stats
+and the kernels' launch counts of the timed pass.
 """
 from __future__ import annotations
 
@@ -34,18 +43,43 @@ def main(argv=None):
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--num-pages", type=int, default=0,
                     help="page-pool size (0 = full dense capacity)")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="chunked prefill width (0 = single-shot)")
     ap.add_argument("--prefill-rows", type=int, default=1,
                     help="rows per bucketed prefill batch")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="radix prefix cache over the page pool "
+                         "(requires --kv-layout paged)")
+    ap.add_argument("--preempt", action="store_true",
+                    help="preempt-and-requeue when the page pool is "
+                         "exhausted (requires --kv-layout paged)")
+    ap.add_argument("--admission", choices=["fcfs", "prefix_aware"],
+                    default="fcfs",
+                    help="admission order: prefix_aware admits queued "
+                         "requests early when their cached prefix pages "
+                         "sit at the LRU eviction frontier")
+    ap.add_argument("--persist-prefix", action="store_true",
+                    help="keep the radix tree in a PrefixStore across "
+                         "engine instances (the second launcher pass then "
+                         "prefills suffix-only)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--trace", default="",
+                    help="not ported yet (ROADMAP Queue A item 10)")
+    ap.add_argument("--metrics-json", default="",
+                    help="not ported yet (ROADMAP Queue A item 10)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the plain PyTorch path)")
     args = ap.parse_args(argv)
+    if args.trace or args.metrics_json:
+        raise NotImplementedError(
+            "--trace/--metrics-json are not ported yet (ROADMAP Queue A "
+            "item 10, 'Observability')")
 
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.device import resolve_device
     from repro_torch.kernels import ops
     from repro_torch.models import lm
-    from repro_torch.serve import ServeConfig, ServeEngine
+    from repro_torch.serve import PrefixStore, ServeConfig, ServeEngine
 
     dev = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
@@ -55,22 +89,36 @@ def main(argv=None):
     batch = {"tokens": rng.integers(0, cfg.vocab_size,
                                     (args.batch, args.prompt_len),
                                     dtype=np.int32)}
+    if args.prefix_cache:
+        # shared-prefix traffic so radix hits are observable: every row
+        # reuses row 0's first half (page-aligned for typical page sizes)
+        half = args.prompt_len // 2
+        batch["tokens"][:, :half] = batch["tokens"][0, :half]
+    store = PrefixStore() if args.persist_prefix else None
     serve_cfg = ServeConfig(
         max_len=args.prompt_len + args.new_tokens, num_slots=args.batch,
-        temperature=args.temperature, decode_chunk=args.decode_chunk,
+        temperature=args.temperature, rng=args.seed + 1,
+        decode_chunk=args.decode_chunk,
         kv_layout=args.kv_layout, page_size=args.page_size,
-        num_pages=args.num_pages or None, prefill_rows=args.prefill_rows)
+        num_pages=args.num_pages or None,
+        prefill_chunk=args.prefill_chunk, prefill_rows=args.prefill_rows,
+        prefix_cache=args.prefix_cache, preempt=args.preempt,
+        admission=args.admission, prefix_store=store)
 
-    def one_pass():
+    def one_pass(close=False):
         engine = ServeEngine(cfg, params, serve_cfg, device=dev)
         out = engine.generate(batch, max_new_tokens=args.new_tokens)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
+        if close:
+            # with --persist-prefix this hands the radix tree to the store,
+            # so the next pass's engine adopts it warm
+            engine.close()
         return out, engine
 
     # warmup: builds the kernels and warms the allocator at the same shapes
     t0 = time.perf_counter()
-    one_pass()
+    one_pass(close=True)
     t_warm = time.perf_counter() - t0
 
     ops.reset_launches()
@@ -85,6 +133,20 @@ def main(argv=None):
     print(f"warmup (first pass, kernel builds included): {t_warm:.2f}s")
     print(f"steady state: generated {out.shape} in {dt:.3f}s "
           f"({tps:.1f} tok/s)")
+    if args.prefix_cache:
+        # second wave on the SAME engine: the first wave populated the radix
+        # tree, so every re-sent prompt aliases its cached pages and
+        # prefills only the copy-on-write tail token
+        t0 = time.perf_counter()
+        engine.generate(batch, max_new_tokens=args.new_tokens)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        dt2 = time.perf_counter() - t0
+        print(f"  2nd wave (warm radix tree): "
+              f"{args.batch * args.new_tokens / dt2:.1f} tok/s "
+              f"({dt / max(dt2, 1e-9):.2f}x 1st wave)")
+    if store is not None:
+        print(f"  prefix store: {store.stats['adoptions']} adoptions")
     print("engine stats:", json.dumps(engine.stats))
     print("page pool:", json.dumps(engine.page_pool_stats()))
     print("kernel launches (timed pass):", json.dumps(launches))

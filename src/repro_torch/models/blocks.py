@@ -32,6 +32,16 @@ def attn_block_prefill(params, cfg: ModelConfig, x, *, cache_len):
     return _mlp_residual(params, cfg, x + h), kv
 
 
+def attn_block_prefill_chunk(params, cfg: ModelConfig, x, k_cache, v_cache,
+                             start: int):
+    """One chunk of an incremental prefill (``attention.apply_prefill_chunk``;
+    the caches are one layer's and are written in place)."""
+    h = norms.apply(params["ln1"], x, cfg.norm_eps)
+    h, k_cache, v_cache = attention.apply_prefill_chunk(
+        params["attn"], cfg, h, k_cache, v_cache, start)
+    return _mlp_residual(params, cfg, x + h), k_cache, v_cache
+
+
 def attn_block_decode(params, cfg: ModelConfig, x, k_cache, v_cache, step):
     """Dense-KV decode; ``step`` is the per-step plan shared across layers
     (see ``attention.DenseStep``)."""

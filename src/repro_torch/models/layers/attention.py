@@ -1,10 +1,12 @@
 """GQA/MHA attention layer with RoPE, optional QKV bias and KV caching
 (port of the JAX package's ``attention.py``: the training forward, prefill,
-dense-cache decode and paged-pool decode). The training forward runs the
-flash kernels (``ops.flash_attention``) and the dense decode the dense
-decode kernel (``ops.decode_attention``) unless ``cfg.use_pallas ==
-"never"``; the paged decode always runs the paged kernel, and prefill the
-plain ``chunked_attention``.
+dense-cache decode, paged-pool decode and the chunk of an incremental
+prefill). The training forward runs the flash kernels
+(``ops.flash_attention``) and the dense decode the dense decode kernel
+(``ops.decode_attention``) unless ``cfg.use_pallas == "never"``; the paged
+decode always runs the paged kernel, prefill the plain
+``chunked_attention`` and a prefill chunk the plain ``full_attention``
+(XLA in the reference, no Pallas kernel).
 
 The caches and pools are updated in place (JAX returns new arrays); the
 functions still return them, so call sites read like the reference.
@@ -113,6 +115,30 @@ def apply_prefill(params, cfg: ModelConfig, x, *, cache_len: int = 0):
         k = torch.nn.functional.pad(k, pad)
         v = torch.nn.functional.pad(v, pad)
     return out, (k, v)
+
+
+def apply_prefill_chunk(params, cfg: ModelConfig, x, k_cache, v_cache,
+                        start: int):
+    """One chunk of an incremental prefill. x: [B, C, D] chunk tokens at
+    positions [start, start+C); caches [B, Smax, KVH, Dh] carry every
+    earlier chunk's K/V. Writes this chunk's K/V at ``start`` (in place)
+    and attends the chunk queries over the whole cache with the causal
+    mask anchored at ``q_offset=start``; cache positions past start+C are
+    zero AND causally masked, so the result equals the single-shot prefill
+    chunk for chunk. Returns (out [B, C, D], k_cache, v_cache)."""
+    b, c, _ = x.shape
+    if start < 0 or start + c > k_cache.shape[1]:
+        raise ValueError(f"chunk [{start}, {start + c}) does not fit a cache "
+                         f"of {k_cache.shape[1]} positions")
+    positions = start + torch.arange(c, device=x.device)
+    q, k, v = _project_qkv(params, cfg, x, positions)
+    k_cache[:, start:start + c] = k.to(k_cache.dtype)
+    v_cache[:, start:start + c] = v.to(v_cache.dtype)
+    out = core.full_attention(q, k_cache, v_cache, hmap=_hmap(cfg),
+                              causal=True, q_offset=start,
+                              softcap=cfg.attn_logit_softcap)
+    out = _out_proj(params, out, x.dtype, _head_mask(cfg, x.dtype, x.device))
+    return out, k_cache, v_cache
 
 
 @dataclass

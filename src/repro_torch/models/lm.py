@@ -9,8 +9,8 @@ reference's ``lax.scan`` over layers is a Python loop over that axis.
 
 ``batch``: {"tokens": [B, S] int tensor}, and for packed SFT batches also
 ``segment_ids`` and ``positions`` [B, S] int32. Caches are dicts of
-tensors and are updated in place by ``decode_step`` and the
-``insert_slots*`` functions.
+tensors and are updated in place by ``decode_step``, ``prefill_chunk`` and
+the ``insert_slots*`` functions.
 """
 from __future__ import annotations
 
@@ -351,6 +351,38 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict, max_len: int, *,
     return logits, cache
 
 
+def prefill_chunk(params: dict, cfg: ModelConfig, tokens, cache: dict,
+                  start: int, lengths, last_logits):
+    """One chunk of an incremental prefill over a scratch dense cache.
+
+    ``tokens``: [B, C] chunk at positions [start, start+C) (``start`` a
+    host int); ``cache``: {"k", "v"} scratch [L, B, S_bucket, KVH, Dh]
+    carrying earlier chunks' K/V, written in place; ``lengths``: [B] true
+    prompt lengths; ``last_logits``: [B, V] carried last-position logits,
+    updated for rows whose final prompt token falls inside this chunk.
+    Returns (last_logits', cache). The dense family only (``check_supported``
+    refuses the others)."""
+    check_supported(cfg)
+    b, c = tokens.shape
+    dev = tokens.device
+    lengths = torch.as_tensor(lengths, device=dev).long().expand(b)
+    x = _embed_tokens(params, cfg, tokens)
+    layers = zip(layers_of(params["layers"], cfg.num_layers),
+                 cache["k"].unbind(0), cache["v"].unbind(0))
+    for p_l, k_l, v_l in layers:
+        x, _, _ = blocks.attn_block_prefill_chunk(p_l, cfg, x, k_l, v_l,
+                                                  start)
+    x = norms.apply(params["final_norm"], x, cfg.norm_eps)
+    # rows whose last prompt token lives in this chunk pick up their logits
+    idx = (lengths - 1 - start).clamp(0, c - 1)
+    rows = torch.arange(b, device=dev)
+    sel = _logits(params, cfg, x[rows, idx][:, None])[:, 0]
+    hit = (lengths - 1 >= start) & (lengths - 1 < start + c)
+    last_logits = torch.where(hit[:, None], sel.to(last_logits.dtype),
+                              last_logits)
+    return last_logits, cache
+
+
 # --------------------------------------------------------------- insertion
 
 
@@ -369,13 +401,18 @@ def insert_slots(cache: dict, src: dict, slots) -> dict:
     return cache
 
 
-def insert_slots_paged(cache: dict, src: dict, slots, lengths) -> dict:
+def insert_slots_paged(cache: dict, src: dict, slots, lengths,
+                       starts=None) -> dict:
     """Scatter a dense prefill cache (``src``: k/v [L, n, S, KVH, Dh]) into
     the page pools through ``cache["pages"]``. ``slots``: [n] slot per row
     (entries == num_slots are admission padding and drop); ``lengths``: [n]
     true prompt lengths — positions >= length drop, so bucket-pad garbage
     never reaches a live page. Writes through sentinel table entries drop.
-    Dropped writes go to the sink page (see ``init_paged_cache``)."""
+    ``starts`` (optional, [n] or a scalar): first position to write per row
+    — positions below it also drop, which is the prefix cache's rule: table
+    entries below ``start`` map to pages shared read-only with other slots
+    (or the radix tree) and are never written through. Dropped writes go to
+    the sink page (see ``init_paged_cache``)."""
     k_pool, v_pool = cache["k"], cache["v"]
     dev = k_pool.device
     sink, ps = k_pool.shape[1] - 1, k_pool.shape[2]
@@ -389,6 +426,9 @@ def insert_slots_paged(cache: dict, src: dict, slots, lengths) -> dict:
     page = tbl[:, (t // ps).clamp(max=maxp - 1)]                # [n, s_max]
     ok = (valid_slot[:, None] & (t[None, :] < lengths[:, None])
           & (t[None, :] // ps < maxp) & (page < sink))
+    if starts is not None:
+        starts = torch.as_tensor(starts, device=dev).long().expand_as(lengths)
+        ok = ok & (t[None, :] >= starts[:, None])
     page = torch.where(ok, page, sink)
     off = (t % ps).expand_as(page)
     k_pool[:, page, off] = src["k"].to(k_pool.dtype)

@@ -1,9 +1,10 @@
 """``ServeConfig`` — the validated serving-side configuration.
 
 A copy of the JAX package's ``serve/config.py``: the same fields and the
-same validation. The features the port does not serve yet raise
-``NotImplementedError`` after validation, naming the ROADMAP item that
-ports them (Queue A, 'Full serving stack' and 'Distributed').
+same validation. ``mesh`` alone raises ``NotImplementedError`` after
+validation, naming the ROADMAP item that ports it (Queue A item 11,
+'Distributed'). ``rng`` is the base seed of the sampling streams: an int,
+a ``torch.Generator`` (its seed is used) or None (seed 0).
 
 ``ServeEngine(cfg, params, serve_cfg)`` consolidates what used to be ~18
 loose keyword arguments into one dataclass, validated once at
@@ -161,27 +162,10 @@ class ServeConfig:
         _reject_unported(self)
 
 
-_SERVING = "ROADMAP Queue A item 7, 'Full serving stack'"
-
-
 def _reject_unported(c: ServeConfig) -> None:
-    """Features of the reference engine this port does not serve yet raise
-    instead of running a different path."""
-    unported = (
-        (c.prefix_cache, "prefix_cache=True", _SERVING),
-        (c.prefix_store is not None, "prefix_store", _SERVING),
-        (c.admission == "prefix_aware", "admission='prefix_aware'", _SERVING),
-        (c.preempt, "preempt=True", _SERVING),
-        (c.prefill_chunk, f"prefill_chunk={c.prefill_chunk}", _SERVING),
-        (c.temperature > 0, f"temperature={c.temperature} (sampling)",
-         _SERVING),
-        (c.on_complete is not None, "on_complete (stream-out)", _SERVING),
-        (c.mesh is not None, "mesh",
-         "ROADMAP Queue A item 11, 'Distributed'"),
-    )
-    for on, what, item in unported:
-        if on:
-            raise NotImplementedError(
-                f"ServeConfig {what} is not ported to PyTorch yet ({item}); "
-                f"the port serves greedy requests with single-shot bucketed "
-                f"prefill on one device")
+    """A mesh (the reference's sharded serving) raises instead of running
+    on one device."""
+    if c.mesh is not None:
+        raise NotImplementedError(
+            "ServeConfig mesh is not ported to PyTorch yet (ROADMAP Queue A "
+            "item 11, 'Distributed'); the port serves on one device")

@@ -1,9 +1,6 @@
 """Shared KV page pool: host-side page-table allocator for the serve engine.
 
-A copy of the JAX package's ``serve/pages.py`` (host-side numpy, no JAX);
-the port's engine uses the allocator without the prefix cache, so the copy
-leaves out ``resize_slots`` (the ``PrefixStore`` handoff) and
-``default_num_pages``, which come back with it.
+A copy of the JAX package's ``serve/pages.py`` (host-side numpy, no JAX).
 
 The paged KV layout replaces each slot's dense ``max_len`` cache row with a
 pool of fixed-size pages (``[num_pages, page_size, heads, dim]`` K/V arrays
@@ -46,6 +43,12 @@ import numpy as np
 def pages_for(tokens: int, page_size: int) -> int:
     """Number of pages backing ``tokens`` cache positions."""
     return -(-int(tokens) // int(page_size))
+
+
+def default_num_pages(num_slots: int, max_len: int, page_size: int) -> int:
+    """Full-capacity pool: every slot can hold ``max_len`` tokens (the dense
+    footprint). Real deployments size below this and lean on backpressure."""
+    return num_slots * pages_for(max_len, page_size)
 
 
 class PoolExhausted(RuntimeError):
@@ -178,6 +181,27 @@ class PageAllocator:
             self.decref(int(self.table[slot, i]))
         self.table[slot, :] = self.num_pages
         self._used[slot] = 0
+
+    def resize_slots(self, num_slots: int,
+                     pages_per_slot: int) -> "PageAllocator":
+        """Rebuild the slot tables for a new engine geometry, preserving
+        page refcounts and the free list. Used when a ``PrefixStore``
+        hands this allocator to a new engine: the radix tree's references
+        (pages with no slot holder) carry over untouched, while the slot
+        side — necessarily empty at handoff — is rebuilt at the adopting
+        engine's ``num_slots``/``pages_per_slot``. Refuses to resize while
+        any slot still holds pages."""
+        if self._used.any():
+            held = [int(s) for s in np.nonzero(self._used)[0]]
+            raise RuntimeError(
+                f"resize_slots with live slots {held}: free every slot "
+                f"before handing the allocator to a new engine")
+        self.num_slots = int(num_slots)
+        self.pages_per_slot = int(pages_per_slot)
+        self.table = np.full((self.num_slots, self.pages_per_slot),
+                             self.num_pages, np.int32)
+        self._used = np.zeros((self.num_slots,), np.int32)
+        return self
 
     def stats(self) -> dict:
         return {"num_pages": self.num_pages,

@@ -44,8 +44,8 @@ def greedy_eval(params, cfg: ModelConfig, task: synthetic.MathTaskConfig,
 
     ``serve_cfg`` overrides the default serving configuration; its
     capacity fields, ``eos_id``, ``mesh`` and ``batch_axes`` are forced to
-    the eval protocol's values. What the port does not serve yet (the
-    prefix cache, ROADMAP Queue A item 7) raises in ``ServeConfig``."""
+    the eval protocol's values (a paged layout with the prefix cache, for
+    one, serves the same greedy answers)."""
     if mesh is not None:
         raise NotImplementedError(
             "evaluation on a mesh is not ported yet (ROADMAP Queue A item "

@@ -40,6 +40,10 @@ row's positions (1-32 chunks, with valid_len 0 and chunks past valid_len
 and S); q heads outside its head map get zeros; a chunk of dense decode
 steps makes no host sync. The smoke config runs at head dim 64 here: the
 flash and decode kernels take 64 and 128.
+The serving stack: a sampled decode chunk (paged and dense) makes no host
+sync, the counter-based sampling noise has the CPU's bits, and a prefix-cache
+admission whose copy-on-write and pad rows write to the pool's sink page
+runs without a device assert and keeps the prefix-off engine's tokens.
 """
 import numpy as np
 import pytest
@@ -1208,3 +1212,92 @@ def test_dense_decode_chunk_never_syncs(cuda_device):
     assert ops.LAUNCHES["paged_decode_attention"] == before[
         "paged_decode_attention"]
     assert cache["pos"].tolist() == [9] * 4
+
+
+# ------------------------------------------------------- the serving stack
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_layout", ["paged", "dense"])
+def test_sampled_decode_chunk_never_syncs(cuda_device, kv_layout):
+    """A sampled decode chunk of the engine (each slot's token drawn from
+    its counter-based stream) under ``set_sync_debug_mode("error")``: no
+    host sync, and each row's tokens inside the vocabulary."""
+    from repro_torch.models import lm
+    from repro_torch.serve import Request, ServeConfig, ServeEngine
+    cfg = _card_smoke()
+    params = lm.init(cfg, torch.Generator(device=cuda_device).manual_seed(0),
+                     device="cuda")
+    eng = ServeEngine(cfg, params, ServeConfig(
+        max_len=64, num_slots=3, temperature=0.8, rng=4,
+        kv_layout=kv_layout, page_size=8), device="cuda")
+    for i in range(3):
+        eng.submit(Request(uid=i, tokens=np.arange(1, 6 + i),
+                           max_new_tokens=40))
+    eng.step()                  # admission (syncs) and a first chunk
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        toks = eng._decode_steps()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    toks = toks.cpu()
+    assert toks.shape == (3, eng.decode_chunk)
+    assert ((toks >= 0) & (toks < cfg.vocab_size)).all()
+
+
+@pytest.mark.cuda
+def test_sampling_noise_bits_equal_the_cpu(cuda_device):
+    """The counter-based Gumbel noise at qwen2.5-0.5b's padded vocabulary
+    for many (seed, uid, token index) on the card equals the CPU's bit for
+    bit, and so do the tokens drawn from the same f32 logits."""
+    from repro_torch.serve import sampling
+    vocab = 151936
+    keys = [sampling.stream_key(seed, uid) for seed in (0, 7, 2**40 + 3)
+            for uid in (0, 1, 12345, 2**33)]
+    skey = torch.tensor(keys, dtype=torch.int64)
+    ctr = torch.arange(len(keys), dtype=torch.int64) * 37
+    g_cpu = sampling.gumbel(skey, ctr, vocab)
+    g_card = sampling.gumbel(skey.to(cuda_device), ctr.to(cuda_device),
+                             vocab).cpu()
+    assert torch.equal(g_cpu.view(torch.int32), g_card.view(torch.int32))
+    logits = torch.randn(len(keys), vocab,
+                         generator=torch.Generator().manual_seed(1))
+    t_cpu = sampling.sample(logits, 0.8, skey, ctr)
+    t_card = sampling.sample(logits.to(cuda_device), 0.8,
+                             skey.to(cuda_device), ctr.to(cuda_device))
+    assert torch.equal(t_cpu, t_card.cpu())
+
+
+@pytest.mark.cuda
+def test_prefix_admission_writes_to_the_sink(cuda_device):
+    """f32, page 8, ``prefill_rows=4``: a whole-prompt hit copies its
+    boundary page on write, and the batch's pad rows send their
+    copy-on-write and KV writes to the pool's sink page. No device assert,
+    the tokens equal the prefix-off engine's, and only the tree's pages
+    stay live."""
+    from repro_torch.models import lm
+    from repro_torch.serve import Request, ServeConfig, ServeEngine
+    cfg = _card_smoke().replace(dtype="float32")
+    params = lm.init(cfg, torch.Generator(device=cuda_device).manual_seed(0),
+                     device="cuda")
+    rng = np.random.default_rng(11)
+    prefix = rng.integers(1, cfg.vocab_size, (24,)).astype(np.int32)
+    prompts = [np.concatenate([prefix, rng.integers(1, cfg.vocab_size,
+                                                    (s,))])
+               for s in (5, 9)] + [prefix.copy()]
+    kw = dict(max_len=48, num_slots=2, decode_chunk=4, min_bucket=8,
+              kv_layout="paged", page_size=8, num_pages=24, prefill_rows=4)
+    res = {}
+    for on in (False, True):
+        eng = ServeEngine(cfg, params, ServeConfig(prefix_cache=on, **kw),
+                          device="cuda")
+        res[on] = eng.run([Request(uid=i, tokens=p, max_new_tokens=6,
+                                   arrival=2 * i)
+                           for i, p in enumerate(prompts)])
+        torch.cuda.synchronize()
+    assert eng.stats["prefix_hits"] == 2, eng.stats
+    assert res[True].completions[2].prefix_pages == 2   # the COW hit
+    for uid in res[False]:
+        np.testing.assert_array_equal(res[True][uid], res[False][uid])
+    assert eng.page_pool_stats()["live_pages"] == eng._prefix.cached_pages
