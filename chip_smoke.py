@@ -232,7 +232,29 @@ Phases, each of which makes the run exit non-zero if it fails:
    teacher-forced prefill; sampled (T 0.8) tokens with preemption and the
    prefix cache equal those without, three requests alone draw what they
    draw in the batch and on the dense chunked path; the sampling noise on
-   the card equals the CPU's bit for bit.
+   the card equals the CPU's bit for bit;
+31. observability and the prefetcher at full width (qwen2.5-0.5b, bf16):
+   (a) phase 13's packed source, dense adagradselect, ``OBS_STEPS`` steps,
+   four runs from one seed (obs off / prefetch 0, obs on / prefetch 0,
+   obs off / prefetch 2, obs on / prefetch 2): losses and every parameter
+   leaf bit-equal, the launches a step equal and the path's, the committed
+   cursor the records trained on; with obs on the selection trace's counts
+   equal ``state["opt"]["counts"]``, the exported trace validates with a
+   ``train_step`` span a step (and the ``data-prefetch`` thread's track at
+   prefetch 2), the metrics snapshot renders through ``launch.inspect``;
+   (d) the four runs' step times in ``OBS_ROUNDS`` alternating rounds of
+   ``OBS_STEPS``-step windows, their medians' ratios (obs on / off,
+   prefetch 2 / 0) beside the card's name and power limit (recorded, not
+   gated); 2 more steps under ``torch.profiler`` with
+   ``obs.enable(torch_profiler=True)``: 2 ``train_step`` ranges; (b) phase
+   10's async banked run with obs on: the ``phase_a``, ``swap`` and
+   ``phase_b`` histograms count the steps, the ``swap_dispatch_job`` spans
+   sit off the main thread's track, the ``mispredicts`` counter equals
+   ``SwapStats.mispredicts``; (c) phase 4's workload, paged, obs off then
+   on: the same tokens and launches, each latency histogram counts 8,
+   ``ttft`` <= ``e2e`` in every request's lane, ``page_pool_live`` 0 at
+   the end, ``stats_snapshot()["engine"]`` equal to ``stats``. The files go
+   under ``build/`` and are removed.
 
 Then it prints the kernel summary as one JSON line and, last, the device
 line ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
@@ -362,14 +384,19 @@ def bound_ms(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
 # ------------------------------------------------------------------ phases
 
 
-def phase_card() -> str:
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
     check(out.returncode == 0 and out.stdout.strip(),
           f"nvidia-smi failed: {out.stderr.strip()}")
-    line = out.stdout.strip().splitlines()[0]
+    return out.stdout.strip().splitlines()[0]
+
+
+def phase_card() -> str:
+    line = card_line()
     print(line)
     return line
 
@@ -3477,6 +3504,274 @@ def _stack_exact(torch, lm, cfg, serve, num_pages) -> None:
           f"{len(reqs)} x {cfg.padded_vocab_size} draws card = CPU")
 
 
+# ---------------------------------------------------------- observability
+
+OBS_DIR = ROOT / "build" / "chip_smoke_obs"
+OBS_STEPS = 6          # phase 31: steps of each run
+OBS_ROUNDS = 2         # phase 31(d): alternating rounds of OBS_STEPS windows
+# phase 31's four training runs: (obs on, prefetch depth)
+OBS_RUNS = ((False, 0), (True, 0), (False, 2), (True, 2))
+
+
+def _obs_label(run) -> str:
+    return f"obs {'on' if run[0] else 'off'} / prefetch {run[1]}"
+
+
+def _obs_train(torch, ops, cfg, Trainer, loader, obs, run) -> dict:
+    """One of phase 31(a)'s runs: phase 13's packed source, dense
+    adagradselect, OBS_STEPS steps in one log window, obs and prefetch as
+    ``run`` says; with obs on the trace and the snapshot are written."""
+    on, depth = run
+    gb, sl = TRAIN["global_batch"], TRAIN["seq_len"]
+    steps = OBS_STEPS * (2 + OBS_ROUNDS)   # (a), then (d)'s windows
+    tcfg = _train_cfg(cfg, "adagradselect", steps, gb, sl,
+                      log_every=10 ** 6)
+    data = loader.make_source("packed_math", seq_len=sl, global_batch=gb,
+                              seed=tcfg.seed)
+    tr = Trainer(tcfg, data_source=data, prefetch_depth=depth,
+                 device="cuda")
+    if on:
+        obs.enable()
+    ops.reset_launches()
+    tr.train(OBS_STEPS)
+    launches = dict(ops.LAUNCHES)
+    out = {"tr": tr, "launches": launches}
+    if on:
+        sel = obs.selection_trace()
+        tag = f"p{depth}"
+        out["trace"] = obs.validate_trace_file(
+            _obs_export(obs, f"train_{tag}.json"))
+        out["snapshot"] = OBS_DIR / f"train_{tag}_metrics.json"
+        out["snapshot"].write_text(json.dumps(obs.snapshot()))
+        out["sel"] = sel
+        obs.disable()
+    return out
+
+
+def _obs_export(obs, name: str) -> str:
+    OBS_DIR.mkdir(parents=True, exist_ok=True)
+    path = str(OBS_DIR / name)
+    obs.export_trace(path)
+    return path
+
+
+def _obs_training(torch, ops, cfg, Trainer, loader, obs, inspect) -> dict:
+    """Phase 31(a) and (d): the four runs bit for bit, then step times in
+    alternating rounds, then a torch.profiler capture with the bridge."""
+    import contextlib
+    import io
+    import threading
+
+    from repro_torch.obs import report
+    runs = {run: _obs_train(torch, ops, cfg, Trainer, loader, obs, run)
+            for run in OBS_RUNS}
+    base = runs[OBS_RUNS[0]]
+    nl = cfg.num_layers
+    want = _train_launches(nl)
+    for run, r in runs.items():
+        tr = r["tr"]
+        check(all(math.isfinite(x) for x in tr.log.losses),
+              f"{_obs_label(run)}: losses {tr.log.losses}")
+        check(tr.log.losses == base["tr"].log.losses,
+              f"{_obs_label(run)}: losses {tr.log.losses} != "
+              f"{base['tr'].log.losses}")
+        a, b = _leaves(tr.state["params"]), _leaves(base["tr"].state["params"])
+        check(all(_bits_equal(torch, x, y) for x, y in zip(a, b)),
+              f"{_obs_label(run)}: params differ from obs off / prefetch 0")
+        per_step = {k: n / OBS_STEPS for k, n in r["launches"].items()}
+        check(per_step == want, f"{_obs_label(run)}: launches per step "
+              f"{per_step} != {want}")
+        check(tr.data.cursor()["record"] == sum(tr.log.records),
+              f"{_obs_label(run)}: cursor {tr.data.cursor()} != "
+              f"{sum(tr.log.records)} records trained")
+        if not run[0]:
+            continue
+        counts = tr.state["opt"]["counts"].cpu().numpy()
+        check((r["sel"].counts == counts).all(),
+              f"{_obs_label(run)}: selection counts {r['sel'].counts} != "
+              f"opt counts {counts}")
+        events = r["trace"]
+        steps = [e for e in events if e["ph"] == "B"
+                 and e["name"] == "train_step"]
+        check(len(steps) == OBS_STEPS, f"{len(steps)} train_step spans")
+        threads = {e["args"]["name"] for e in events if e["ph"] == "M"}
+        check(run[1] == 0 or "data-prefetch" in threads,
+              f"no data-prefetch thread in the trace: {threads}")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            inspect.main([str(r["snapshot"]), "--bins", "3"])
+        shown = buf.getvalue()
+        check(f"selection heatmap — {OBS_STEPS} steps" in shown
+              and "[train]" in shown, f"inspect rendered {shown[:200]!r}")
+    on2 = runs[(True, 2)]
+    print(f"  (a) {len(OBS_RUNS)} runs of {OBS_STEPS} packed steps "
+          f"({', '.join(map(_obs_label, OBS_RUNS))}): losses, every "
+          f"parameter leaf and the launches a step bit-equal; selection "
+          f"counts = opt counts {on2['sel'].counts.astype(int).tolist()}; "
+          f"traces valid with {OBS_STEPS} train_step spans and the "
+          f"data-prefetch thread; snapshots rendered by launch.inspect")
+    print("  heatmap (obs on / prefetch 2):\n    " + "\n    ".join(
+        report.render_selection_trace(on2["sel"], bins=3).splitlines()))
+    # (d): step times, OBS_STEPS-step windows (one sync at each window's
+    # end), the four runs in turn in each round
+    times = {run: [] for run in OBS_RUNS}
+    for _ in range(OBS_ROUNDS):
+        for run in OBS_RUNS:
+            if run[0]:
+                obs.enable()
+            runs[run]["tr"].train(OBS_STEPS)
+            obs.disable()
+            times[run].append(runs[run]["tr"].log.step_times[-1] * 1e3)
+    med = {run: statistics.median(ts) for run, ts in times.items()}
+    ratios = {"obs on / off, prefetch 0": med[(True, 0)] / med[(False, 0)],
+              "obs on / off, prefetch 2": med[(True, 2)] / med[(False, 2)],
+              "prefetch 2 / 0, obs off": med[(False, 2)] / med[(False, 0)],
+              "prefetch 2 / 0, obs on": med[(True, 2)] / med[(True, 0)]}
+    print(f"  (d) step time (ms) in {OBS_ROUNDS} alternating rounds of "
+          f"{OBS_STEPS}-step windows: " + "; ".join(
+              f"{_obs_label(run)} {[round(t, 2) for t in ts]} (median "
+              f"{med[run]:.2f})" for run, ts in times.items()))
+    print(f"  (d) ratios of the medians: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in ratios.items()) + f"  [{card_line()}]")
+    # the bridge: 2 profiled steps, each a train_step range
+    from torch.profiler import ProfilerActivity, profile
+    tr = runs[(True, 0)]["tr"]
+    obs.enable(torch_profiler=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tr.train(2)
+    obs.disable()
+    spans = [e for e in prof.events() if e.name == "train_step"]
+    # the host's ranges; the profiler may mirror each on the device's
+    # timeline as a user annotation
+    ranges = [e for e in spans if e.device_type.name == "CPU"]
+    check(len(ranges) == 2, f"{len(ranges)} train_step ranges in the "
+          f"profile, want 2")
+    dev = sum(getattr(e, "device_time_total", 0) for e in ranges)
+    print(f"  torch_profiler bridge: {len(ranges)} train_step ranges on "
+          f"the host thread ({threading.current_thread().name}), "
+          f"{len(spans) - len(ranges)} on the device's timeline, "
+          f"{dev / 1e3:.1f} ms of device time under them")
+    out = {"ratios": ratios, "median_ms": {_obs_label(r): m
+                                           for r, m in med.items()}}
+    runs.clear()
+    return out
+
+
+def _obs_banked(torch, ops, cfg, Trainer, obs) -> None:
+    """Phase 31(b): phase 10's async banked run with obs on."""
+    import threading
+    tcfg = _train_cfg(cfg, "adagradselect", OBS_STEPS, TRAIN["global_batch"],
+                      TRAIN["seq_len"], log_every=10 ** 6,
+                      moment_residency="banked", offload="host",
+                      async_swap=True)
+    tr = Trainer(tcfg, device="cuda")
+    obs.enable()
+    tr.train(OBS_STEPS)
+    events = obs.validate_trace_file(_obs_export(obs, "banked.json"))
+    snap = obs.snapshot()["swap"]
+    obs.disable()
+    stats = tr.step_fn.swap_stats
+    for name in ("phase_a", "swap", "phase_b"):
+        h = getattr(stats, name)
+        check(h.count == OBS_STEPS and snap[f"{name}_us"]["count"]
+              == OBS_STEPS, f"{name}: {h.count} samples, want {OBS_STEPS}")
+    main = threading.get_ident()
+    jobs = [e for e in events if e["name"] == "swap_dispatch_job"]
+    check(len(jobs) == stats.dispatches and jobs
+          and all(e["tid"] != main for e in jobs),
+          f"{len(jobs)} swap_dispatch_job spans ({stats.dispatches} "
+          f"dispatches), tids {sorted({e['tid'] for e in jobs})}, main "
+          f"{main}")
+    check(snap["mispredicts"] == stats.mispredicts,
+          f"mispredicts counter {snap['mispredicts']} != SwapStats "
+          f"{stats.mispredicts}")
+    print(f"  (b) banked async, obs on, {OBS_STEPS} steps: phase_a / swap / "
+          f"phase_b {stats.phase_a.count} samples each, medians "
+          f"{stats.phase_a.quantile(0.5):.0f} / {stats.swap.quantile(0.5):.0f}"
+          f" / {stats.phase_b.quantile(0.5):.0f} µs; {len(jobs)} "
+          f"swap_dispatch_job spans off the main thread; mispredicts "
+          f"{stats.mispredicts} = the counter; {json.dumps(stats.as_dict())}")
+
+
+def _obs_serving(torch, ops, lm, cfg, serve, obs) -> None:
+    """Phase 31(c): phase 4's workload on the paged layout, obs off then
+    on: the same tokens and launches, the histograms and lanes."""
+    params = lm.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                     device="cuda")
+    runs = {}
+    for on in (False, True):
+        if on:
+            obs.enable(selection=False)
+        ops.reset_launches()
+        eng, res, dt = _serve_once(torch, cfg, params, serve.ServeEngine,
+                                   serve.ServeConfig, serve.Request)
+        runs[on] = (eng, res, dict(ops.LAUNCHES), dt)
+    events = obs.validate_trace_file(_obs_export(obs, "serve.json"))
+    reg = obs.snapshot()["serve"]
+    obs.disable()
+    (_, off, l_off, dt_off), (eng, res, l_on, dt_on) = runs[False], runs[True]
+    check(sorted(res) == sorted(off) and all(
+        (res[u] == off[u]).all() for u in off), "obs on changed the tokens")
+    check(l_on == l_off, f"launches obs on {l_on} != off {l_off}")
+    snap = eng.stats_snapshot()
+    n = len(PROMPT_LENS)
+    for name, h in snap["latency_us"].items():
+        check(h["count"] == n and reg[f"{name}_us"]["count"] == n,
+              f"{name}: {h['count']} samples, want {n}")
+    check(snap["engine"] == eng.stats and reg["engine"] == eng.stats,
+          f"stats_snapshot engine {snap['engine']} != stats {eng.stats}")
+    check(reg["page_pool_live"] == 0.0, f"page_pool_live "
+          f"{reg['page_pool_live']} at the end")
+    lanes = {}
+    for e in events:
+        if e["ph"] == "X":
+            lanes.setdefault(e["tid"], {})[e["name"]] = e["dur"]
+    check(len(lanes) == n and all(d["ttft"] <= d["e2e"]
+                                  for d in lanes.values()),
+          f"request lanes {lanes}")
+    spans = {e["name"] for e in events if e["ph"] == "B"}
+    check({"admission", "decode_chunk"} <= spans, f"spans {spans}")
+    lat = snap["latency_us"]
+    print(f"  (c) serving, obs on vs off: tokens and launches equal; "
+          f"{n} lanes with ttft <= e2e; page_pool_live 0; p50 queue wait "
+          f"{lat['queue_wait']['p50'] / 1e3:.1f} ms, ttft "
+          f"{lat['ttft']['p50'] / 1e3:.1f} ms, tpot "
+          f"{lat['tpot']['p50'] / 1e3:.2f} ms, e2e "
+          f"{lat['e2e']['p50'] / 1e3:.1f} ms; tok/s off "
+          f"{n * NEW_TOKENS / dt_off:.1f}, on {n * NEW_TOKENS / dt_on:.1f}")
+
+
+def phase_observability(torch, ops, lm, cfg, Trainer, loader, serve, obs,
+                        inspect) -> dict:
+    """Phase 31: the obs layer and the prefetcher at full width."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(OBS_DIR, ignore_errors=True)
+    try:
+        print(f"observability and prefetch, {cfg.name} ({cfg.dtype}), batch "
+              f"{TRAIN['global_batch']} x {TRAIN['seq_len']}:")
+        out = _obs_training(torch, ops, cfg, Trainer, loader, obs, inspect)
+        t_train = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        _obs_banked(torch, ops, cfg, Trainer, obs)
+        t_banked = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        _obs_serving(torch, ops, lm, cfg, serve, obs)
+    finally:
+        obs.disable()
+        shutil.rmtree(OBS_DIR, ignore_errors=True)
+    t1 = time.perf_counter()
+    print(f"  phase 31: {t1 - t0:.1f} s ((a), (d) and the profile "
+          f"{t_train - t0:.1f} s, (b) {t_banked - t_train:.1f} s, (c) "
+          f"{t1 - t_banked:.1f} s)")
+    return out
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -3511,7 +3806,8 @@ def main() -> int:
         from repro_torch.kernels import _build, ops, ref
         from repro_torch.kernels import decode_attention as _dec
         from repro_torch.kernels import flash_attention as _fa
-        from repro_torch import serve
+        from repro_torch import obs, serve
+        from repro_torch.launch import inspect
         from repro_torch.models import lm
         from repro_torch.serve import Request, ServeConfig, ServeEngine
         from repro_torch.train import evaluate, step
@@ -3623,6 +3919,11 @@ def main() -> int:
         phase.start("serving stack")
         stack = phase_serving_stack(torch, ops, lm, cfg, serve)
         runs += [stack, stack["chunked"], stack["dense"]]
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase.start("observability")
+        phase_observability(torch, ops, lm, cfg, Trainer, loader, serve, obs,
+                            inspect)
     except Exception:   # the boundary: report the failed phase, exit non-zero
         traceback.print_exc()
         print(f"chip_smoke: phase {phase.name!r} FAILED", file=sys.stderr)

@@ -35,15 +35,29 @@ down: ``quiesce`` is all the end of training needs.
 
 On the CPU there are no streams and each copy completes where it is issued;
 the planner's plans, hits and misses are the same.
+
+Observability, as in the reference: the planner registers its
+``SwapStats`` histograms, its ``mispredict`` counter and ``as_dict`` under
+subsystem ``swap`` (last planner wins), emits a ``swap_mispredict``
+instant on each miss and, while tracing, a ``swap_dispatch_job`` span a
+dispatch. With no thread of its own, the span goes on a lane of its own
+(``PLANNER_TRACK``), where the reference's sits on its planner thread's
+track; it times the host's planning and queueing of the copies, not the
+copies.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import masked_adamw as ma
+
+# the trace lane of the dispatches: the planner has no thread of its own
+PLANNER_TRACK = "swap-planner (copy stream)"
 
 
 @dataclasses.dataclass
@@ -56,21 +70,46 @@ class SwapStats:
     no prediction in flight — the first step of a ``train`` call, or async
     disabled — is a sync swap but no mispredict. ``predicted_hit_rate`` is
     the reference's, hits over all boundaries; ``dispatched_hit_rate`` is
-    hits over the boundaries that had a prediction in flight. Phase times
-    are host-clock microseconds summed over steps: ``phase_a_us`` includes
-    the wait for the forward, backward and selection (the indices read), ``swap_us`` the boundary (resolve and commit, or the
-    synchronous swap), ``phase_b_us`` the queueing of the update and of the
-    next dispatch. (The reference's obs histograms wait for ROADMAP Queue A
-    item 10.)"""
+    hits over the boundaries that had a prediction in flight.
+
+    Phase times live in obs histograms, as in the reference: the banked
+    step times each phase once through ``obs.timed`` (host clock, µs a
+    step), and trace spans ride the same measurement. ``phase_a`` includes
+    the wait for the forward, backward and selection (the indices read),
+    ``swap`` the boundary (resolve and commit, or the synchronous swap),
+    ``phase_b`` the queueing of the update and of the next dispatch. The
+    accumulated-µs fields (``phase_a_us`` etc.) are read-only views over
+    the histograms' totals, and ``mispredicts`` one over the ``mispredict``
+    counter."""
     steps: int = 0
     boundaries: int = 0
     predicted_hits: int = 0
     sync_swaps: int = 0
-    mispredicts: int = 0
     dispatches: int = 0
-    phase_a_us: float = 0.0
-    swap_us: float = 0.0
-    phase_b_us: float = 0.0
+    phase_a: obs.Histogram = dataclasses.field(
+        default_factory=obs.Histogram, repr=False)
+    swap: obs.Histogram = dataclasses.field(
+        default_factory=obs.Histogram, repr=False)
+    phase_b: obs.Histogram = dataclasses.field(
+        default_factory=obs.Histogram, repr=False)
+    mispredict: obs.Counter = dataclasses.field(
+        default_factory=obs.Counter, repr=False)
+
+    @property
+    def mispredicts(self) -> int:
+        return self.mispredict.value
+
+    @property
+    def phase_a_us(self) -> float:
+        return self.phase_a.total
+
+    @property
+    def swap_us(self) -> float:
+        return self.swap.total
+
+    @property
+    def phase_b_us(self) -> float:
+        return self.phase_b.total
 
     @property
     def predicted_hit_rate(self) -> float:
@@ -83,7 +122,13 @@ class SwapStats:
         return self.predicted_hits / predicted if predicted else 1.0
 
     def as_dict(self) -> dict:
-        return {**dataclasses.asdict(self),
+        return {"steps": self.steps, "boundaries": self.boundaries,
+                "predicted_hits": self.predicted_hits,
+                "sync_swaps": self.sync_swaps,
+                "mispredicts": self.mispredicts,
+                "dispatches": self.dispatches,
+                "phase_a_us": self.phase_a_us, "swap_us": self.swap_us,
+                "phase_b_us": self.phase_b_us,
                 "predicted_hit_rate": self.predicted_hit_rate,
                 "dispatched_hit_rate": self.dispatched_hit_rate}
 
@@ -106,6 +151,14 @@ class SwapPlanner:
         self.stats = SwapStats()
         self._stream = None    # the copy stream, made at the first dispatch
         self._pending = None   # the dispatched job
+        # last-planner-wins registry bindings: the active trainer's phase
+        # histograms, boundary counts and mispredicts in obs.snapshot()
+        for name, metric in (("phase_a_us", self.stats.phase_a),
+                             ("swap_us", self.stats.swap),
+                             ("phase_b_us", self.stats.phase_b),
+                             ("mispredicts", self.stats.mispredict)):
+            obs.metrics.register(name, metric, subsystem="swap")
+        obs.metrics.register("banked", self.stats.as_dict, subsystem="swap")
 
     def dispatch(self, pred_indices: np.ndarray, banks: dict, store: dict,
                  slot_map) -> None:
@@ -115,21 +168,29 @@ class SwapPlanner:
         pending."""
         if not self.enabled or self._pending is not None:
             return
-        idx = np.asarray(pred_indices)
+        tr = obs.tracer()
+        t0 = time.perf_counter_ns()
+        self._pending = self._job(np.asarray(pred_indices), banks, store,
+                                  slot_map)
         self.stats.dispatches += 1
+        if tr is not None:
+            # its own lane, as the reference's planner thread has its track
+            tr.complete("swap_dispatch_job", t0, time.perf_counter_ns(),
+                        track=PLANNER_TRACK)
+
+    def _job(self, idx, banks, store, slot_map) -> dict:
+        """Plan the predicted boundary and queue its copies."""
         try:
             plans = ma.plan_swap(self.partition, slot_map,
                                  _mask(self.num_blocks, idx),
                                  ma.bank_caps(banks))
         except RuntimeError:
             # the predicted selection overflows a bank; the real one may not
-            self._pending = {"idx": idx, "plans": None}
-            return
+            return {"idx": idx, "plans": None}
         staged, done = {}, None
         if plans:
             staged, done = self._enqueue(plans, banks, store)
-        self._pending = {"idx": idx, "plans": plans, "staged": staged,
-                         "done": done}
+        return {"idx": idx, "plans": plans, "staged": staged, "done": done}
 
     def _enqueue(self, plans, banks, store):
         """The plans' admissions and evictions, queued after everything the
@@ -172,7 +233,14 @@ class SwapPlanner:
             return np.array(slot_map, np.int32)
         self.stats.boundaries += 1
         self.stats.sync_swaps += 1
-        self.stats.mispredicts += job is not None
+        if job is not None:
+            # a dispatch was in flight but missed (or overflowed)
+            self.stats.mispredict.inc()
+            obs.instant("swap_mispredict",
+                        {"predicted": job["idx"].tolist(),
+                         "actual": idx.tolist()}
+                        if job["plans"] is not None
+                        else {"failed_plan": True})
         return ma.swap_banked(self.partition, banks, store, slot_map, mask)
 
     def quiesce(self) -> None:

@@ -1,17 +1,19 @@
-"""Streaming SFT input pipeline: records -> packed [B, L] batches (a copy of
-the JAX package's ``data/pipeline/__init__.py`` without its Prefetcher,
-which waits for ROADMAP Queue A item 8).
+"""Streaming SFT input pipeline: records -> packed [B, L] batches -> device
+(a copy of the JAX package's ``data/pipeline/__init__.py``).
 
   records.py   RecordSource — variable-length prompt/completion records with
                deterministic random access (cursor = one integer)
   packing.py   greedy segment-aware packer (tokens / loss_mask /
                segment_ids / positions), pure in the cursor
+  prefetch.py  background-thread batch build + upload, ``depth`` ahead (on
+               the card through pinned memory on a copy stream)
 
 ``SFTPipeline`` ties them together behind the iterator seam the Trainer
 consumes: ``batches()`` yields ``(host_batch, cursor_after)`` pairs computed
-from a LOCAL copy of the cursor, so iterating never mutates pipeline state.
-The trainer commits consumption back via ``restore_cursor`` with the cursor
-of the last batch it actually used.
+from a LOCAL copy of the cursor, so iterating (and the prefetcher running
+it ahead) never mutates pipeline state. The trainer commits consumption
+back via ``restore_cursor`` with the cursor of the last batch it actually
+used.
 
 Legacy ``batch_at(step)`` sources keep working: the trainer wraps them in
 ``StepIndexedAdapter`` (cursor IS the step counter, as before).
@@ -21,13 +23,15 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 from repro_torch.data.pipeline import packing, records
+from repro_torch.data.pipeline.prefetch import Prefetcher
 from repro_torch.data.pipeline.records import (JsonlSftRecords, Record,
                                                RecordSource,
                                                SyntheticMathRecords)
 
 __all__ = [
-    "JsonlSftRecords", "Record", "RecordSource", "SFTPipeline",
-    "StepIndexedAdapter", "SyntheticMathRecords", "packing", "records",
+    "JsonlSftRecords", "Prefetcher", "Record", "RecordSource",
+    "SFTPipeline", "StepIndexedAdapter", "SyntheticMathRecords", "packing",
+    "records",
 ]
 
 

@@ -12,12 +12,15 @@ then shares row 0's first half so hits are observable), ``--preempt``
 (``prefix_aware`` admits queued requests early when their cached prefix
 pages sit at the LRU eviction frontier) and ``--persist-prefix`` (a
 ``PrefixStore`` keeps the radix tree across engine instances, so the timed
-pass prefills suffix-only). ``--trace`` and ``--metrics-json`` raise until
-the observability port (ROADMAP Queue A item 10); ``--fn-cache-limit`` has
-no counterpart (eager PyTorch compiles nothing). Reports the first
-(warmup) pass — which builds the kernels — and the steady-state tok/s of a
-second pass separately, then the engine's ``stats``, the page-pool stats
-and the kernels' launch counts of the timed pass.
+pass prefills suffix-only). ``--trace t.json`` writes a Chrome trace-event
+file (ui.perfetto.dev) with the admission, prefill and decode spans and one
+lane a request with its ``ttft`` and ``e2e``; ``--metrics-json m.json``
+the obs registry's snapshot (``python -m repro_torch.launch.inspect
+m.json`` renders it). ``--fn-cache-limit`` has no counterpart (eager
+PyTorch compiles nothing). Reports the first (warmup) pass — which builds
+the kernels — and the steady-state tok/s of a second pass separately,
+then the engine's ``stats_snapshot()`` and the kernels' launch counts of
+the timed pass.
 """
 from __future__ import annotations
 
@@ -64,16 +67,19 @@ def main(argv=None):
                          "prefills suffix-only)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace", default="",
-                    help="not ported yet (ROADMAP Queue A item 10)")
+                    help="export a Chrome trace-event JSON (ui.perfetto.dev)"
+                         " with admission/prefill/decode spans and "
+                         "per-request ttft/e2e lanes")
     ap.add_argument("--metrics-json", default="",
-                    help="not ported yet (ROADMAP Queue A item 10)")
+                    help="write the obs registry snapshot to this path")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the plain PyTorch path)")
     args = ap.parse_args(argv)
-    if args.trace or args.metrics_json:
-        raise NotImplementedError(
-            "--trace/--metrics-json are not ported yet (ROADMAP Queue A "
-            "item 10, 'Observability')")
+
+    from repro_torch import obs
+    obs_on = bool(args.trace or args.metrics_json)
+    if obs_on:
+        obs.enable(selection=False)
 
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.device import resolve_device
@@ -147,9 +153,19 @@ def main(argv=None):
               f"({dt / max(dt2, 1e-9):.2f}x 1st wave)")
     if store is not None:
         print(f"  prefix store: {store.stats['adoptions']} adoptions")
-    print("engine stats:", json.dumps(engine.stats))
-    print("page pool:", json.dumps(engine.page_pool_stats()))
+    # one consolidated dump of every stat surface (serve/engine.py)
+    print("engine stats_snapshot:")
+    print(json.dumps(engine.stats_snapshot(), indent=2))
     print("kernel launches (timed pass):", json.dumps(launches))
+    if args.trace:
+        obs.export_trace(args.trace)
+        print(f"trace written to {args.trace} (open in ui.perfetto.dev)")
+    if args.metrics_json:
+        with open(args.metrics_json, "w") as f:
+            json.dump(obs.snapshot(), f, indent=2)
+        print(f"metrics snapshot written to {args.metrics_json}")
+    if obs_on:
+        obs.disable()
     print("first row:", out[0][:24])
     return 0
 

@@ -27,11 +27,25 @@ per-segment positions (attention through the segment-masked flash
 kernels); ``--data jsonl_sft --data-path c.jsonl`` reads
 ``{"prompt", "completion"}`` lines instead, packed under ``--pack``.
 ``--data packed_math`` names the synthetic records explicitly (one record
-a row without ``--pack``). The run prints tokens/s beside the non-pad
-tokens and the records a step.
+a row without ``--pack``). ``--data jsonl --data-path d.jsonl`` is the
+legacy source: ``{"text"}`` documents byte-tokenized into a ring of
+fixed-length rows. ``--prefetch-depth N`` builds and uploads N batches
+ahead on a background thread (on the card through pinned memory on a copy
+stream); the trajectory is the same bit for bit. The run prints tokens/s
+beside the non-pad tokens and the records a step.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-0.5b \
-      --pack --steps 10 --seq-len 512 --global-batch 8
+      --pack --prefetch-depth 2 --steps 10 --seq-len 512 --global-batch 8
+
+Observability (``repro_torch.obs``): ``--trace t.json`` writes a Chrome
+trace-event file (ui.perfetto.dev) of the run's spans — ``train_step``,
+``log_sync``, the banked step's ``phase_a``/``swap``/``phase_b``, the swap
+planner's dispatches on a lane of their own, the ``data-prefetch``
+thread's name; ``--metrics-json m.json`` the registry's snapshot with the
+selection telemetry, which ``python -m repro_torch.launch.inspect m.json``
+renders; ``--report`` prints the selection heatmap. Each enables obs, which
+reads each step's mask and block norms back (one host sync a step); the
+trajectory stays bit-identical.
 
 Checkpoints: ``--checkpoint-dir DIR --checkpoint-every N`` saves the
 TrainState every N steps (the data cursor in ``meta.json``); run the same
@@ -48,9 +62,8 @@ bf16 moments have no flag (the reference's launcher has none):
 
 Flags of the reference whose feature is not ported raise
 ``NotImplementedError`` naming its ROADMAP Queue A item: ``--method lora``
-(4), ``--data jsonl`` and ``--prefetch-depth`` (8),
-``--trace``/``--metrics-json``/``--report`` (10), ``--mesh``, ``--offload
-zero1`` and ``--offload`` under ``--moment-residency device`` (11).
+(4), ``--mesh``, ``--offload zero1`` and ``--offload`` under
+``--moment-residency device`` (11).
 ``--eval-every`` raises as well: the reference trainer has no eval hook;
 evaluate after training with ``repro_torch.train.evaluate.math_accuracy``.
 """
@@ -83,18 +96,21 @@ def main(argv=None):
     ap.add_argument("--data", default="synthetic_math",
                     choices=["synthetic_math", "packed_math", "jsonl",
                              "jsonl_sft"],
-                    help="synthetic_math: pure-f(step) source; packed_math "
-                         "/ jsonl_sft: streaming pipeline over synthetic "
-                         "records / {'prompt','completion'} lines (packed "
-                         "under --pack)")
+                    help="synthetic_math / jsonl: pure-f(step) sources "
+                         "(jsonl: {'text'} documents ring-packed); "
+                         "packed_math / jsonl_sft: streaming pipeline over "
+                         "synthetic records / {'prompt','completion'} "
+                         "lines (packed under --pack)")
     ap.add_argument("--data-path", default="",
-                    help="corpus path for --data jsonl_sft")
+                    help="corpus path for --data jsonl / jsonl_sft")
     ap.add_argument("--pack", action="store_true",
                     help="segment-aware sequence packing (jsonl_sft, or "
                          "synthetic_math via its record form): multiple "
                          "examples per row with block-diagonal attention "
                          "+ per-segment positions")
-    ap.add_argument("--prefetch-depth", type=int, default=0)
+    ap.add_argument("--prefetch-depth", type=int, default=0,
+                    help="batches built and uploaded ahead on a background "
+                         "thread (0 = synchronous)")
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--offload", default="none",
                     choices=["none", "host", "zero1"])
@@ -108,25 +124,37 @@ def main(argv=None):
     ap.add_argument("--eval-every", type=int, default=0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="")
-    ap.add_argument("--trace", default="")
-    ap.add_argument("--metrics-json", default="")
-    ap.add_argument("--report", action="store_true")
+    ap.add_argument("--trace", default="",
+                    help="export a Chrome trace-event JSON of the run "
+                         "(ui.perfetto.dev): train_step spans, banked "
+                         "phase_a/swap/phase_b, the swap dispatches on "
+                         "their own lane. Enables obs (one host read a "
+                         "step; the trajectory stays bit-identical)")
+    ap.add_argument("--metrics-json", default="",
+                    help="write the obs registry snapshot (counters, "
+                         "gauges, histogram summaries, selection "
+                         "telemetry) to this path; render it with "
+                         "repro_torch.launch.inspect")
+    ap.add_argument("--report", action="store_true",
+                    help="print the selection-frequency heatmap "
+                         "(exploration->exploitation view) after training")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the plain PyTorch path)")
     args = ap.parse_args(argv)
 
-    if args.trace or args.metrics_json or args.report:
-        raise NotImplementedError(
-            "--trace/--metrics-json/--report are not ported yet (ROADMAP "
-            "Queue A item 10, 'Observability')")
     if args.mesh:
         raise NotImplementedError(
             "--mesh is not ported yet (ROADMAP Queue A item 11, "
             "'Distributed')")
-    if args.data == "jsonl" or args.prefetch_depth:
-        raise NotImplementedError(
-            "--data jsonl (the legacy ring source) and --prefetch-depth are "
-            "not ported yet (ROADMAP Queue A item 8, 'Packed SFT pipeline')")
+    if args.pack and args.data == "jsonl":
+        raise SystemExit("--pack needs example boundaries; use --data "
+                         "jsonl_sft ({'prompt','completion'} lines) — "
+                         "plain jsonl documents are ring-packed already")
+
+    from repro_torch import obs
+    obs_on = bool(args.trace or args.metrics_json or args.report)
+    if obs_on:
+        obs.enable()
 
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.configs.base import (OptimizerConfig, SelectConfig,
@@ -164,7 +192,8 @@ def main(argv=None):
             kind, seq_len=args.seq_len, global_batch=args.global_batch,
             seed=args.seed, path=args.data_path, pack=args.pack)
 
-    trainer = Trainer(tcfg, data_source=data_source, device=dev)
+    trainer = Trainer(tcfg, data_source=data_source,
+                      prefetch_depth=args.prefetch_depth, device=dev)
     report = trainer.method.trainable_param_report(mcfg, trainer.state)
     where = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
              else "cpu (plain PyTorch path)")
@@ -212,6 +241,18 @@ def main(argv=None):
         with open(args.out, "w") as f:
             json.dump({"losses": log.losses, "step_times": log.step_times,
                        "metrics": log.metrics}, f)
+    if args.trace:
+        obs.export_trace(args.trace)
+        print(f"trace written to {args.trace} (open in ui.perfetto.dev)")
+    if args.metrics_json:
+        with open(args.metrics_json, "w") as f:
+            json.dump(obs.snapshot(), f, indent=2)
+        print(f"metrics snapshot written to {args.metrics_json}")
+    if args.report:
+        from repro_torch.obs import report as obs_report
+        print(obs_report.render_selection_trace(obs.selection_trace()))
+    if obs_on:
+        obs.disable()
     return 0
 
 

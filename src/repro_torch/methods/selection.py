@@ -51,10 +51,10 @@ dense residency (ROADMAP Queue A item 11), and ``lora`` (item 4).
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import (ModelConfig, OptimizerConfig,
                                       SelectConfig, TrainConfig)
 from repro_torch.core import adagradselect, masked_adamw, offload
@@ -210,33 +210,33 @@ class SelectionMethod:
             return mask, host[lead:lead + cap], host[lead + cap:]
 
         def step_fn(state, batch):
-            t0 = time.perf_counter()
-            if preselect is None:
-                grads, mask, sel_state, loss, metrics, gnorm, block_norms = \
-                    forward_select(state["params"], state["sel"], batch)
-                _, idx, pred = read_ids(sel_state)
-            else:
-                pre_mask, sel_state = preselect(state["sel"])
-                host_mask, idx, pred = read_ids(sel_state, pre_mask)
-                grads, mask, sel_state, loss, metrics, gnorm, block_norms = \
-                    forward_select(state["params"], sel_state, batch,
-                                   pre_mask=pre_mask, host_mask=host_mask)
-            t1 = time.perf_counter()
+            # each phase timed once: the SwapStats histograms and, while
+            # tracing, a span of the same measurement
+            with obs.timed(stats.phase_a, "phase_a"):
+                if preselect is None:
+                    (grads, mask, sel_state, loss, metrics, gnorm,
+                     block_norms) = forward_select(state["params"],
+                                                   state["sel"], batch)
+                    _, idx, pred = read_ids(sel_state)
+                else:
+                    pre_mask, sel_state = preselect(state["sel"])
+                    host_mask, idx, pred = read_ids(sel_state, pre_mask)
+                    (grads, mask, sel_state, loss, metrics, gnorm,
+                     block_norms) = forward_select(
+                        state["params"], sel_state, batch,
+                        pre_mask=pre_mask, host_mask=host_mask)
             opt = state["opt"]
-            slot_map = planner.resolve(idx, opt["banks"], opt["store"],
-                                       opt["slot_map"])
-            t2 = time.perf_counter()
-            lr = learning_rate(opt_cfg, state["step"])
-            masked_adamw.banked_update(
-                opt_cfg, partition, state["params"], grads, opt["banks"],
-                opt["counts"], mask, lr)
-            # phase B is queued: queue the predicted next boundary behind it
-            planner.dispatch(pred, opt["banks"], opt["store"], slot_map)
-            t3 = time.perf_counter()
+            with obs.timed(stats.swap, "swap"):
+                slot_map = planner.resolve(idx, opt["banks"], opt["store"],
+                                           opt["slot_map"])
+            with obs.timed(stats.phase_b, "phase_b"):
+                lr = learning_rate(opt_cfg, state["step"])
+                masked_adamw.banked_update(
+                    opt_cfg, partition, state["params"], grads,
+                    opt["banks"], opt["counts"], mask, lr)
+                # phase B is queued: queue the predicted next boundary
+                planner.dispatch(pred, opt["banks"], opt["store"], slot_map)
             stats.steps += 1
-            stats.phase_a_us += (t1 - t0) * 1e6
-            stats.swap_us += (t2 - t1) * 1e6
-            stats.phase_b_us += (t3 - t2) * 1e6
             new_state = {"params": state["params"],
                          "opt": {**opt, "slot_map": slot_map},
                          "sel": sel_state, "step": state["step"] + 1}

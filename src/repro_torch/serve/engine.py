@@ -85,20 +85,35 @@ dispatches), ``decode_steps`` (emitted decode positions, including a
 terminal EOS — not ``chunks * decode_chunk``), ``prefills`` /
 ``prefill_chunks`` / ``prefill_tokens``, ``admitted`` / ``completed``,
 ``backpressure`` / ``preempted`` and ``prefix_hits`` /
-``prefix_pages_shared``. Not ported yet (ROADMAP Queue A item 10,
-'Observability'): the reference's obs latency histograms (queue wait,
-TTFT, TPOT, e2e), its page-pool and fn-cache gauges, its spans and
-``stats_snapshot()``. The reference's LRU of compiled closures has no
+``prefix_pages_shared``. The reference's LRU of compiled closures has no
 counterpart: eager PyTorch compiles nothing. A mesh raises in
-``ServeConfig`` (item 11).
+``ServeConfig`` (ROADMAP Queue A item 11).
+
+Observability, as the reference's (``repro_torch.obs``): per-request
+host-clock stamps at submit, admission, first token and completion, kept
+across preemption (a preempted request's queue wait and TTFT are those of
+its first admission; its e2e spans its whole life), feed four per-engine
+histograms registered under subsystem ``serve`` (last engine wins):
+``queue_wait_us``, ``ttft_us``, ``tpot_us`` (time a token after the first)
+and ``e2e_us``; the gauge ``page_pool_live`` and ``engine`` (``stats``)
+are registered there too. While tracing, each step emits the
+``prefill_chunk``, ``admission`` and ``decode_chunk`` spans and each
+completed request a lane of its own with its retroactive ``e2e`` and
+``ttft`` complete events. ``stats_snapshot()`` gathers every stat surface
+in one dict: ``engine``, ``latency_us``, ``pages``, ``scheduler``,
+``prefix_cache`` and ``stream_out`` (the reference's keys but
+``fn_cache``). None of it reads a device value: obs adds no host sync and
+no launch.
 """
 from __future__ import annotations
 
+import time
 import warnings
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
@@ -276,6 +291,27 @@ class ServeEngine:
                       "backpressure": 0, "preempted": 0, "prefix_hits": 0,
                       "prefix_pages_shared": 0, "prefill_tokens": 0}
 
+        # per-request host-clock latency (always on: perf_counter stamps and
+        # bounded histograms, no device reads), keyed by uid; the stamps
+        # survive preemption so TTFT and e2e span the request's real life
+        self._req_ns: dict[int, dict] = {}
+        # per-ENGINE histograms (stats_snapshot() reports this instance),
+        # registered last-engine-wins into the global registry
+        self._h_queue_wait = obs.Histogram()
+        self._h_ttft = obs.Histogram()
+        self._h_tpot = obs.Histogram()
+        self._h_e2e = obs.Histogram()
+        for nm, h in (("queue_wait_us", self._h_queue_wait),
+                      ("ttft_us", self._h_ttft), ("tpot_us", self._h_tpot),
+                      ("e2e_us", self._h_e2e)):
+            obs.metrics.register(nm, h, subsystem="serve")
+        self._g_pages = obs.metrics.gauge("page_pool_live", subsystem="serve")
+        # the stats dict alone, not the engine: the registry must not keep
+        # a finished engine's KV cache alive
+        stats = self.stats
+        obs.metrics.register("engine", lambda: dict(stats),
+                             subsystem="serve")
+
     # ----------------------------------------------------------- lifecycle
 
     def submit(self, req: Request) -> None:
@@ -303,6 +339,9 @@ class ServeEngine:
                     f"({need} positions / page_size {self.page_size}) but "
                     f"the pool has {self._alloc.num_pages}; grow num_pages "
                     f"— waiting cannot free enough")
+        # the first submit stamps the latency clock; a preempted request
+        # re-entering the queue keeps its original stamps
+        self._req_ns.setdefault(req.uid, {"submit": time.perf_counter_ns()})
         self.scheduler.submit(req)
 
     def _free_slots(self) -> list[int]:
@@ -354,6 +393,38 @@ class ServeEngine:
         """Allocator stats for the paged layout (None for dense)."""
         return self._alloc.stats() if self._alloc is not None else None
 
+    def stats_snapshot(self) -> dict:
+        """One nested dict of every serving stat surface (the reference's
+        keys but ``fn_cache``, which has no counterpart here):
+
+        - ``engine``: the per-engine counter dict (``self.stats``)
+        - ``latency_us``: queue-wait / TTFT / time-per-output-token / e2e
+          histogram summaries (count, mean, p50/p95/p99)
+        - ``pages``: ``PageAllocator.stats()`` (None for the dense layout)
+        - ``scheduler``: queue depth and the admission policy's counters
+        - ``prefix_cache``: radix-tree occupancy (None when disabled)
+        - ``stream_out``: the stream-out queue's depth (None when off)
+        """
+        return {
+            "engine": dict(self.stats),
+            "latency_us": {"queue_wait": self._h_queue_wait.summary(),
+                           "ttft": self._h_ttft.summary(),
+                           "tpot": self._h_tpot.summary(),
+                           "e2e": self._h_e2e.summary()},
+            "pages": self.page_pool_stats(),
+            "scheduler": {
+                "pending": int(self.scheduler.pending),
+                "admission": (dict(self.admission_policy.stats)
+                              if self.admission_policy is not None
+                              else None),
+            },
+            "prefix_cache": ({"pages": len(self._prefix),
+                              "capacity_pages": self._prefix.capacity}
+                             if self._prefix is not None else None),
+            "stream_out": ({"pending": self._stream.pending}
+                           if self._stream is not None else None),
+        }
+
     def _insert_prefix_pages(self, slot: int, tokens, covered: int) -> None:
         """Insert ``slot``'s pages for the fully-written full-page prefix of
         ``tokens`` (``covered`` positions hold valid KV) into the radix
@@ -381,6 +452,23 @@ class ServeEngine:
             done_step=int(self.clock),
             prefix_pages=int(meta.get("prefix_pages", 0)))
         completed.append(comp)
+        rt = self._req_ns.pop(req.uid, None)
+        if rt is not None:
+            now_ns = time.perf_counter_ns()
+            self._h_e2e.record((now_ns - rt["submit"]) / 1e3)
+            first = rt.get("first", now_ns)
+            self._h_tpot.record((now_ns - first) / 1e3
+                                / max(1, len(toks) - 1))
+            tr = obs.tracer()
+            if tr is not None:
+                # retroactive per-request spans, one lane per uid: e2e
+                # (submit -> done) with the ttft head (submit -> first)
+                track = f"request {req.uid}"
+                tr.complete("e2e", rt["submit"], now_ns, track=track,
+                            args={"uid": req.uid, "tokens": len(toks),
+                                  "finish": comp.finish_reason})
+                tr.complete("ttft", rt["submit"], first, track=track,
+                            args={"uid": req.uid})
         if self._alloc is not None:
             if self._prefix is not None:
                 self._insert_prefix_pages(slot, req.tokens, req.prompt_len)
@@ -397,6 +485,7 @@ class ServeEngine:
     def _post_admit(self, group, slot_ids, tok0, completed) -> None:
         tok0 = np.asarray(tok0)[:len(group)]
         self.stats["admitted"] += len(group)
+        now_ns = time.perf_counter_ns()
         for req, slot, t in zip(group, slot_ids, tok0):
             self._slot_req[slot] = req
             self._no_preempt.add(slot)  # just admitted: no KV written yet
@@ -404,6 +493,14 @@ class ServeEngine:
             # keeps its original (its first token really was sampled then)
             self._meta.setdefault(req.uid, {"first_step": self.clock,
                                             "prefix_pages": 0})
+            # first admission also takes the first token, so it stamps both
+            # queue wait and TTFT (re-admission keeps the originals)
+            rt = self._req_ns.setdefault(req.uid, {"submit": now_ns})
+            if "first" not in rt:
+                rt["first"] = now_ns
+                admit = rt.setdefault("admit", now_ns)
+                self._h_queue_wait.record((admit - rt["submit"]) / 1e3)
+                self._h_ttft.record((now_ns - rt["submit"]) / 1e3)
             res = self._resume.pop(req.uid, None)
             if res is not None:
                 self._out[req.uid] = res["emitted"] + [int(t)]
@@ -743,6 +840,12 @@ class ServeEngine:
     # ---------------------------------------------------- chunked prefill
 
     def _start_job(self, group, slot_ids) -> None:
+        # chunked prefill: admission starts now, the first token lands when
+        # the job finalizes steps later: stamp queue wait's endpoint here
+        now_ns = time.perf_counter_ns()
+        for r in group:
+            self._req_ns.setdefault(r.uid, {"submit": now_ns}).setdefault(
+                "admit", now_ns)
         bucket, tokens, lengths, slots = self._bucket_batch(
             group, slot_ids, self.num_slots)
         scratch = lm.init_cache(self.cfg, self.num_slots, bucket,
@@ -886,10 +989,13 @@ class ServeEngine:
         completed: list[Completion] = []
         self._no_preempt.clear()  # last step's admits have their KV by now
         if self._job is not None:
-            self._job_step(completed)
-        self._admission(completed)
+            with obs.span("prefill_chunk"):
+                self._job_step(completed)
+        with obs.span("admission"):
+            self._admission(completed)
         if self.num_active:
-            toks = self._decode_chunk()
+            with obs.span("decode_chunk"):
+                toks = self._decode_chunk()
             self.stats["decode_chunks"] += 1
             emitted = 0
             for slot in range(self.num_slots):
@@ -905,6 +1011,8 @@ class ServeEngine:
                         self._complete(slot, completed)
                         break
             self.stats["decode_steps"] += emitted
+        if self._alloc is not None:
+            self._g_pages.set(self._alloc.stats()["live_pages"])
         self.clock += 1
         return completed
 

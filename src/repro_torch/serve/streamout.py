@@ -1,6 +1,7 @@
 """Background detokenize/stream-out queue for the serve engine (port of the
-JAX package's ``serve/streamout.py``; the reference's obs counter and span
-come with the observability port, ROADMAP Queue A item 10).
+JAX package's ``serve/streamout.py``, with its obs counter
+``streamed_completions`` under subsystem ``serve`` and its
+``streamout_callback`` span on the worker's track).
 
 Finished sequences are handed off to a daemon worker thread so
 ``ServeEngine.step()`` never blocks on host-side decode: the engine's hot
@@ -21,6 +22,8 @@ import threading
 
 import numpy as np
 
+from repro_torch import obs
+
 _STOP = object()
 
 
@@ -37,6 +40,9 @@ class StreamOut:
         self._q: queue.Queue = queue.Queue()
         self._results: dict[int, np.ndarray] = {}
         self._error: BaseException | None = None
+        # incremented from the worker thread — thread-safe by contract
+        self._c_streamed = obs.metrics.counter("streamed_completions",
+                                               subsystem="serve")
         self._thread = threading.Thread(
             target=self._worker, name="serve-streamout", daemon=True)
         self._thread.start()
@@ -56,9 +62,11 @@ class StreamOut:
             try:
                 if item is _STOP:
                     return
-                self._results[item.uid] = item.tokens
-                if self._callback is not None:
-                    self._callback(item)
+                with obs.span("streamout_callback"):
+                    self._results[item.uid] = item.tokens
+                    if self._callback is not None:
+                        self._callback(item)
+                self._c_streamed.inc()
             except BaseException as e:  # noqa: BLE001 — surfaced via drain()
                 if self._error is None:
                     self._error = e

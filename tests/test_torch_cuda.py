@@ -29,6 +29,9 @@ f64 evaluation. Three packed training steps make no host sync either.
 The RMSNorm backward's dx-only mode (a frozen layer's norm under gated
 weight gradients) gives the full mode's dx bits in one launch, and gated
 training steps launch each mode by the mask with one host sync a step.
+Prefetching (depth 2, the copy stream) adds no host sync to a training
+call, dense or banked, and obs adds one a step (its selection read); the
+copy stream's batches are bit-equal to the synchronous upload.
 Rows 2 and 2b are also held at llama3.2-1b's and phi4-mini's widths (D
 2048 and 3072) and at ``MAX_D``, without register spills, and refuse a
 wider row.
@@ -711,6 +714,83 @@ def test_banked_step_syncs_the_host_once(cuda_device, async_swap):
     syncs = [w for w in caught if "synchronizing" in str(w.message)]
     assert len(syncs) == 4, [str(w.message) for w in caught]
     assert tr.step_fn.swap_stats.steps == 5
+
+
+def _sync_count(fn) -> int:
+    """Synchronising CUDA calls that ``fn`` makes, from any thread, under
+    ``set_sync_debug_mode("warn")``."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return len([w for w in caught if "synchronizing" in str(w.message)])
+
+
+def _packed_trainer(residency, depth):
+    from repro_torch.configs.base import OptimizerConfig, TrainConfig
+    from repro_torch.data import loader
+    from repro_torch.train.trainer import Trainer
+    opt = (OptimizerConfig(moment_residency="banked", offload="host",
+                           async_swap=True)
+           if residency == "banked" else OptimizerConfig())
+    return Trainer(TrainConfig(model=_card_smoke(), seq_len=128,
+                               global_batch=2, steps=8, log_every=10 ** 6,
+                               optimizer=opt),
+                   data_source=loader.make_source("packed_math", seq_len=128,
+                                                  global_batch=2),
+                   prefetch_depth=depth, device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("residency", ["device", "banked"])
+def test_prefetch_and_obs_add_no_host_sync(cuda_device, residency):
+    """A 3-step ``train`` call (one log window) with prefetch 2 against 0,
+    obs off: the same host syncs (the window's boundary, and the banked
+    step's indices read a step) and the same losses. Obs on adds one sync
+    a step, the selection telemetry's read."""
+    from repro_torch import obs
+    syncs, losses = {}, {}
+    for depth, on in ((0, False), (2, False), (0, True)):
+        tr = _packed_trainer(residency, depth)
+        tr.train(1)     # first launches: builds and compiles the kernels
+        torch.cuda.synchronize()
+        if on:
+            obs.enable()
+        try:
+            syncs[depth, on] = _sync_count(lambda: tr.train(3))
+        finally:
+            obs.disable()
+        losses[depth, on] = tr.log.losses
+    assert syncs[2, False] == syncs[0, False], syncs
+    assert syncs[0, True] == syncs[0, False] + 3, syncs
+    if residency == "banked":
+        assert syncs[0, False] >= 3, syncs
+    assert losses[2, False] == losses[0, False] == losses[0, True]
+
+
+@pytest.mark.cuda
+def test_copy_stream_batches_equal_the_synchronous_upload(cuda_device):
+    """Batches placed by the prefetch worker on the copy stream, claimed
+    on the current stream, are bit-equal to the synchronous pinned upload
+    and live on the card."""
+    from repro_torch.data.pipeline import Prefetcher
+    from repro_torch.data.pipeline.prefetch import CopyStreamStager
+    tr = _packed_trainer("device", 2)
+    stager = CopyStreamStager(cuda_device)
+    want = [tr._device_batch(b) for b, _ in tr.data.batches(5)]
+    with Prefetcher(tr.data.batches(5), stager.place, depth=2) as pf:
+        got = [stager.claim(placed) for placed, _ in pf]
+    assert len(got) == len(want) == 5
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys()
+        for k in g:
+            assert g[k].device.type == "cuda" and g[k].dtype == w[k].dtype
+            assert torch.equal(g[k], w[k]), k
+    assert stager.stream != torch.cuda.current_stream()
 
 
 @pytest.mark.cuda

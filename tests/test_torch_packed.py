@@ -112,8 +112,15 @@ def test_pipeline_stream_matches_jax(pack, tmp_path):
     (b, c), = adapter.batches(1)
     assert c == {"step": 4}
     _equal_batches(b, src.batch_at(3))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        loader.make_source("jsonl", seq_len=48, global_batch=2)
+    # the legacy ring source builds and gives the reference's batches
+    path = tmp_path / "docs.jsonl"
+    path.write_text("".join(json.dumps({"text": f"doc {i} " * (i + 1)})
+                            + "\n" for i in range(6)))
+    kw = dict(seq_len=16, global_batch=2, path=str(path))
+    tj = loader.make_source("jsonl", **kw)
+    jj = jloader.make_source("jsonl", **kw)
+    for s in (0, 5):
+        _equal_batches(tj.batch_at(s), jj.batch_at(s))
 
 
 def _packed_np(seq_len=96, rows=2, cursor=0):

@@ -16,6 +16,7 @@ the draws follow ``softmax(logits / T)``. Stream-out, ``close()`` and the
 loose-kwargs shim behave as the reference's.
 """
 import dataclasses
+import json
 import warnings
 from collections import Counter
 
@@ -705,9 +706,10 @@ def test_features_are_served(model, feature):
     assert len(res[0]) == 3 and (res[0] < V).all()
 
 
-def test_serve_launcher_takes_the_stack_flags(capsys):
+def test_serve_launcher_takes_the_stack_flags(capsys, tmp_path):
     """The launcher's flags of the reference run on the CPU; ``--trace``
-    and ``--metrics-json`` name the observability item."""
+    and ``--metrics-json`` write a trace that validates and a snapshot
+    with the engine's latency histograms."""
     from repro_torch.launch import serve as launch_serve
     base = ["--arch", "qwen2.5-0.5b", "--smoke", "--device", "cpu",
             "--new-tokens", "6", "--prompt-len", "24"]
@@ -719,6 +721,12 @@ def test_serve_launcher_takes_the_stack_flags(capsys):
     assert "2nd wave" in out and "prefix store: 1 adoptions" in out
     assert launch_serve.main(base + ["--prefill-chunk", "8"]) == 0
     assert '"prefill_chunks": 4' in capsys.readouterr().out
-    for flag in ("--trace", "--metrics-json"):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            launch_serve.main(base + [flag, "x.json"])
+    from repro_torch import obs
+    trace, snap = tmp_path / "t.json", tmp_path / "m.json"
+    assert launch_serve.main(base + ["--trace", str(trace), "--metrics-json",
+                                     str(snap)]) == 0
+    assert not obs.enabled()
+    names = {e["name"] for e in obs.validate_trace_file(str(trace))}
+    assert {"admission", "decode_chunk", "e2e", "ttft"} <= names
+    doc = json.loads(snap.read_text())
+    assert doc["serve"]["e2e_us"]["count"] == 4

@@ -26,9 +26,9 @@ and then waits; each round then times one more serving run of each, in
 turn (ABBA order), so that neighbouring runs of two checkouts see the same
 host. At the end each measures the host time a call of
 ``ops.paged_decode_attention`` takes to enqueue. One JSON line a checkout
-(phase 4's tok/s, the rounds' tok/s and their median, that host time, and
-the wall time, device time, idle share and paged decode device time of the
-profiled run) and one of this checkout's tok/s over each OTHER's, round by
+(phase 4's tok/s and kernel launches, the rounds' tok/s and their median,
+that host time, and the wall time, device time, idle share and paged
+decode device time of the profiled run) and one of this checkout's tok/s over each OTHER's, round by
 round, follow. Needs one CUDA card; run it from the root of this checkout.
 """
 from __future__ import annotations
@@ -196,9 +196,12 @@ def _serve_summary(text: str) -> dict:
                                          r"tok/s", text, re.M)]
     host = re.search(r"^paged decode host time: least ([\d.]+) us, median "
                      r"([\d.]+) us", text, re.M)
+    launches = re.search(r"^  kernel launches in this run: (.*)$", text,
+                         re.M)
     return {"tok_s": float(run[1]) if run else None, "runs_tok_s": runs,
             "median_tok_s": sorted(runs)[len(runs) // 2] if runs else None,
             "host_us": [float(host[1]), float(host[2])] if host else None,
+            "launches": json.loads(launches[1]) if launches else None,
             "profile_wall_ms": float(prof[1]) if prof else None,
             "device_ms": float(prof[2]) if prof else None,
             "idle_share": float(prof[3]) if prof else None,
