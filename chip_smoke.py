@@ -242,10 +242,10 @@ Phases, each of which makes the run exit non-zero if it fails:
    equal ``state["opt"]["counts"]``, the exported trace validates with a
    ``train_step`` span a step (and the ``data-prefetch`` thread's track at
    prefetch 2), the metrics snapshot renders through ``launch.inspect``;
-   (d) the four runs' step times in ``OBS_ROUNDS`` alternating rounds of
-   ``OBS_STEPS``-step windows, their medians' ratios (obs on / off,
-   prefetch 2 / 0) beside the card's name and power limit (recorded, not
-   gated); 2 more steps under ``torch.profiler`` with
+   (d) the four runs' step times in ``OBS_ROUNDS`` round(s) of
+   ``OBS_STEPS``-step windows, the runs in turn, their medians' ratios
+   (obs on / off, prefetch 2 / 0) beside the card's name and power limit
+   (recorded, not gated); 2 more steps under ``torch.profiler`` with
    ``obs.enable(torch_profiler=True)``: 2 ``train_step`` ranges; (b) phase
    10's async banked run with obs on: the ``phase_a``, ``swap`` and
    ``phase_b`` histograms count the steps, the ``swap_dispatch_job`` spans
@@ -254,7 +254,21 @@ Phases, each of which makes the run exit non-zero if it fails:
    on: the same tokens and launches, each latency histogram counts 8,
    ``ttft`` <= ``e2e`` in every request's lane, ``page_pool_live`` 0 at
    the end, ``stats_snapshot()["engine"]`` equal to ``stats``. The files go
-   under ``build/`` and are removed.
+   under ``build/`` and are removed;
+32. the paper's LoRA baseline (``Trainer(method="lora")``): (a) rank 256
+   (alpha 16, the config's default) on qwen2.5-0.5b at full width, bf16,
+   phase 7's settings otherwise (8 x 512 tokens, 10 steps): the report's
+   trainable parameters equal to those reckoned from the config
+   (142,344,192) and its optimizer bytes (f32 m and v, the count), finite
+   losses, every adapter's b moved, the count at 10, launches per step
+   equal to the path's (the RMSNorm forward, its backward all in the
+   dx-only mode, the flash kernels; no block norm, no masked AdamW), the
+   median step, tokens/s, peak device memory and 2 profiled steps, beside
+   phase 7's adagradselect and phase 18's full medians and their ratios
+   (records, not claims); (b) in f32 (TF32 off) at full width with 2
+   layers, batch 2 x 64, 3 steps on the card and on the CPU from one
+   state: losses within 1e-4 relative, each adapter leaf's update within
+   ``UPDATE_GAP`` of the CPU's (relative L2), the base unchanged.
 
 Then it prints the kernel summary as one JSON line and, last, the device
 line ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
@@ -328,6 +342,9 @@ NORM_MAIN = (4096, 3072)   # the summary line's rows 2 and 2b (phi4-mini)
 NORM_DX_MAIN = (4096, 896)  # 2b's dx-only mode: its path is qwen2.5-0.5b's
 # rows 7 and 8 on the new models' largest stacked leaves (mlp.wg)
 WIDE_LEAVES = {"llama wg": (16, 2048 * 8192), "phi4 wg": (32, 3072 * 8192)}
+# phase 32: the paper's LoRA baseline, rank 256, alpha the config's default
+LORA_RANK = 256
+LORA_STEPS = 3        # phase 32(b): f32 card-vs-CPU steps
 
 
 class PhaseFailed(RuntimeError):
@@ -1646,7 +1663,7 @@ def phase_banked_training(torch, ops, cfg, Trainer, dense) -> dict:
     return out["async"]
 
 
-def _timing_rounds(torch, cfg, Trainer, rounds=3) -> None:
+def _timing_rounds(torch, cfg, Trainer, rounds=2) -> None:
     """Step time of dense, banked async and banked sync in the same mode
     (8-step windows, one sync at the window's end; the banked step adds
     its indices read), in alternating rounds so that drift of the shared
@@ -2999,7 +3016,7 @@ CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
 # dense f32 also runs its second straight run with a save every
 # ``SAVE_EVERY`` steps: the loop's cost of saves closer together than the
 # writer takes, against the first run without
-SAVE_EVERY_CASE, SAVE_EVERY = "dense f32", 2
+SAVE_EVERY_CASE, SAVE_EVERY = "dense f32", 3
 CKPT_CASES = {"dense f32": {},
               "banked host f32": dict(moment_residency="banked",
                                       offload="host", async_swap=True),
@@ -3508,7 +3525,7 @@ def _stack_exact(torch, lm, cfg, serve, num_pages) -> None:
 
 OBS_DIR = ROOT / "build" / "chip_smoke_obs"
 OBS_STEPS = 6          # phase 31: steps of each run
-OBS_ROUNDS = 2         # phase 31(d): alternating rounds of OBS_STEPS windows
+OBS_ROUNDS = 1         # phase 31(d): rounds of OBS_STEPS windows, runs in turn
 # phase 31's four training runs: (obs on, prefetch depth)
 OBS_RUNS = ((False, 0), (True, 0), (False, 2), (True, 2))
 
@@ -3557,7 +3574,8 @@ def _obs_export(obs, name: str) -> str:
 
 def _obs_training(torch, ops, cfg, Trainer, loader, obs, inspect) -> dict:
     """Phase 31(a) and (d): the four runs bit for bit, then step times in
-    alternating rounds, then a torch.profiler capture with the bridge."""
+    ``OBS_ROUNDS`` round(s) of the runs in turn, then a torch.profiler
+    capture with the bridge."""
     import contextlib
     import io
     import threading
@@ -3627,8 +3645,8 @@ def _obs_training(torch, ops, cfg, Trainer, loader, obs, inspect) -> dict:
               "obs on / off, prefetch 2": med[(True, 2)] / med[(False, 2)],
               "prefetch 2 / 0, obs off": med[(False, 2)] / med[(False, 0)],
               "prefetch 2 / 0, obs on": med[(True, 2)] / med[(True, 0)]}
-    print(f"  (d) step time (ms) in {OBS_ROUNDS} alternating rounds of "
-          f"{OBS_STEPS}-step windows: " + "; ".join(
+    print(f"  (d) step time (ms) in {OBS_ROUNDS} round(s) of "
+          f"{OBS_STEPS}-step windows, the runs in turn: " + "; ".join(
               f"{_obs_label(run)} {[round(t, 2) for t in ts]} (median "
               f"{med[run]:.2f})" for run, ts in times.items()))
     print(f"  (d) ratios of the medians: " + ", ".join(
@@ -3772,6 +3790,162 @@ def phase_observability(torch, ops, lm, cfg, Trainer, loader, serve, obs,
     return out
 
 
+# ------------------------------------------------------- the LoRA baseline
+
+
+def _lora_launches(nl: int) -> dict:
+    """Kernel launches of one LoRA step of nl layers: the forward's norms
+    and, under ``remat="full"``, each layer's two again; the backward's
+    norms all in the dx-only mode (every scale is frozen), but for the first
+    layer's first norm, whose input (the frozen embedding's rows) needs no
+    gradient; the flash kernels; no selection kernel."""
+    want = _train_launches(nl, leaves=0)
+    want.update(rmsnorm_bwd=0, rmsnorm_bwd_dx=2 * nl)
+    return want
+
+
+# phase 32: the adapters of ARCH (qwen2.5-0.5b) at LORA_RANK (256), (1920 +
+# 1024 + 1024 + 1920 + 3 * 5760) * 256 a layer over 24 layers, as the
+# reference's ``init_lora`` gives them (tests/test_torch_lora.py traces it)
+LORA_TRAINABLE = 142_344_192
+
+
+def _lora_trainable(cfg, rank: int) -> int:
+    """The adapters' parameters, reckoned from the config's leaf shapes."""
+    from repro_torch.optim.lora import adapter_layout
+    return sum(math.prod(a) + math.prod(b)
+               for a, b, _ in adapter_layout(cfg, rank).values())
+
+
+def _lora_run(torch, ops, cfg, Trainer, training, full_ms) -> dict:
+    """Phase 32(a): the bf16 LoRA r256 run at full width, phase 7's
+    settings otherwise."""
+    warm, steps = TRAIN["warmup"], TRAIN["steps"]
+    gb, sl = TRAIN["global_batch"], TRAIN["seq_len"]
+    tcfg = _train_cfg(cfg, "lora", steps, gb, sl, lora_rank=LORA_RANK)
+    t0 = time.perf_counter()
+    tr = Trainer(tcfg, device="cuda")
+    torch.cuda.synchronize()
+    rep = tr.method.trainable_param_report(cfg, tr.state)
+    n = _lora_trainable(cfg, LORA_RANK)
+    check(n == LORA_TRAINABLE,
+          f"{cfg.name} r{LORA_RANK}: {n:,} adapter parameters reckoned from "
+          f"the config, the reference's count is {LORA_TRAINABLE:,}")
+    print(f"LoRA r{LORA_RANK} (alpha {tcfg.optimizer.lora_alpha:g}) on "
+          f"{cfg.name} ({cfg.num_layers} layers, {cfg.dtype}), batch {gb} x "
+          f"{sl} tokens, {steps} steps; init "
+          f"{time.perf_counter() - t0:.2f} s")
+    check(rep.num_params_trainable == n,
+          f"trainable {rep.num_params_trainable:,} != {n:,} reckoned from "
+          f"the config")
+    check(rep.opt_bytes == 8 * n and rep.opt_bytes_resident == 8 * n + 4,
+          f"optimizer bytes: modelled {rep.opt_bytes:,}, resident "
+          f"{rep.opt_bytes_resident:,}; want {8 * n:,} and {8 * n + 4:,} "
+          f"(f32 m and v, the count)")
+    print(f"  report: trainable {rep.num_params_trainable:,} of "
+          f"{rep.num_params_total:,} ({rep.trainable_fraction:.2%}; "
+          f"reckoned {n:,}), optimizer bytes modelled {rep.opt_bytes:,}, "
+          f"resident {rep.opt_bytes_resident:,}; {rep.detail}")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()                     # the main path's run
+    for _ in range(steps):
+        tr.train(1)
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    log = tr.log
+    check(len(log.losses) == steps and all(math.isfinite(x)
+                                           for x in log.losses),
+          f"losses {log.losses}")
+    check(tr.state["opt"]["count"].item() == steps,
+          f"AdamW count {tr.state['opt']['count'].item()} after {steps} "
+          f"steps")
+    check(all(ab["b"].any().item() for ab in tr.state["lora"].values()),
+          "an adapter's b did not move")
+    per_step = {name: c / steps for name, c in launches.items()}
+    want = _lora_launches(cfg.num_layers)
+    check(per_step == want, f"launches per step {per_step} != the LoRA "
+          f"path's {want}")
+    med = statistics.median(log.step_times[warm:])
+    tokens = gb * sl
+    print(f"  losses: {[round(x, 4) for x in log.losses]}")
+    print(f"  step time (median of steps {warm}..{steps - 1}): "
+          f"{med * 1e3:.2f} ms = {tokens / med:.0f} tokens/s; all steps "
+          f"(ms): {[round(t * 1e3, 2) for t in log.step_times]}")
+    print(f"  peak device memory: {peak / 2**30:.2f} GiB (adagradselect, "
+          f"phase 7: {training['peak'] / 2**30:.2f} GiB)")
+    print(f"  launches per step: {json.dumps(per_step)}")
+    prof = _profile_training(torch, tr)
+    print(f"  beside this call's others (records, not claims: windows "
+          f"spread 10-20%; {card_line()}): adagradselect median (phase 7) "
+          f"{training['step_ms']:.2f} ms, full (phase 18, 8-step windows) "
+          f"{full_ms:.2f} ms; lora / adagradselect "
+          f"{med * 1e3 / training['step_ms']:.3f}, lora / full "
+          f"{med * 1e3 / full_ms:.3f}; peak lora / adagradselect "
+          f"{peak / training['peak']:.3f}")
+    del tr
+    return {"launches": launches, "step_ms": med * 1e3, "peak": peak,
+            "tokens_s": tokens / med, "profile": prof}
+
+
+def _lora_consistency(torch, ops, cfg, Trainer) -> None:
+    """Phase 32(b): ``LORA_STEPS`` f32 LoRA r256 steps (TF32 off) at full
+    width with 2 layers, batch 2 x 64, on the card and on the CPU from one
+    state: losses within 1e-4 relative, each adapter leaf's update within
+    ``UPDATE_GAP`` of the CPU's (relative L2), as phase 8 holds them."""
+    lr, steps = 1e-3, LORA_STEPS
+    cfg = cfg.replace(dtype="float32", num_layers=2)
+    tcfg = _train_cfg(cfg, "lora", steps, 2, 64, lr=lr, schedule="constant",
+                      warmup_steps=0, lora_rank=LORA_RANK)
+    card = Trainer(tcfg, device="cuda")
+    cpu = Trainer(tcfg, device="cpu")
+    cpu.state = _to(card.state, "cpu")
+    a0 = [t.clone() for t in _leaves(cpu.state["lora"])]
+    ops.reset_launches()
+    for i in range(steps):
+        card.train(1)
+        cpu.train(1)
+        lc, lh = card.log.losses[-1], cpu.log.losses[-1]
+        check(abs(lc - lh) <= 1e-4 * abs(lh),
+              f"step {i}: loss card {lc} vs cpu {lh}")
+    launches = dict(ops.LAUNCHES)
+    check(all(launches[n] > 0 for n in ("rmsnorm", "rmsnorm_bwd_dx",
+                                        *_flash_per_step(1))),
+          f"a kernel of the LoRA path did not run on the card: {launches}")
+    worst = max((a.cpu() - b).abs().max().item() for a, b in zip(
+        _leaves(card.state["lora"]), _leaves(cpu.state["lora"])))
+    gap = _update_gap(torch, card.state["lora"], cpu.state["lora"], a0,
+                      UPDATE_GAP)
+    for a, b in zip(_leaves(card.state["base"]), _leaves(cpu.state["base"])):
+        check(torch.equal(a.cpu(), b), "a base leaf changed")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card.log.losses,
+                                                   cpu.log.losses))
+    print(f"LoRA consistency {cfg.name} (f32, TF32 off, r{LORA_RANK}, "
+          f"{cfg.num_layers} layers at full width, batch 2 x 64, {steps} "
+          f"steps, card vs CPU): losses "
+          f"{[round(x, 6) for x in card.log.losses]}, max rel err {rel:.2e} "
+          f"(limit 1e-4); adapters max |err| {worst:.3g} (a record); "
+          f"each adapter leaf's update within {gap:.3g} of the CPU's "
+          f"(relative L2, limit {UPDATE_GAP:g}); the base unchanged; card "
+          f"launches {json.dumps(launches)}")
+    del card, cpu
+
+
+def phase_lora(torch, ops, cfg, Trainer, training, full_ms) -> dict:
+    """Phase 32: the paper's LoRA baseline at full width, then in f32 card
+    against the CPU."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = _lora_run(torch, ops, cfg, Trainer, training, full_ms)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    _lora_consistency(torch, ops, cfg, Trainer)
+    print(f"  phase 32: {time.perf_counter() - t0:.1f} s ((a) "
+          f"{t1 - t0:.1f} s)")
+    return out
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -3862,7 +4036,7 @@ def main() -> int:
         gated = phase_gated_training(torch, ops, cfg, Trainer, training,
                                      banked)
         phase.start("gated rounds")
-        phase_gated_rounds(torch, ops, cfg, Trainer)
+        rounds = phase_gated_rounds(torch, ops, cfg, Trainer)
         phase.start("gated consistency")
         phase_gated_consistency(torch, ops, cfg, Trainer)
         runs = []       # the new models' main-path runs, for the summary
@@ -3924,6 +4098,9 @@ def main() -> int:
         phase.start("observability")
         phase_observability(torch, ops, lm, cfg, Trainer, loader, serve, obs,
                             inspect)
+        phase.start("lora training")
+        runs.append(phase_lora(torch, ops, cfg, Trainer, training,
+                               rounds["median_ms"]["full"]))
     except Exception:   # the boundary: report the failed phase, exit non-zero
         traceback.print_exc()
         print(f"chip_smoke: phase {phase.name!r} FAILED", file=sys.stderr)
@@ -3979,9 +4156,9 @@ def main() -> int:
         # (16) for the dense decode kernel, the gated runs (17) for the
         # RMSNorm backward's dx-only mode; and for every kernel the new
         # models' runs (phases 20, 21, 23 and 24), the bf16-moment runs
-        # (phases 26 and 27) and the serving stack's timed runs (phase 30:
-        # engines A and B, the chunked paged run, the dense sampled run),
-        # zero where it is off their path
+        # (phases 26 and 27), the serving stack's timed runs (phase 30:
+        # engines A and B, the chunked paged run, the dense sampled run) and
+        # the LoRA run (phase 32), zero where it is off their path
         launches = sum(run["launches"][name] for run in runs)
         if name == "rmsnorm_bwd_dx":
             launches += gated["launches"][name]

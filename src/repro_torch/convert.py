@@ -5,6 +5,9 @@ port.
 numpy arrays (what ``jax.device_get`` gives) and returns the port's tree of
 tensors: the same key paths, the same stacked [L, ...] layout and, unless a
 ``dtype`` is given, the same dtype. ``params_to_numpy`` is its inverse.
+``lora_from_numpy`` converts the LoRA baseline's flat adapter dict
+(``{"layers/attn/wq": {"a", "b"}, ...}``) and ``lora_state_from_numpy`` its
+whole ``{"base", "lora", "opt", "step"}`` state.
 ``train_state_from_numpy`` converts a whole TrainState of the
 masked-selection family, dense or banked residency, so both packages can
 take the same step from the same state; ``train_state_from_checkpoint``
@@ -25,6 +28,7 @@ from repro_torch.checkpoint.manager import CheckpointManager, unflatten
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
+from repro_torch.optim import lora as lora_mod
 
 _NP_TO_TORCH = {np.dtype(np.float32): torch.float32,
                 np.dtype(np.float16): torch.float16,
@@ -69,6 +73,51 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda",
             out[k] = _leaf_to_tensor(v, dev, dtype)
         return out
     return walk(tree, shapes, "")
+
+
+def lora_from_numpy(tree: dict, cfg: ModelConfig, rank: int,
+                    device="cuda", dtype: torch.dtype | None = None) -> dict:
+    """The reference's flat adapter dict (or a moment tree of its form) as
+    numpy -> the port's, on ``device``. Its keys and every shape must be
+    those ``optim.lora.init_lora`` gives for ``cfg`` and ``rank``."""
+    dev = resolve_device(device)
+    want = {path: {"a": a, "b": b}
+            for path, (a, b, _) in lora_mod.adapter_layout(cfg, rank).items()}
+    if set(tree) != set(want):
+        raise KeyError(f"adapter keys {sorted(tree)} != expected "
+                       f"{sorted(want)}")
+    out = {}
+    for path, ab in tree.items():
+        if set(ab) != {"a", "b"}:
+            raise KeyError(f"{path}: keys {sorted(ab)} != ['a', 'b']")
+        out[path] = {}
+        for k in ("a", "b"):
+            if tuple(np.shape(ab[k])) != tuple(want[path][k]):
+                raise ValueError(f"{path}/{k}: shape {tuple(np.shape(ab[k]))}"
+                                 f" != expected {tuple(want[path][k])} "
+                                 f"(rank {rank})")
+            out[path][k] = _leaf_to_tensor(ab[k], dev, dtype)
+    return out
+
+
+def lora_state_from_numpy(state: dict, cfg: ModelConfig, rank: int,
+                          device="cuda") -> dict:
+    """A JAX LoRA TrainState as numpy (``base``, ``lora``, ``opt`` = {m, v,
+    count}, ``step``) -> the port's on ``device``, so both packages can
+    take the same step from the same state."""
+    dev = resolve_device(device)
+    opt = state["opt"]
+    if set(opt) != {"m", "v", "count"}:
+        raise ValueError(f"opt state keys {sorted(opt)}: not the LoRA "
+                         f"layout (m, v, count)")
+    return {
+        "base": params_from_numpy(state["base"], cfg, dev),
+        "lora": lora_from_numpy(state["lora"], cfg, rank, dev),
+        "opt": {"m": lora_from_numpy(opt["m"], cfg, rank, dev),
+                "v": lora_from_numpy(opt["v"], cfg, rank, dev),
+                "count": _leaf_to_tensor(opt["count"], dev, None)},
+        "step": int(np.asarray(state["step"])),
+    }
 
 
 def params_to_numpy(params: dict) -> dict:

@@ -105,11 +105,14 @@ def store_write_leaf(leaf: torch.Tensor, value: torch.Tensor) -> None:
 
 def resident_opt_bytes(opt_state: dict) -> dict:
     """Measured bytes of an optimizer state by where they live: ``device``
-    counts the tensors on the training device (that of ``counts``),
-    ``host`` the rest — a store in host RAM when training on the card, and
-    the numpy ``slot_map``. (On a CPU run the training device is the host,
-    so only the slot_map counts as host.)"""
-    train_dev = opt_state["counts"].device
+    counts the tensors on the training device (that of the moments: ``m``,
+    or the banked layout's ``banks``), ``host`` the rest — a store in host
+    RAM when training on the card, and the numpy ``slot_map``. (On a CPU
+    run the training device is the host, so only the slot_map counts as
+    host.) Any layout with ``m`` or ``banks`` will do: the selection
+    family's, or LoRA's ``{"m", "v", "count"}``."""
+    moments = opt_state["m"] if "m" in opt_state else opt_state["banks"]
+    train_dev = leaves(moments)[0].device
     dev = host = 0
 
     def visit(x):

@@ -65,6 +65,24 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+def tree_map_with_path(fn, tree, _prefix: str = ""):
+    """``tree_map`` whose ``fn(path, leaf)`` also gets the leaf's "/"-joined
+    key path ('layers/attn/wq'), the reference's ``utils/trees.path_str``."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, f"{_prefix}/{k}" if _prefix
+                                      else str(k))
+                for k, v in tree.items()}
+    return fn(_prefix, tree)
+
+
+def leaves_with_path(tree, _prefix: str = "") -> list[tuple[str, torch.Tensor]]:
+    """(path, leaf) pairs in sorted key order, as ``leaves`` visits them."""
+    if isinstance(tree, dict):
+        return [pair for k in sorted(tree) for pair in leaves_with_path(
+            tree[k], f"{_prefix}/{k}" if _prefix else str(k))]
+    return [(_prefix, tree)]
+
+
 def _group_order(cfg: ModelConfig) -> list[tuple[str, int, bool]]:
     """(key, length, stacked) in canonical block order, dense family."""
     if cfg.family != "dense":

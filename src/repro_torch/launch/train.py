@@ -60,10 +60,14 @@ its bytes on disk, the stall it added to the loop and the writer's seconds.
 bf16 moments have no flag (the reference's launcher has none):
 ``OptimizerConfig(moment_dtype="bfloat16")`` in code.
 
+The LoRA baseline (paper §4.2): ``--method lora --lora-rank 256`` trains
+rank-256 adapters on the attention and MLP projections with plain AdamW,
+the base frozen; the report line counts the adapters as trainable.
+
 Flags of the reference whose feature is not ported raise
-``NotImplementedError`` naming its ROADMAP Queue A item: ``--method lora``
-(4), ``--mesh``, ``--offload zero1`` and ``--offload`` under
-``--moment-residency device`` (11).
+``NotImplementedError`` naming its ROADMAP Queue A item: ``--mesh``,
+``--offload zero1`` and ``--offload`` under ``--moment-residency device``
+(11).
 ``--eval-every`` raises as well: the reference trainer has no eval hook;
 evaluate after training with ``repro_torch.train.evaluate.math_accuracy``.
 """

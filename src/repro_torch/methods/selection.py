@@ -46,7 +46,8 @@ prediction is then made from the state after ``select`` and before this
 step's norms are observed; a miss costs only the synchronous swap.
 
 Not ported here, and raising: ``offload="zero1"`` and any offload under
-dense residency (ROADMAP Queue A item 11), and ``lora`` (item 4).
+dense residency (ROADMAP Queue A item 11). The LoRA baseline is a method
+of its own (``methods/lora.py``).
 """
 from __future__ import annotations
 
@@ -282,12 +283,6 @@ def _selection_factory(policy: str, name: str | None = None, **overrides):
     return factory
 
 
-def _lora(tcfg: TrainConfig):
-    raise NotImplementedError(
-        "the LoRA baseline is not ported yet (ROADMAP Queue A item 4, "
-        "'LoRA baseline')")
-
-
 # full FT selects every block every step; k=100% makes the memory/trainable
 # accounting agree with that.
 registry.register("full", "all")(
@@ -297,4 +292,3 @@ registry.register("topk_grad")(_selection_factory("topk_grad"))
 registry.register("random")(_selection_factory("random"))
 registry.register("lisa")(_selection_factory("lisa"))
 registry.register("grass")(_selection_factory("grass"))
-registry.register("lora")(_lora)

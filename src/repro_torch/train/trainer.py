@@ -118,7 +118,8 @@ class Trainer:
         self.tcfg = tcfg
         self.device = resolve_device(device)
         self.method = methods.build(method or tcfg.method, tcfg)
-        self.sel_cfg = self.method.sel_cfg
+        # a method without selection (lora) reports the config's
+        self.sel_cfg = getattr(self.method, "sel_cfg", tcfg.select)
         self.state = self.method.init_state(tcfg.model, tcfg.optimizer,
                                             tcfg.seed, device=self.device)
         self.step_fn = self.method.make_step(tcfg.model, tcfg.optimizer)

@@ -25,7 +25,8 @@ head, the bf16 dq (tensor cores) bit-reproducible; segment layouts that
 probe the skipped tiles (boundaries on tile edges, a segment over three
 tiles, all pad after the first tile, one segment over the row, which must
 give the bits of no segments); in f32 a peaked softmax is held against an
-f64 evaluation. Three packed training steps make no host sync either.
+f64 evaluation. Three packed training steps make no host sync either,
+nor do three LoRA steps; one f32 LoRA step equals the CPU's.
 The RMSNorm backward's dx-only mode (a frozen layer's norm under gated
 weight gradients) gives the full mode's dx bits in one launch, and gated
 training steps launch each mode by the mask with one host sync a step.
@@ -1381,3 +1382,78 @@ def test_prefix_admission_writes_to_the_sink(cuda_device):
     for uid in res[False]:
         np.testing.assert_array_equal(res[True][uid], res[False][uid])
     assert eng.page_pool_stats()["live_pages"] == eng._prefix.cached_pages
+
+
+@pytest.mark.cuda
+def test_lora_step_on_the_card_equals_the_cpu(cuda_device):
+    """One f32 LoRA step (TF32 off) on the card and on the CPU from one
+    state: the loss within 1e-5 relative, each adapter leaf's update within
+    1e-2 of the CPU's (relative L2, as ``chip_smoke.py`` phase 8 holds
+    them: Adam's first step is lr * sign(g), so a gradient within rounding
+    of zero may flip), the count advanced; the card ran the model's kernels
+    and no selection kernel."""
+    from repro_torch.configs.base import OptimizerConfig, TrainConfig
+    from repro_torch.core import partition as part
+    from repro_torch.train.trainer import Trainer
+    tcfg = TrainConfig(
+        model=_card_smoke().replace(dtype="float32"), method="lora",
+        optimizer=OptimizerConfig(lr=1e-3, schedule="constant",
+                                  warmup_steps=0, lora_rank=4),
+        seq_len=48, global_batch=4, steps=1, log_every=1)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        card = Trainer(tcfg, device="cuda")
+        cpu = Trainer(tcfg, device="cpu")
+        cpu.state = part.tree_map(lambda x: x.cpu().clone(), {
+            k: v for k, v in card.state.items() if k != "step"})
+        cpu.state["step"] = 0
+        before = [x.clone() for x in part.leaves(cpu.state["lora"])]
+        ops.reset_launches()
+        card.train(1)
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        cpu.train(1)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    lc, lh = card.log.losses[0], cpu.log.losses[0]
+    assert abs(lc - lh) <= 1e-5 * abs(lh), (lc, lh)
+    for a, b, a0 in zip(part.leaves(card.state["lora"]),
+                        part.leaves(cpu.state["lora"]), before):
+        dc, dh = a.cpu() - a0, b - a0
+        if dh.norm() == 0:
+            assert not dc.any()
+        else:
+            assert ((dc - dh).norm() / dh.norm()).item() <= 1e-2
+    assert card.state["opt"]["count"].item() == 1.0
+    assert all(launches[n] > 0 for n in (
+        "rmsnorm", "rmsnorm_bwd_dx", "flash_attention_fwd",
+        "flash_attention_bwd_dq", "flash_attention_bwd_dkv")), launches
+    assert all(launches[n] == 0 for n in (
+        "rmsnorm_bwd", "block_grad_sq_norms", "masked_adamw",
+        "banked_masked_adamw")), launches
+
+
+@pytest.mark.cuda
+def test_lora_steps_never_sync(cuda_device):
+    """Three LoRA steps of the smoke config, batch uploads included, under
+    ``set_sync_debug_mode("error")``: the unmasked AdamW's count and bias
+    corrections stay on the card, so no step reads a value back."""
+    from repro_torch.configs.base import OptimizerConfig, TrainConfig
+    from repro_torch.train.trainer import Trainer
+    tr = Trainer(TrainConfig(model=_card_smoke(), method="lora",
+                             optimizer=OptimizerConfig(lora_rank=4),
+                             seq_len=48, global_batch=4, steps=4),
+                 device="cuda")
+    tr.train(1)     # first launches: builds and compiles the kernels
+    torch.cuda.synchronize()
+    state = tr.state
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for step in range(1, 4):
+            batch = tr._device_batch(tr.data.batch_at(step))
+            state, metrics = tr.step_fn(state, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert state["step"] == 4 and state["opt"]["count"].item() == 4
+    assert torch.isfinite(metrics["loss"]).item()

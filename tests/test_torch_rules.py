@@ -156,13 +156,12 @@ def test_entry_points_run_on_cpu_when_asked(no_cuda, capsys):
 
 
 @pytest.mark.parametrize("call, item", [
-    (lambda: Trainer(_tcfg(), method="lora", device="cpu"), "item 4"),
     (lambda: Trainer(_tcfg(eval_every=1), device="cpu"), "no eval hook"),
     (lambda: Trainer(_tcfg(), mesh=object(), device="cpu"), "item 11"),
     (lambda: launch_train.main(["--arch", "qwen2.5-0.5b", "--smoke",
                                 "--device", "cpu", "--moment-residency",
                                 "banked", "--offload", "zero1"]), "item 11"),
-], ids=["lora", "eval", "mesh", "banked-zero1"])
+], ids=["eval", "mesh", "banked-zero1"])
 def test_training_features_not_ported_raise(call, item):
     with pytest.raises(NotImplementedError, match=item):
         call()
