@@ -192,7 +192,7 @@ Phases, each of which makes the run exit non-zero if it fails:
    the peak beside the one reckoned in PERF.md;
 24. phase 4's paged serving run on phi4-mini (row 1 at head dim 128 over
    32 padded q heads, row 2 at D 3072);
-25. phase 22's checks on phi4-mini.
+25. phase 22's checks on phi4-mini, at 1 layer;
 26. bf16 moments (``OptimizerConfig(moment_dtype="bfloat16")``) at full
    width: phase 7's dense run and phase 10's async banked run (one log
    window) on qwen2.5-0.5b with bf16 m and v: step time, tokens/s, device
@@ -202,7 +202,9 @@ Phases, each of which makes the run exit non-zero if it fails:
    phase 23's;
 28. phase 8's card-vs-CPU check with bf16 moments (f32 params, 2 layers):
    each leaf's update within ``UPDATE_GAP`` of the CPU's;
-29. checkpoint and resume at full width (qwen2.5-0.5b, bf16 params), dense
+29. checkpoint and resume at full width and 6 layers (``CKPT_LAYERS``:
+   bit-equal resume does not depend on the depth) (qwen2.5-0.5b, bf16
+   params), dense
    f32 moments, banked host f32 and dense bf16 moments: 6 steps straight,
    twice; 3 steps with ``checkpoint_every=3``; a new ``Trainer`` that
    restores and runs 3 more. Where the two straight runs agree bit for
@@ -268,7 +270,48 @@ Phases, each of which makes the run exit non-zero if it fails:
    (records, not claims); (b) in f32 (TF32 off) at full width with 2
    layers, batch 2 x 64, 3 steps on the card and on the CPU from one
    state: losses within 1e-4 relative, each adapter leaf's update within
-   ``UPDATE_GAP`` of the CPU's (relative L2), the base unchanged.
+   ``UPDATE_GAP`` of the CPU's (relative L2), the base unchanged;
+33. the reference's other three dense archs' kernel shapes: rows 1 and 3
+   at qwen2.5-32b's head map (40 q heads padded to 48 on 8 kv heads, 13 on
+   kv head 7: three blocks a kv head) and chatglm3-6b's (32 q on 2 kv), D
+   128, bf16 and f32, against their plain versions, bit-identical over two
+   launches and row 3 on the gathered view bit-equal to row 1; row 2 at
+   [4, 5120], [1024, 5120], [4, 8192] and [1024, 8192] against its plain
+   version with its registers (a spill fails); times as in phase 3 (row 1
+   at B 4, row 3 at [16, 48 heads, 512] beside SDPA, row 2 beside
+   ``F.rms_norm``);
+34. chatglm3-6b at full width (28 layers, d_model 4096, 32 q / 2 kv heads,
+   head dim 128, partial rotary 0.5, QKV bias, vocab 65024, 31 blocks),
+   bf16: phase 7's adagradselect run (k = 6 of 31, 8 x 512 tokens,
+   ``remat="full"``) with banked residency, the store pinned in host RAM
+   and bf16 m and v, 4 steps; first the peak device memory at 7 and 14
+   layers and its per-layer slope extrapolated to 28 (above 74 GiB the
+   phase fails with that figure); the store's bytes beside the host's
+   available memory (``free -g``); median step, tokens/s, peak beside the
+   extrapolation, launches equal to the path's, counts equal to the summed
+   masks, and 2 profiled steps (device activity only). The probes hold
+   their store in pageable host memory (the device's allocations are the
+   same); the full run's store is pinned (``offload.pinned_zeros``);
+35. yi-9b at full width (48 layers, 32 q / 4 kv heads, head dim 128, vocab
+   64000, 51 blocks): phase 34's run at k = 5 of 51 with
+   ``gate_weight_grads`` (launches reckoned from each step's mask), its
+   peak measured at 12 and 24 layers and extrapolated to 48; if that
+   exceeds 74 GiB, or the host cannot hold the store (35.3 GB), the run is
+   skipped with both figures printed, decided before it;
+36. phase 4's paged serving run on the three archs at full width
+   (qwen2.5-32b: 64 layers, d_model 5120, 48 padded q heads, vocab 152064,
+   33.4 B params, 66.9 GB of bf16 weights from ``lm.init``'s slice-by-slice
+   draws), the warm-up run's engine steps 4-5 profiled (device activity
+   only); rows 1 and 2 at 48 q heads and D 5120 on the 32b; its peak beside
+   the reckoned 63-65 GiB;
+37. each arch's head-layout variant (its own heads, head dim, partial
+   rotary, bias and ``pad_heads_to`` at d_model 256, d_ff 256, vocab 256,
+   2 layers) in f32: phase 25's checks with losses within 1e-5; the key
+   bias's unrotated dims (chatglm3-6b's partial rotary), whose exact
+   gradient is 0, are held by the absolute bound alone, not the relative
+   update gap; a greedy token where the teacher-forced prefill's top two
+   logits are within 1e-5 (relative) of each other may be either of them
+   (a tie at f32 rounding; printed), every later token still held.
 
 Then it prints the kernel summary as one JSON line and, last, the device
 line ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
@@ -331,6 +374,8 @@ LLAMA, PHI4 = "llama3.2-1b", "phi4-mini-3.8b"
 PHI4_STEPS = 6
 PHI4_BF16_STEPS = 4   # phase 27: phi4-mini with bf16 moments
 MODEL_CONSISTENCY_STEPS = 2  # phases 22, 25: f32 card-vs-CPU training steps
+PHI4_CONSISTENCY_LAYERS = 1  # phase 25's depth
+CKPT_LAYERS = 6   # phase 29's depth: bit-equal resume does not depend on it
 # rows 2 and 2b: qwen2.5-0.5b's d_model, then llama3.2-1b's and phi4-mini's
 # (padded to 2048 and 4096 lanes), at one decode row block and at the
 # training path's 8 x 512 rows
@@ -662,7 +707,11 @@ def _serve_once(torch, cfg, params, ServeEngine, ServeConfig, Request,
 
 
 def phase_serving(torch, ops, lm, cfg, ServeEngine, ServeConfig,
-                  Request) -> dict:
+                  Request, lean=False) -> dict:
+    """Phase 4's serving run of ``cfg`` at full width: a warm-up run, the
+    counted (timed) run, and engine steps of one more run under the
+    profiler with the host's ops. ``lean`` (the larger models of phase 36):
+    the warm-up run is the profiled one, the device's activity alone."""
     t0 = time.perf_counter()
     params = lm.init(cfg, torch.Generator(device="cuda").manual_seed(0),
                      device="cuda")
@@ -675,7 +724,11 @@ def phase_serving(torch, ops, lm, cfg, ServeEngine, ServeConfig,
           f"{n_params / 1e6:.1f} M params, init {time.perf_counter() - t0:.2f}"
           f" s; {len(PROMPT_LENS)} requests, prompts {PROMPT_LENS}, "
           f"{NEW_TOKENS} new tokens each; {SERVE}")
-    _serve_once(torch, cfg, params, ServeEngine, ServeConfig, Request)
+    if lean:
+        _profile(torch, cfg, params, ServeEngine, ServeConfig, Request,
+                 host_ops=False)
+    else:
+        _serve_once(torch, cfg, params, ServeEngine, ServeConfig, Request)
     ops.reset_launches()                     # the main path's run
     eng, res, dt = _serve_once(torch, cfg, params, ServeEngine, ServeConfig,
                                Request)
@@ -695,10 +748,11 @@ def phase_serving(torch, ops, lm, cfg, ServeEngine, ServeConfig,
     print(f"  page pool: {json.dumps(eng.page_pool_stats())}")
     print(f"  kernel launches in this run: {json.dumps(launches)}")
     _check_launches(launches, cfg, st)
-    print(f"  peak device memory: "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    _profile(torch, cfg, params, ServeEngine, ServeConfig, Request)
-    return {"launches": launches, "tok_s": gen / dt}
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  peak device memory: {peak / 2**30:.2f} GiB")
+    if not lean:
+        _profile(torch, cfg, params, ServeEngine, ServeConfig, Request)
+    return {"launches": launches, "tok_s": gen / dt, "peak": peak}
 
 
 def _check_launches(launches: dict, cfg, stats: dict,
@@ -728,15 +782,17 @@ def _leaves(tree):
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
 
 
-def _profile(torch, cfg, params, ServeEngine, ServeConfig, Request):
+def _profile(torch, cfg, params, ServeEngine, ServeConfig, Request,
+             host_ops=True):
     """Where the device time and the host time go in engine steps
     ``SERVE_PROFILE[0]`` onwards of one more serving run (``SERVE_PROFILE[1]``
     steps: the second wave's admission, its 4 prefills and 2 decode
-    chunks), the host's ops recorded too."""
+    chunks), the host's ops recorded too unless ``host_ops`` is off."""
     from torch.profiler import ProfilerActivity
     _, _, prof, wall = _profiled_steps(
         torch, ServeEngine, SERVE_PROFILE,
-        [ProfilerActivity.CPU, ProfilerActivity.CUDA],
+        [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host_ops
+        else [ProfilerActivity.CUDA],
         lambda: _serve_once(torch, cfg, params, ServeEngine, ServeConfig,
                             Request))
     averages = prof.key_averages()
@@ -752,12 +808,15 @@ def _profile(torch, cfg, params, ServeEngine, ServeConfig, Request):
           f"{sum(SERVE_PROFILE) - 1} of one more run, profiler on): wall "
           f"{wall * 1e3:.1f} ms,"
           f" device kernels {busy_us / 1e3:.1f} ms, device idle share "
-          f"{max(0.0, 1 - busy_us / 1e6 / wall):.3f}; row 1 "
+          f"{max(0.0, 1 - busy_us / 1e6 / wall):.3f}; "
+          f"{sum(e.count for e in events)} launches; row 1 "
           f"{sum(e.device_time_total for e in row1) / 1e3:.2f} ms in "
           f"{sum(e.count for e in row1)} launches")
     for e in sorted(events, key=lambda e: -e.device_time_total)[:12]:
         print(f"    {e.device_time_total / 1e3:9.2f} ms {e.count:7d}x  "
               f"{e.key[:90]}")
+    if not host_ops:
+        return
     host = [e for e in averages if e.self_cpu_time_total > 0]
     print(f"  host ops by self time (profiler on, "
           f"{sum(e.count for e in host)} calls):")
@@ -767,17 +826,22 @@ def _profile(torch, cfg, params, ServeEngine, ServeConfig, Request):
 
 
 def phase_consistency(torch, ops, lm, cfg, ServeEngine, ServeConfig,
-                      Request) -> dict:
+                      Request, tie_rtol=0.0) -> dict:
     """f32 engine tokens == argmax of one teacher-forced prefill per request
     (rows = the request's prompt + generated tokens, lengths = prompt + i),
-    on the paged layout and on the dense one. Returns the launches of the
-    dense run."""
+    on the paged layout and on the dense one. With ``tie_rtol`` > 0 a
+    position where the engine took a token whose prefill logit is within
+    ``tie_rtol`` (relative) of the prefill's top one is a tie at f32
+    rounding, not a mismatch: it is printed, and every later position is
+    still held exactly (the prefill reads the engine's own tokens). Returns
+    the launches of the dense run."""
     cfg = cfg.replace(dtype="float32")
     params = lm.init(cfg, torch.Generator(device="cuda").manual_seed(0),
                      device="cuda")
     reqs = {r.uid: r for r in _requests(Request, cfg.vocab_size)}
     out = {}
     for layout in ("paged", "dense"):
+        ties = []
         ops.reset_launches()
         eng, res, _ = _serve_once(torch, cfg, params, ServeEngine,
                                   ServeConfig, Request, layout)
@@ -796,9 +860,17 @@ def phase_consistency(torch, ops, lm, cfg, ServeEngine, ServeConfig,
                   .item(), f"{layout} request {uid}: prefill logits "
                   f"{tuple(logits.shape)} not finite or misshapen")
             want = torch.argmax(logits, dim=-1).cpu().numpy()
-            bad = (want != toks).nonzero()[0]
-            if bad.size:
-                i = int(bad[0])
+            bad = [int(i) for i in (want != toks).nonzero()[0]]
+            lf = logits.float().cpu()
+            for i in list(bad):
+                best, took = lf[i, int(want[i])], lf[i, int(toks[i])]
+                if best - took <= tie_rtol * max(1.0, abs(best.item())):
+                    ties.append(f"{layout} request {uid} position {i}: "
+                                f"{int(toks[i])} {took.item():.7g} against "
+                                f"{int(want[i])} {best.item():.7g}")
+                    bad.remove(i)
+            if bad:
+                i = bad[0]
                 top = torch.topk(logits[i].float(), 2).values.tolist()
                 raise PhaseFailed(
                     f"{layout} request {uid} (prompt {len(prompt)}): first "
@@ -806,14 +878,20 @@ def phase_consistency(torch, ops, lm, cfg, ServeEngine, ServeConfig,
                     f"{int(toks[i])}, teacher-forced prefill {int(want[i])} "
                     f"(top-2 logits {top})")
             checked += len(toks)
-        print(f"consistency {cfg.name} (f32, {cfg.num_layers} layers at "
-              f"full width, {layout} KV): {checked} greedy "
+        print(f"consistency {cfg.name} (f32, {cfg.num_layers} layers, "
+              f"d_model {cfg.d_model}, {layout} KV): {checked} greedy "
               f"tokens of {len(res)} requests equal the teacher-forced "
-              f"prefill argmax; kernel launches in that serving run "
+              f"prefill argmax{_ties(ties, tie_rtol)}; kernel launches in "
+              f"that serving run "
               f"({eng.stats['decode_chunks'] * SERVE['decode_chunk']} decode "
               f"steps): {json.dumps(launches)}")
         out[layout] = launches
     return {"dense_launches": out["dense"]}
+
+
+def _ties(ties: list, rtol: float) -> str:
+    return (f", but for {len(ties)} tie(s) within {rtol:g} relative: "
+            f"{'; '.join(ties)}" if ties else "")
 
 
 # ------------------------------------------------------------ training
@@ -1275,15 +1353,16 @@ def _is_matmul(key: str) -> bool:
     return any(w in k for w in MATMUL_WORDS)
 
 
-def _profile_training(torch, tr, steps=2, top=15) -> dict:
-    """Profiles ``steps`` more steps; prints and returns their device time,
-    launches, matrix-product launches and the device's idle share (an
-    empty dict when the profiler saw no device time)."""
+def _profile_training(torch, tr, steps=2, top=15, host_ops=True) -> dict:
+    """Profiles ``steps`` more steps (the host's activity too unless
+    ``host_ops`` is off); prints and returns their device time, launches,
+    matrix-product launches and the device's idle share (an empty dict
+    when the profiler saw no device time)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                 if host_ops else [ProfilerActivity.CUDA]) as prof:
         tr.train(steps)
     wall = time.perf_counter() - t0
     events = [e for e in prof.key_averages()
@@ -1332,14 +1411,23 @@ def _to(tree, device):
     return tree
 
 
-def _update_gap(torch, card_params, cpu_params, before, limit) -> float:
+def _update_gap(torch, card_params, cpu_params, before, limit,
+                noise=None) -> float:
     """Each leaf's update (params after minus ``before``) on the card
     against the CPU's, as a relative L2 gap (a wrong or missing update is
     ~1); fails above ``limit`` or when a leaf the CPU left unchanged moved
-    on the card. Returns the largest gap."""
+    on the card. ``noise`` ({leaf name: index}, ``_zero_grad_entries``)
+    names entries whose gradient is zero in exact arithmetic: their updates
+    are left out of the gap (the caller holds every entry to an absolute
+    bound). Returns the largest gap."""
     gap = 0.0
-    for a, b, a0 in zip(_leaves(card_params), _leaves(cpu_params), before):
+    noise = noise or {}
+    for (name, a), b, a0 in zip(_named_leaves(card_params),
+                                _leaves(cpu_params), before):
         dc, dh = a.cpu() - a0, b - a0
+        if name in noise:
+            dc[noise[name]] = 0.0
+            dh[noise[name]] = 0.0
         scale = dh.norm().item()
         check(scale > 0 or not dc.any(), "a leaf the CPU left unchanged "
               "moved on the card")
@@ -1350,13 +1438,31 @@ def _update_gap(torch, card_params, cpu_params, before, limit) -> float:
     return gap
 
 
+def _zero_grad_entries(cfg) -> dict:
+    """Parameter entries whose gradient is zero in exact arithmetic, by
+    construction: with QKV bias and partial rotary (chatglm3-6b), the
+    unrotated dims of the key bias, since q . b_k is the same for every key
+    of a query and the softmax ignores it. In f32 their gradients are
+    rounding noise (~1e-8, the size of AdamW's eps) on the card and on the
+    CPU alike, so their first updates are noise too."""
+    from repro_torch.models.layers.rope import rotary_dims
+    rot = rotary_dims(cfg.head_dim, cfg.partial_rotary_factor)
+    if not cfg.attn_bias or rot == cfg.head_dim:
+        return {}
+    return {"layers.attn.bk": (Ellipsis, slice(rot, None))}
+
+
 def phase_train_consistency(torch, ops, cfg, Trainer, k_percent=20.0,
-                            moment_dtype="float32", steps=3) -> None:
-    """The same ``steps`` f32 topk_grad steps on the card and on the CPU,
-    each leaf's update held against the CPU's as in phase 19
-    (``_update_gap``); the moments in ``moment_dtype``."""
+                            moment_dtype="float32", steps=3, layers=2,
+                            loss_rtol=1e-4) -> None:
+    """The same ``steps`` f32 topk_grad steps of ``layers`` layers on the
+    card and on the CPU, losses within ``loss_rtol`` (relative), every
+    parameter within 2 lr a step of the CPU's, each leaf's update held
+    against the CPU's as in phase 19 (``_update_gap``; the entries of
+    ``_zero_grad_entries`` by the absolute bound alone); the moments in
+    ``moment_dtype``."""
     lr = 1e-3
-    cfg = cfg.replace(dtype="float32", num_layers=2)
+    cfg = cfg.replace(dtype="float32", num_layers=layers)
     tcfg = _train_cfg(cfg, "topk_grad", steps, 2, 64, lr=lr,
                       schedule="constant", warmup_steps=0,
                       k_percent=k_percent, moment_dtype=moment_dtype)
@@ -1369,7 +1475,7 @@ def phase_train_consistency(torch, ops, cfg, Trainer, k_percent=20.0,
         card.train(1)
         cpu.train(1)
         lc, lh = card.log.losses[-1], cpu.log.losses[-1]
-        check(abs(lc - lh) <= 1e-4 * abs(lh),
+        check(abs(lc - lh) <= loss_rtol * abs(lh),
               f"step {i}: loss card {lc} vs cpu {lh}")
         mc = card.state["sel"]["mask"].cpu()
         check(torch.equal(mc, cpu.state["sel"]["mask"]),
@@ -1388,20 +1494,24 @@ def phase_train_consistency(torch, ops, cfg, Trainer, k_percent=20.0,
         worst = max(worst, (a.cpu() - b).abs().max().item())
     limit = 2 * lr * steps
     check(worst <= limit, f"params differ by {worst} > {limit}")
-    gap = _update_gap(torch, pc, ph, p0, UPDATE_GAP)
+    noise = _zero_grad_entries(cfg)
+    gap = _update_gap(torch, pc, ph, p0, UPDATE_GAP, noise)
+    left_out = "".join(f"; {n}'s dims past the rotary ones left out: their "
+                       f"exact gradient is 0" for n in noise)
     rel = max(abs(a - b) / abs(b) for a, b in zip(card.log.losses,
                                                    cpu.log.losses))
     print(f"training consistency {cfg.name} (f32, TF32 off, "
           f"{moment_dtype} moments, "
-          f"{cfg.num_layers} layers at full width, batch 2 x 64, {steps} "
+          f"{cfg.num_layers} layers, d_model {cfg.d_model}, batch 2 x 64, "
+          f"{steps} "
           f"topk_grad steps, k = {card.sel_cfg.num_selected(cfg.num_blocks)}"
           f" of {cfg.num_blocks} blocks, card vs CPU): losses "
           f"{[round(x, 6) for x in card.log.losses]}, max rel err "
-          f"{rel:.2e} (limit 1e-4); masks equal at every step; params max "
+          f"{rel:.2e} (limit {loss_rtol:g}); masks equal at every step; "
+          f"params max "
           f"|err| {worst:.3g} (limit {limit:g}); each leaf's update within "
-          f"{gap:.3g} of the CPU's (relative L2, limit {UPDATE_GAP:g}); "
-          f"card launches "
-          f"{json.dumps(launches)}")
+          f"{gap:.3g} of the CPU's (relative L2, limit {UPDATE_GAP:g}"
+          f"{left_out}); card launches {json.dumps(launches)}")
     del card, cpu
 
 
@@ -2337,21 +2447,22 @@ def phase_packed_consistency(torch, ops, cfg, Trainer, loader, lm,
 # ------------------------------------------------------- dense decode
 
 
-def _decode_case(torch, dtype, b, s, vlens, d=64, seed=0):
-    """One layer's dense cache [B, S, 2, D] and q [B, 1, 16, D] through
-    qwen2.5-0.5b's head map (7 q heads on kv head 0, 9 on kv head 1: the
-    two padded ones clamp onto the last); q = 3 N(0, 1) against N(0, 1)
-    keys and values: a peaked softmax whose outputs stay large beside the
-    tolerance."""
-    h, kvh = 16, 2
+def _decode_case(torch, dtype, b, s, vlens, d=64, seed=0, h=16, kvh=2,
+                 hmap=None):
+    """One layer's dense cache [B, S, KVH, D] and q [B, 1, H, D] through
+    ``hmap``, by default qwen2.5-0.5b's (7 q heads on kv head 0, 9 on kv
+    head 1: the two padded ones clamp onto the last); q = 3 N(0, 1) against
+    N(0, 1) keys and values: a peaked softmax whose outputs stay large
+    beside the tolerance."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     dt = getattr(torch, dtype)
     q = (3 * torch.randn(b, 1, h, d, generator=g, device="cuda")).to(dt)
     k = torch.randn(b, s, kvh, d, generator=g, device="cuda").to(dt)
     v = torch.randn(b, s, kvh, d, generator=g, device="cuda").to(dt)
     vl = torch.tensor(vlens, dtype=torch.int32, device="cuda")
-    hmap = torch.tensor([min(i // 7, kvh - 1) for i in range(h)],
-                        dtype=torch.int32, device="cuda")
+    if hmap is None:
+        hmap = [min(i // 7, kvh - 1) for i in range(h)]
+    hmap = torch.tensor(hmap, dtype=torch.int32, device="cuda")
     return q, k, v, vl, hmap
 
 
@@ -2711,14 +2822,14 @@ def _print_eval_profile(prof, wall) -> None:
 # ------------------------------------------------- gated weight gradients
 
 
-def _gated_expected(masks, nl, start, adamw) -> dict:
+def _gated_expected(masks, nl, start, adamw, leaves=12) -> dict:
     """The launches reckoned from each step's mask: ``_train_launches``
     with that step's selected layers (``start``: the first layer's block
     id), summed over the steps."""
     total: dict = {}
     for m in masks:
         sel = int(m[start:start + nl].sum())
-        for k, v in _train_launches(nl, adamw, sel).items():
+        for k, v in _train_launches(nl, adamw, sel, leaves).items():
             total[k] = total.get(k, 0) + v
     return total
 
@@ -2957,19 +3068,23 @@ def phase_gated_consistency(torch, ops, cfg, Trainer) -> None:
 
 
 def phase_model_consistency(torch, ops, lm, cfg, Trainer, ServeEngine,
-                            ServeConfig, Request) -> None:
-    """f32 (TF32 off) at full width with 2 layers: phase 8's topk_grad run
-    (``MODEL_CONSISTENCY_STEPS`` steps) on the card against the CPU (k = 2
-    of 4 blocks, each leaf's update
-    within ``UPDATE_GAP`` of the CPU's), then phase 5's greedy tokens
-    against a teacher-forced prefill on the paged and the dense layout."""
-    c2 = cfg.replace(num_layers=2)
+                            ServeConfig, Request, layers=2,
+                            loss_rtol=1e-4, tie_rtol=0.0) -> None:
+    """f32 (TF32 off) at full width with ``layers`` layers: phase 8's
+    topk_grad run (``MODEL_CONSISTENCY_STEPS`` steps) on the card against
+    the CPU (k = 50% of the blocks, losses within ``loss_rtol``, each
+    leaf's update within ``UPDATE_GAP`` of the CPU's), then phase 5's
+    greedy tokens against a teacher-forced prefill on the paged and the
+    dense layout."""
+    c2 = cfg.replace(num_layers=layers)
     t0 = time.perf_counter()
     phase_train_consistency(torch, ops, c2, Trainer, k_percent=50.0,
-                            steps=MODEL_CONSISTENCY_STEPS)
+                            steps=MODEL_CONSISTENCY_STEPS, layers=layers,
+                            loss_rtol=loss_rtol)
     gc.collect()
     t1 = time.perf_counter()
-    phase_consistency(torch, ops, lm, c2, ServeEngine, ServeConfig, Request)
+    phase_consistency(torch, ops, lm, c2, ServeEngine, ServeConfig, Request,
+                      tie_rtol)
     gc.collect()
     torch.cuda.empty_cache()
     print(f"  {cfg.name} consistency: training {t1 - t0:.1f} s, serving "
@@ -3949,6 +4064,368 @@ def phase_lora(torch, ops, cfg, Trainer, training, full_ms) -> dict:
 # ------------------------------------------------------------------ main
 
 
+# --------------------------------------- the reference's other dense archs
+
+# phases 33-37 (ROADMAP Queue A item 12a): chatglm3-6b (partial rotary 0.5,
+# QKV bias, 32 q / 2 kv heads, D 128) and yi-9b (32 q / 4 kv) train at full
+# width with banked bf16 moments in pinned host RAM (paper §3.3); they and
+# qwen2.5-32b (40 q heads padded to 48 on 8 kv heads, d_model 5120, QKV
+# bias; 66.9 GB of bf16 weights, so it only serves) serve phase 4's cell
+GLM, YI, QWEN32 = "chatglm3-6b", "yi-9b", "qwen2.5-32b"
+# per trained arch: k in percent of the blocks, gate_weight_grads, and the
+# two depths whose peaks are measured before the full-width run
+ARCH_TRAIN = {GLM: (20.0, False, (7, 14)), YI: (10.0, True, (12, 24))}
+ARCH_STEPS = 4          # a full-width run (and a peak probe): 2 warm-up
+                        # steps, then 2 timed
+PEAK_LIMIT_GIB = 74.0   # the most an extrapolated peak may reach
+HOST_MARGIN_GIB = 8.0   # host memory kept free beside the pinned store
+QWEN32_HMAP = [min(h // 5, 7) for h in range(48)]   # 13 heads on kv head 7
+GLM_HMAP = [h // 16 for h in range(32)]
+# row 2 at qwen2.5-32b's d_model, one decode row block and a prefill chunk,
+# and at the forward's widest row
+ARCH_NORM_SHAPES = ((4, 5120), (1024, 5120), (4, 8192), (1024, 8192))
+QWEN32_PEAK_GIB = (63.0, 65.0)   # reckoned: 62.3 GiB of weights, the KV
+
+
+def phase_arch_kernels(torch, ops, ref, timer) -> None:
+    """Rows 1 and 3 at qwen2.5-32b's head map (48 q heads on 8 kv, three
+    blocks a kv head) and chatglm3-6b's (32 on 2), D 128, bf16 and f32:
+    against their plain versions, bit-identical over two launches, row 3 on
+    the gathered view bit-equal to row 1 on the pool; row 2 at D 5120 and
+    8192 against its plain version with its registers (a spill fails);
+    times as in phase 3."""
+    from repro_torch.kernels import rmsnorm as rn
+    F = torch.nn.functional
+    rows = []
+    vlens = [1, 19, 300, 512]
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        for arch, h, kvh, hm in ((QWEN32, 48, 8, QWEN32_HMAP),
+                                 (GLM, 32, 2, GLM_HMAP)):
+            q, k, v, tbl, vl, hmap = _paged_inputs(torch, dtype, 4, vlens,
+                                                   h=h, kvh=kvh, d=128,
+                                                   hmap=hm)
+            n0 = ops.LAUNCHES["paged_decode_attention"]
+            paged = ops.paged_decode_attention(q, k, v, tbl, vl, hmap)
+            again = ops.paged_decode_attention(q, k, v, tbl, vl, hmap)
+            torch.cuda.synchronize()
+            check(ops.LAUNCHES["paged_decode_attention"] == n0 + 2,
+                  "paged_decode_attention did not count its launches")
+            check(_bits_equal(torch, paged, again),
+                  f"row 1 {arch} {dtype}: two launches differ")
+            err1 = _check_close(
+                torch, paged[:, 0],
+                ref.paged_decode_attention(q[:, 0], k, v, tbl, vl, hmap),
+                dtype, f"row 1 {arch} map")
+            rws = tbl.long().clamp(max=k.shape[0] - 1)
+            kd, vd = (p[rws].reshape(4, -1, *p.shape[2:]).contiguous()
+                      for p in (k, v))
+            dense = ops.decode_attention(q, kd, vd, vl, hmap)
+            err3 = _check_close(
+                torch, dense[:, 0],
+                ref.decode_attention_cache(q[:, 0], kd, vd, vl, hmap),
+                dtype, f"row 3 {arch} map")
+            check(_bits_equal(torch, dense, paged), f"rows 3 and 1 differ "
+                  f"on one pool at {arch}'s map ({dtype})")
+            print(f"  rows 1 and 3 {dtype:<8} {arch}'s map (H={h} KVH={kvh} "
+                  f"D=128, page 16, valid_len {vlens}): max |err| "
+                  f"{err1:.2e} / {err3:.2e} (rtol=atol {TOL[dtype]:.0e}); "
+                  f"bit-identical over two launches; row 3 on the gathered "
+                  f"view = row 1 bit for bit")
+            if arch == QWEN32:
+                es = q.element_size()
+                kv_pos = sum(vlens)
+                nbytes = (2 * 4 * h * 128 * es + 2 * kv_pos * kvh * 128 * es
+                          + 4 * (tbl.numel() + 4 + h))
+                bms, by = bound_ms(nbytes, 4 * kv_pos * h * 128, dtype)
+                rows.append(dict(
+                    kernel="paged_decode_attention", dtype=dtype,
+                    shape=f"B=4 H=48 KVH=8 D=128 page=16 valid_len "
+                    f"{vlens}", max_abs_err=err1,
+                    ms=timer.ms(lambda: ops.paged_decode_attention(
+                        q, k, v, tbl, vl, hmap)),
+                    plain_ms=timer.ms(lambda: ref.paged_decode_attention(
+                        q[:, 0], k, v, tbl, vl, hmap)),
+                    library_ms=None, bound_ms=bms, bound_by=by))
+            del q, k, v, kd, vd, paged, again, dense
+        q, k, v, vl, hmap = _decode_case(torch, dtype, 16, 512,
+                                         DECODE_EVAL_VL, d=128, h=48, kvh=8,
+                                         hmap=QWEN32_HMAP)
+        out = ops.decode_attention(q, k, v, vl, hmap)
+        err = _check_close(torch, out[:, 0], ref.decode_attention_cache(
+            q[:, 0], k, v, vl, hmap), dtype, "row 3 [16, 48 heads, 512]")
+        rows.append(_decode_times(torch, ops, ref, timer, dtype, q, k, v, vl,
+                                  hmap, err))
+        del q, k, v, out
+        for n, d in ARCH_NORM_SHAPES:
+            x, s, _ = _norm_inputs(torch, dt, n, d, seed=n + d)
+            n0 = ops.LAUNCHES["rmsnorm"]
+            out = ops.rmsnorm(x, s, 1e-6)
+            torch.cuda.synchronize()
+            check(ops.LAUNCHES["rmsnorm"] == n0 + 1,
+                  "rmsnorm did not count its launch")
+            err = _check_close(torch, out, ref.rmsnorm(x, s, 1e-6), dtype,
+                               f"rmsnorm [{n}, {d}]")
+            kern = rn.launch(x, s, 1e-6, torch.empty_like(x))
+            check(kern.n_spills == 0, f"rmsnorm [{n}, {d}] {dtype}: "
+                  f"{kern.n_spills} spills ({kern.n_regs} registers)")
+            es = x.element_size()
+            bms, by = bound_ms(2 * n * d * es + d * es, 4 * n * d, dtype)
+            rows.append(dict(
+                kernel="rmsnorm", dtype=dtype,
+                shape=f"[{n}, {d}], {rn.warps(1 << (d - 1).bit_length())} "
+                f"warps, "
+                f"{kern.n_regs} registers, no spills", max_abs_err=err,
+                ms=timer.ms(lambda: ops.rmsnorm(x, s, 1e-6)),
+                plain_ms=timer.ms(lambda: ref.rmsnorm(x, s, 1e-6)),
+                library_ms=timer.ms(lambda: F.rms_norm(x, (d,), weight=s,
+                                                       eps=1e-6)),
+                bound_ms=bms, bound_by=by))
+    print("the widened rows at the new archs' shapes (CUDA events, L2 "
+          "flushed, ms per call; row 1 has no single-call library "
+          "yardstick, row 3's is SDPA with enable_gqa, row 2's "
+          "F.rms_norm):")
+    for r in rows:
+        lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        print(f"  {r['kernel']:<23} {r['dtype']:<9} err "
+              f"{r['max_abs_err']:.2e}  kernel {r['ms']:.4f}  plain "
+              f"{r['plain_ms']:.4f}  library {lib}  bound "
+              f"{r['bound_ms']:.5f} ({r['bound_by']})  {r['shape']}")
+
+
+def _host_available() -> tuple:
+    """(MemAvailable in bytes from /proc/meminfo, ``free -g``'s Mem line)."""
+    avail = 0
+    with open("/proc/meminfo") as f:
+        for ln in f:
+            if ln.startswith("MemAvailable:"):
+                avail = int(ln.split()[1]) * 1024
+    out = subprocess.run(["free", "-g"], capture_output=True, text=True,
+                         timeout=60).stdout
+    mem = next((ln for ln in out.splitlines() if ln.startswith("Mem:")), "")
+    return avail, " ".join(mem.split())
+
+
+def _arch_trainer(torch, Trainer, cfg, steps):
+    """Phase 7's adagradselect run of ``cfg`` (8 x 512, ``remat="full"``)
+    with banked residency, the store pinned in host RAM, bf16 m and v, and
+    the arch's k and gate (``ARCH_TRAIN``)."""
+    k_percent, gate, _ = ARCH_TRAIN[cfg.name]
+    return Trainer(_train_cfg(
+        cfg.replace(gate_weight_grads=gate), "adagradselect", steps,
+        TRAIN["global_batch"], TRAIN["seq_len"], k_percent=k_percent,
+        moment_residency="banked", offload="host",
+        moment_dtype="bfloat16"), device="cuda")
+
+
+def _stepped_peaks(torch, tr, steps) -> list:
+    """``steps`` steps of ``tr`` one at a time: each step's peak device
+    memory (the state included)."""
+    peaks = []
+    for _ in range(steps):
+        torch.cuda.reset_peak_memory_stats()
+        tr.train(1)
+        peaks.append(torch.cuda.max_memory_allocated())
+    return peaks
+
+
+def _lazy_zeros(shape, dtype):
+    """A zero CPU tensor whose pages are mapped when first touched (numpy's
+    zeros): the probes' store, which holds ~10-20 GB of which a run touches
+    the rows it swaps."""
+    import numpy as np
+    import torch
+    nbytes = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+    return torch.from_numpy(np.zeros(max(nbytes, 1), np.uint8))[
+        :nbytes].view(dtype).view(tuple(shape))
+
+
+def _peak_probe(torch, Trainer, cfg, layers) -> int:
+    """The peak device memory of the arch's run at ``layers`` layers,
+    ``ARCH_STEPS`` steps as the full-width run takes. Its store is held in
+    pageable host memory, which the device's allocations do not depend on
+    (a swap from it is synchronous, where pinned it is asynchronous): the
+    probes then pin nothing (``offload.pinned_zeros`` took ~0.26 s a GiB
+    on the host of an NVIDIA H100 80GB HBM3, 700 W machine) and touch only
+    the rows they swap."""
+    from repro_torch.core import offload
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    pinned = offload.pinned_zeros
+    offload.pinned_zeros = _lazy_zeros
+    try:
+        tr = _arch_trainer(torch, Trainer, cfg.replace(num_layers=layers),
+                           ARCH_STEPS)
+    finally:
+        offload.pinned_zeros = pinned
+    peaks = _stepped_peaks(torch, tr, ARCH_STEPS)
+    check(all(math.isfinite(x) for x in tr.log.losses),
+          f"{cfg.name} at {layers} layers: losses {tr.log.losses}")
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  peak at {layers} layers: {max(peaks) / 2**30:.2f} GiB (steps "
+          f"{[round(p / 2**30, 2) for p in peaks]}; "
+          f"{time.perf_counter() - t0:.1f} s with the state's set-up)")
+    return max(peaks)
+
+
+def phase_arch_training(torch, ops, lm, cfg, Trainer) -> dict | None:
+    """The arch at full width, banked host bf16 moments, ``ARCH_STEPS``
+    steps: first the peaks at the two depths of ``ARCH_TRAIN`` and their
+    per-layer slope extrapolated to the full depth, and the host store's
+    bytes beside the host's available memory. An extrapolated peak above
+    ``PEAK_LIMIT_GIB`` fails the phase, and so does a store the host cannot
+    hold, except for yi-9b, whose run is then skipped with both figures
+    printed (decided here, before the full-width run). Returns the run's
+    launches, median step, peak and profile (None when skipped)."""
+    from repro_torch.core import partition as part_mod
+    from repro_torch.core.offload import resident_opt_bytes
+    k_percent, gate, (l1, l2) = ARCH_TRAIN[cfg.name]
+    nl = cfg.num_layers
+    n_params = sum(math.prod(s) for s in _leaves(lm.param_shapes(cfg)))
+    store = 4 * n_params               # bf16 m and v
+    print(f"training {cfg.name} ({nl} layers, d_model {cfg.d_model}, "
+          f"{cfg.padded_heads} q / {cfg.num_kv_heads} kv heads, head dim "
+          f"{cfg.head_dim}, partial rotary {cfg.partial_rotary_factor}, QKV "
+          f"bias {cfg.attn_bias}, {n_params:,} params, bf16): adagradselect "
+          f"k {k_percent:g}%, gate_weight_grads {gate}, banked residency, "
+          f"offload host (pinned), bf16 moments, batch "
+          f"{TRAIN['global_batch']} x {TRAIN['seq_len']}, {ARCH_STEPS} steps")
+    p1 = _peak_probe(torch, Trainer, cfg, l1)
+    p2 = _peak_probe(torch, Trainer, cfg, l2)
+    slope = (p2 - p1) / (l2 - l1)
+    est = p2 + slope * (nl - l2)
+    avail, mem = _host_available()
+    print(f"  per-layer slope {slope / 2**30:.4f} GiB; extrapolated to {nl} "
+          f"layers {est / 2**30:.2f} GiB (limit {PEAK_LIMIT_GIB:g} GiB); host "
+          f"store {store:,} B = {store / 2**30:.2f} GiB of bf16 m and v "
+          f"against {avail / 2**30:.2f} GiB available (free -g: {mem})")
+    why = []
+    if est > PEAK_LIMIT_GIB * 2**30:
+        why.append(f"the extrapolated peak {est / 2**30:.2f} GiB exceeds "
+                   f"{PEAK_LIMIT_GIB:g} GiB")
+    if store > avail - HOST_MARGIN_GIB * 2**30:
+        why.append(f"the host store {store / 2**30:.2f} GiB does not fit in "
+                   f"the {avail / 2**30:.2f} GiB available less "
+                   f"{HOST_MARGIN_GIB:g}")
+    if why and cfg.name == YI:
+        print(f"  {cfg.name} full-width training SKIPPED before its run: "
+              f"{'; '.join(why)}")
+        return None
+    check(not why, f"{cfg.name}: {'; '.join(why)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tr = _arch_trainer(torch, Trainer, cfg, ARCH_STEPS)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    pn = part_mod.build_partition(cfg)
+    layers = next(g for g in pn.groups if g.key == "layers")
+    k = tr.sel_cfg.num_selected(pn.num_blocks)
+    opt = tr.state["opt"]
+    res = resident_opt_bytes(opt)
+    stored = part_mod.leaves(opt["store"])
+    check(all(t.is_pinned() and t.dtype == torch.bfloat16 for t in stored),
+          f"{cfg.name}: the host store is not pinned bf16")
+    check(sum(t.numel() * t.element_size() for t in stored) == store,
+          f"{cfg.name}: host store bytes != {store}")
+    avail_run, mem_run = _host_available()
+    print(f"  init {init_s:.2f} s; optimizer state: device "
+          f"{res['device']:,} B, host {res['host']:,} B; host available "
+          f"{avail_run / 2**30:.2f} GiB with the store pinned (free -g: "
+          f"{mem_run})")
+    masks = _record_masks(tr)
+    ops.reset_launches()                     # the main path's run
+    peaks = _stepped_peaks(torch, tr, ARCH_STEPS)
+    launches = dict(ops.LAUNCHES)
+    peak = max(peaks)
+    log = tr.log
+    check(len(log.losses) == ARCH_STEPS
+          and all(math.isfinite(x) for x in log.losses),
+          f"{cfg.name}: losses {log.losses}")
+    host_masks = [m.cpu() for m in masks]
+    check(all(int(m.sum()) == k for m in host_masks),
+          f"{cfg.name}: selected per step "
+          f"{[int(m.sum()) for m in host_masks]}, want {k}")
+    counts = opt["counts"].cpu()
+    check(torch.equal(counts, torch.stack(host_masks).float().sum(dim=0)),
+          f"{cfg.name}: opt counts {counts.tolist()} != summed masks")
+    adamw = "banked_masked_adamw_bf16m"
+    leaves = len(list(_leaves(tr.state["params"]["layers"])))
+    if gate:
+        want = _gated_expected(host_masks, nl, layers.start, adamw, leaves)
+    else:
+        want = {n: c * ARCH_STEPS for n, c in _train_launches(
+            nl, adamw, leaves=leaves).items()}
+    check(launches == want, f"{cfg.name}: launches {launches} != the "
+          f"path's {want}")
+    warm = TRAIN["warmup"]
+    med = statistics.median(log.step_times[warm:])
+    tokens = TRAIN["global_batch"] * TRAIN["seq_len"]
+    frozen = [nl - int(m[layers.start:layers.start + nl].sum())
+              for m in host_masks]
+    print(f"  losses: {[round(x, 4) for x in log.losses]}")
+    print(f"  step time (median of steps {warm}..{ARCH_STEPS - 1}): "
+          f"{med * 1e3:.2f} ms = {tokens / med:.0f} tokens/s; all steps "
+          f"(ms): {[round(t * 1e3, 2) for t in log.step_times]}")
+    print(f"  peak device memory: {peak / 2**30:.2f} GiB (steps "
+          f"{[round(p / 2**30, 2) for p in peaks]}; extrapolated "
+          f"{est / 2**30:.2f}: {100 * (est - peak) / peak:+.1f}%)")
+    print(f"  k = {k} of {pn.num_blocks} blocks a step; frozen layers a "
+          f"step {frozen if gate else 'none (no gate)'}; counts = summed "
+          f"masks {counts.int().tolist()}")
+    print(f"  swap stats: {json.dumps(tr.step_fn.swap_stats.as_dict())}")
+    print(f"  launches in the {ARCH_STEPS} steps = the path's: "
+          f"{json.dumps(launches)}")
+    prof = _profile_training(torch, tr, host_ops=False)
+    del tr, masks, host_masks, opt, stored
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "step_ms": med * 1e3, "peak": peak,
+            "estimate": est, "profile": prof}
+
+
+def phase_arch_serving(torch, ops, lm, ServeEngine, ServeConfig, Request,
+                       get_config) -> list:
+    """Phase 4's serving cell on each of the three archs at full width
+    (lean: the warm-up run profiled, device activity only); qwen2.5-32b's
+    peak beside the one reckoned."""
+    runs = []
+    for arch in (GLM, YI, QWEN32):
+        gc.collect()
+        torch.cuda.empty_cache()
+        run = phase_serving(torch, ops, lm, get_config(arch), ServeEngine,
+                            ServeConfig, Request, lean=True)
+        if arch == QWEN32:
+            lo, hi = QWEN32_PEAK_GIB
+            print(f"  {arch} serving peak {run['peak'] / 2**30:.2f} GiB "
+                  f"against the reckoned {lo:g}-{hi:g} GiB (62.3 GiB of "
+                  f"bf16 weights, 0.54 GB of KV pool)")
+        runs.append(run)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs
+
+
+def phase_arch_consistency(torch, ops, lm, Trainer, ServeEngine,
+                           ServeConfig, Request, get_config) -> None:
+    """Each arch's head-layout variant (its own q/kv heads, head dim,
+    partial rotary, bias and ``pad_heads_to`` at d_model 256, d_ff 256,
+    vocab 256, 2 layers) in f32: phase 25's checks, losses within 1e-5; a
+    greedy token where the teacher-forced prefill's top two logits are
+    within ``TOL["float32"]`` (relative) of each other may be either (a tie
+    at f32 rounding: at these widths the logits sit close together)."""
+    for arch in (GLM, YI, QWEN32):
+        full = get_config(arch)
+        variant = full.replace(d_model=256, d_ff=256, vocab_size=256,
+                               head_dim=full.head_dim)
+        phase_model_consistency(torch, ops, lm, variant, Trainer,
+                                ServeEngine, ServeConfig, Request,
+                                loss_rtol=1e-5, tie_rtol=TOL["float32"])
+
+
 class _Phases:
     """The running phase's name, and the seconds each finished phase took
     (host clock, from its start to the next phase's)."""
@@ -4064,7 +4541,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase.start("phi4 consistency")
         phase_model_consistency(torch, ops, lm, phi4_cfg, Trainer,
-                                ServeEngine, ServeConfig, Request)
+                                ServeEngine, ServeConfig, Request,
+                                layers=PHI4_CONSISTENCY_LAYERS)
         gc.collect()
         torch.cuda.empty_cache()
         phase.start("bf16 moments training")
@@ -4087,7 +4565,7 @@ def main() -> int:
         phase_train_consistency(torch, ops, cfg, Trainer,
                                 moment_dtype="bfloat16")
         phase.start("checkpoint")
-        phase_checkpoint(torch, Trainer, cfg)
+        phase_checkpoint(torch, Trainer, cfg.replace(num_layers=CKPT_LAYERS))
         gc.collect()
         torch.cuda.empty_cache()
         phase.start("serving stack")
@@ -4101,6 +4579,23 @@ def main() -> int:
         phase.start("lora training")
         runs.append(phase_lora(torch, ops, cfg, Trainer, training,
                                rounds["median_ms"]["full"]))
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase.start("arch kernels")
+        phase_arch_kernels(torch, ops, ref, Timer(torch))
+        phase.start("chatglm training")
+        runs.append(phase_arch_training(torch, ops, lm, get_config(GLM),
+                                        Trainer))
+        phase.start("yi training")
+        yi = phase_arch_training(torch, ops, lm, get_config(YI), Trainer)
+        if yi is not None:
+            runs.append(yi)
+        phase.start("arch serving")
+        runs += phase_arch_serving(torch, ops, lm, ServeEngine, ServeConfig,
+                                   Request, get_config)
+        phase.start("arch consistency")
+        phase_arch_consistency(torch, ops, lm, Trainer, ServeEngine,
+                               ServeConfig, Request, get_config)
     except Exception:   # the boundary: report the failed phase, exit non-zero
         traceback.print_exc()
         print(f"chip_smoke: phase {phase.name!r} FAILED", file=sys.stderr)
@@ -4157,8 +4652,10 @@ def main() -> int:
         # RMSNorm backward's dx-only mode; and for every kernel the new
         # models' runs (phases 20, 21, 23 and 24), the bf16-moment runs
         # (phases 26 and 27), the serving stack's timed runs (phase 30:
-        # engines A and B, the chunked paged run, the dense sampled run) and
-        # the LoRA run (phase 32), zero where it is off their path
+        # engines A and B, the chunked paged run, the dense sampled run),
+        # the LoRA run (phase 32) and the other dense archs' training runs
+        # (phases 34, 35) and serving runs (36), zero where it is off their
+        # path
         launches = sum(run["launches"][name] for run in runs)
         if name == "rmsnorm_bwd_dx":
             launches += gated["launches"][name]

@@ -1,7 +1,8 @@
 """Architecture registry of the port: ``--arch <id>`` resolution.
 
-The paper's three models are registered; the other archs of the JAX
-package raise with the ROADMAP item that ports them."""
+The paper's three models and the JAX package's other three dense archs
+are registered; its other families raise with the ROADMAP item that
+ports them."""
 from __future__ import annotations
 
 import importlib
@@ -13,6 +14,10 @@ _ARCH_MODULES = {
     "qwen2.5-0.5b": "qwen2_5_0_5b",
     "llama3.2-1b": "llama3_2_1b",
     "phi4-mini-3.8b": "phi4_mini_3_8b",
+    # the reference's other dense archs
+    "chatglm3-6b": "chatglm3_6b",
+    "yi-9b": "yi_9b",
+    "qwen2.5-32b": "qwen2_5_32b",
 }
 
 

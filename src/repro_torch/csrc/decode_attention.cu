@@ -37,11 +37,13 @@
 //   - grid (KVH * n_slice, B, n_split): a block per (kv head, head slice,
 //     batch row, chunk) serves up to kMaxHeads = 16 of the q heads that
 //     hmap maps to its kv head, in order: slice s takes the group's heads
-//     16 s .. 16 s + 15. A row has at most kMaxQHeads = 32 q heads and
+//     16 s .. 16 s + 15. A row has at most kMaxQHeads = 64 q heads and
 //     n_slice = ceil(H / 16), a function of the shapes only (1 for
-//     qwen2.5-0.5b's padded 16; 2 for 32, where a block whose slice holds
-//     no head returns at once, so any map of 32 heads is served, all of them
-//     on one kv head included). Chunk c holds positions [c L, (c + 1) L), L =
+//     qwen2.5-0.5b's padded 16; 2 for 32; 3 for qwen2.5-32b's padded 48,
+//     whose kv head 7 serves 13 heads and the others 5; a block whose slice
+//     holds no head returns at once, so any map of up to 64 heads is
+//     served, all of them on one kv head included). Warp 0 finds a kv
+//     head's q heads with two ballots, one a 32-head word of the map. Chunk c holds positions [c L, (c + 1) L), L =
 //     S / n_split rounded up to 32; n_split (at most kMaxSplit) is the
 //     caller's, a function of the shapes only
 //     (kernels/decode_attention.py `decode_splits`: the fewest chunks of
@@ -117,7 +119,7 @@ constexpr int kWarps = 4;         // the f32 body's
 constexpr int kThreads = 32 * kWarps;
 constexpr int kTile = 32;         // positions per warp step
 constexpr int kMaxHeads = 16;     // q heads a block serves: the MMA's rows
-constexpr int kMaxQHeads = 32;    // q heads a row: one lane of warp 0 each
+constexpr int kMaxQHeads = 64;    // q heads a row: two of warp 0's lanes
 constexpr int kMaxSplit = 32;     // chunks per row
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
@@ -149,13 +151,23 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// Warp 0's two words of the head map: lane i holds hmap[i] and hmap[32 + i]
+// (-1 past H, which matches no kv head); loaded beside valid_len
+__device__ __forceinline__ int2 head_map(const int* __restrict__ hmap,
+                                         int H) {
+  const int t = threadIdx.x;
+  return make_int2(t < 32 && t < H ? __ldg(hmap + t) : -1,
+                   t < 32 && t + 32 < H ? __ldg(hmap + t + 32) : -1);
+}
+
 // The block's q heads: heads[0 .. n) the q heads of slice `slice` of those
-// that hmap maps to kv head kvh, in order (H <= kMaxQHeads = 32; warp 0
-// fills them from `my_map`, hmap[lane], which the caller read beside
-// valid_len); the row's first block also writes zeros to the q heads that
-// no block serves. The caller synchronises before reading them.
+// that hmap maps to kv head kvh, in order (H <= kMaxQHeads = 64; warp 0
+// fills them from `my_map`, its lane's two entries from `head_map`: one
+// ballot a word, the second word's heads counted after the first's); the
+// row's first block also writes zeros to the q heads that no block serves.
+// The caller synchronises before reading them.
 template <typename T>
-__device__ __forceinline__ void group_heads(int my_map,
+__device__ __forceinline__ void group_heads(int2 my_map,
                                             const int* __restrict__ hmap,
                                             T* __restrict__ out_b, int H,
                                             int KVH, int kvh, int slice,
@@ -163,12 +175,16 @@ __device__ __forceinline__ void group_heads(int my_map,
                                             int* n_heads) {
   const int tid = threadIdx.x, lane = tid & 31;
   if (tid < 32) {
-    const bool mine = lane < H && my_map == kvh;
-    const unsigned mask = __ballot_sync(kFull, mine);
-    const int i = __popc(mask & ((1u << lane) - 1u)) - slice * kMaxHeads;
-    if (mine && i >= 0 && i < kMaxHeads) heads[i] = lane;
+    const unsigned below = (1u << lane) - 1u;
+    const unsigned lo = __ballot_sync(kFull, my_map.x == kvh);
+    const unsigned hi = __ballot_sync(kFull, my_map.y == kvh);
+    const int skip = slice * kMaxHeads;
+    const int i0 = __popc(lo & below) - skip;
+    const int i1 = __popc(lo) + __popc(hi & below) - skip;
+    if (my_map.x == kvh && i0 >= 0 && i0 < kMaxHeads) heads[i0] = lane;
+    if (my_map.y == kvh && i1 >= 0 && i1 < kMaxHeads) heads[i1] = 32 + lane;
     if (lane == 0)
-      *n_heads = min(kMaxHeads, max(0, __popc(mask) - slice * kMaxHeads));
+      *n_heads = min(kMaxHeads, max(0, __popc(lo) + __popc(hi) - skip));
   }
   if (first) {
     for (int i = tid; i < H * D; i += blockDim.x) {
@@ -335,7 +351,7 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
     n_pages = (min(S, t0_chunk + chunk) + pg.ps - 1) / pg.ps - p0;
     first = first_page(pg, b, p0, n_pages);
   }
-  const int my_map = threadIdx.x < H ? __ldg(hmap + threadIdx.x) : -1;
+  const int2 my_map = head_map(hmap, H);
   const int n_keys = max(0, min(valid_len[b], S));
   const int n_used = max(1, (n_keys + chunk - 1) / chunk);
   if (chunk_id >= n_used) return;   // past valid_len: nothing to read
@@ -633,7 +649,7 @@ decode_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     n_pages = (min(S, t0_chunk + chunk) + pg.ps - 1) / pg.ps - p0;
     first = first_page(pg, b, p0, n_pages);
   }
-  const int my_map = threadIdx.x < H ? __ldg(hmap + threadIdx.x) : -1;
+  const int2 my_map = head_map(hmap, H);
   const int n_keys = max(0, min(valid_len[b], S));
   const int n_used = max(1, (n_keys + chunk - 1) / chunk);
   if (chunk_id >= n_used) return;   // past valid_len: nothing to read

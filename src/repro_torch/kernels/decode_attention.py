@@ -20,7 +20,7 @@ from repro_torch.kernels import _build
 
 SOURCE = "decode_attention.cu"
 HEAD_DIMS = (64, 128)   # the kernels' instances
-MAX_HEADS = 32          # the kernels' kMaxQHeads: q heads a row
+MAX_HEADS = 64          # the kernels' kMaxQHeads: q heads a row
 BLOCK_HEADS = 16        # kMaxHeads: q heads a block serves, so a kv head's
                         # group is served by ceil(H / 16) blocks
 MAX_SPLIT = 32          # the kernels' kMaxSplit: chunks a row

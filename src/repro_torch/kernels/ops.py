@@ -191,8 +191,8 @@ def rmsnorm(x, scale, eps=1e-5):
         _fail(name, f"scale must be float32 or bfloat16, got {scale.dtype}")
     if not (x.is_contiguous() and scale.is_contiguous()):
         _fail(name, "x and scale must be contiguous")
-    if not 0 < d <= _rn.MAX_D:
-        _fail(name, f"the kernel takes 0 < D <= {_rn.MAX_D}, got {d}")
+    if not 0 < d <= _rn.MAX_D_FWD:
+        _fail(name, f"the kernel takes 0 < D <= {_rn.MAX_D_FWD}, got {d}")
     _rn.load()
     x2d = x.view(-1, d)
     out = torch.empty_like(x2d)
@@ -224,8 +224,8 @@ def rmsnorm_bwd(dy, x, scale, eps=1e-5, with_dscale=True):
     if not (dy.is_contiguous() and x.is_contiguous()
             and scale.is_contiguous()):
         _fail(name, "dy, x and scale must be contiguous")
-    if not 0 < d <= _rn.MAX_D:
-        _fail(name, f"the kernel takes 0 < D <= {_rn.MAX_D}, got {d}")
+    if not 0 < d <= _rn.MAX_D_BWD:
+        _fail(name, f"the kernel takes 0 < D <= {_rn.MAX_D_BWD}, got {d}")
     _rn.load()
     x2d = x.view(-1, d)
     dx = torch.empty_like(x2d)

@@ -6,9 +6,11 @@ statistics in f32, output in the dtype of x. It is bound by memory: each
 element is read once and written once with ~4 flops between. One program
 normalises one row held whole in registers (``BLOCK`` = next power of two
 >= D, masked: 1024 for qwen2.5-0.5b's D 896, 2048 for llama3.2-1b's 2048,
-4096 for phi4-mini's 3072), so x is read from device memory once. The
-program's warps grow with ``BLOCK`` (``warps``: 4 up to 1024, then one per
-256 lanes), so that a thread holds at most 8 lanes of a row at any width.
+4096 for phi4-mini's 3072, 8192 for qwen2.5-32b's 5120), so x is read
+from device memory once. The program's warps grow with ``BLOCK``
+(``warps``: 4 up to 1024, then one per 256 lanes: 32, Triton's most, at
+``MAX_D_FWD`` = 8192), so that a thread holds at most 8 lanes of a row at
+any width.
 
 The backward has no TPU kernel to replace: the JAX package differentiates
 its RMSNorm in XLA. The port has one because the forward is a kernel on the
@@ -50,7 +52,9 @@ bound, in one launch instead of two.
 
 No atomics and a fixed order: on one card the same inputs give the same
 bits. A row is held whole in registers, padded to the next power of two
-(``MAX_D`` at most): the masked lanes load nothing.
+(``MAX_D_BWD`` = 4096 at most: the row pass holds five [TILE, BLOCK]
+tensors, so it stays at the widths of the models that train on the card):
+the masked lanes load nothing.
 
 Triton is imported, and the kernel compiled, at the first launch: this
 module imports on machines without Triton (the CPU tests use the plain
@@ -63,7 +67,9 @@ import torch
 
 from repro_torch.kernels import _build
 
-MAX_D = 4096   # a padded row held in registers by ``warps(MAX_D)`` warps
+MAX_D_FWD = 8192   # the forward: a padded row held in registers by
+                   # ``warps(MAX_D_FWD)`` = 32 warps, 8 lanes a thread
+MAX_D_BWD = 4096   # the backward's row pass (five live [TILE, BLOCK] tensors)
 BWD_PER_SM = 2          # row-pass programs an SM: partial rows of dscale
 BWD_TILE_BYTES = 8192   # a row-pass tile of x (and one of dy)
 BWD_STAGES = 3          # the row pass's pipelined loop
@@ -81,7 +87,8 @@ def _pow2(n: int) -> int:
 
 def warps(block: int) -> int:
     """Warps of a program over rows padded to ``block`` lanes: 4 up to
-    1024 lanes (8 a thread), then one warp per 256 lanes (16 at 4096)."""
+    1024 lanes (8 a thread), then one warp per 256 lanes (16 at 4096, 32
+    at 8192)."""
     return max(4, block // 256)
 
 

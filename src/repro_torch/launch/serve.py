@@ -4,7 +4,9 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-0.5b \
       --kv-layout paged [--smoke] [--device cuda]
 
-``--arch`` takes qwen2.5-0.5b, llama3.2-1b or phi4-mini-3.8b. Mirrors the
+``--arch`` takes qwen2.5-0.5b, llama3.2-1b, phi4-mini-3.8b, chatglm3-6b,
+yi-9b or qwen2.5-32b (on one H100 at full width too: ``chip_smoke.py``
+phase 36 serves the last three). Mirrors the
 flags of the JAX package's ``launch/serve.py``: ``--prefill-chunk`` (chunked
 prefill width), ``--prefix-cache`` (the radix prefix cache; the demo batch
 then shares row 0's first half so hits are observable), ``--preempt``

@@ -11,7 +11,12 @@ On the CPU, through the plain PyTorch versions of the kernels:
 
 ``--arch`` takes the paper's three models: qwen2.5-0.5b, llama3.2-1b and
 phi4-mini-3.8b (``chip_smoke.py`` phases 20 and 23 print the peak device
-memory of their full-width training).
+memory of their full-width training), and the reference's other three
+dense archs: chatglm3-6b, yi-9b and qwen2.5-32b. At full width chatglm3-6b
+and yi-9b train on one H100 only with banked moments in pinned host RAM
+(``--moment-residency banked --offload host``; ``chip_smoke.py`` phases 34
+and 35 also use bf16 moments); qwen2.5-32b's bf16 weights alone are 66.9
+GB, so it only serves there.
 
 Banked moment residency (paper §3.3): ``--moment-residency banked`` with
 ``--offload host`` (the full store in pinned host RAM) or ``--offload

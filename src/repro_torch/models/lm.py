@@ -14,6 +14,8 @@ the ``insert_slots*`` functions.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -87,11 +89,22 @@ def param_shapes(cfg: ModelConfig) -> dict:
     return walk(param_specs(cfg))
 
 
+# f32 elements one draw of ``init`` holds, unless one slice along a leaf's
+# leading axis is larger (then one slice a draw)
+INIT_DRAW = 1 << 26
+
+
 def init(cfg: ModelConfig, generator: torch.Generator | None = None, *,
          device="cuda") -> dict:
     """Random parameters with the reference's shapes and scales (normal
     weights, zero biases, unit norm scales), drawn from ``generator`` (a
-    generator on ``device``; default: seed 0) in a fixed key order."""
+    generator on ``device``; default: seed 0) in a fixed key order.
+
+    Each weight leaf is drawn in slices along its leading axis, as many
+    slices a draw as fit in ``INIT_DRAW`` f32 elements (at least one), each
+    scaled in place and cast into the leaf: the f32 temporary is at most
+    one draw (one [d_model, d_ff] layer of qwen2.5-32b's ``mlp.wg``, 0.57
+    GB), never the whole leaf in f32 (36 GB for that one)."""
     check_supported(cfg)
     dev = resolve_device(device)
     if generator is None:
@@ -105,8 +118,15 @@ def init(cfg: ModelConfig, generator: torch.Generator | None = None, *,
             return torch.zeros(shape, dtype=dt, device=dev)
         if how == "ones":
             return torch.ones(shape, dtype=dt, device=dev)
-        w = torch.randn(shape, generator=generator, device=dev)
-        return (w * how).to(dt)
+        out = torch.empty(shape, dtype=dt, device=dev)
+        row = math.prod(shape[1:])
+        step = max(1, INIT_DRAW // max(1, row))
+        for i in range(0, shape[0], step):
+            n = min(step, shape[0] - i)
+            w = torch.randn((n,) + tuple(shape[1:]), generator=generator,
+                            device=dev)
+            out[i:i + n].copy_(w.mul_(how))
+        return out
 
     def walk(t):
         return {k: (make(*v) if _is_spec(v) else walk(v))

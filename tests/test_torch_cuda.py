@@ -34,8 +34,12 @@ Prefetching (depth 2, the copy stream) adds no host sync to a training
 call, dense or banked, and obs adds one a step (its selection read); the
 copy stream's batches are bit-equal to the synchronous upload.
 Rows 2 and 2b are also held at llama3.2-1b's and phi4-mini's widths (D
-2048 and 3072) and at ``MAX_D``, without register spills, and refuse a
-wider row.
+2048 and 3072) and at ``MAX_D_BWD`` (4096), without register spills; row 2
+at qwen2.5-32b's 5120 and at ``MAX_D_FWD`` (8192), without spills; each
+refuses a wider row (the backward 5120). Rows 1 and 3 are held at 48 and 64
+q heads (qwen2.5-32b's padded map, three and four blocks a kv head), and
+``lm.init`` of a qwen2.5-32b-width stack peaks within one f32 draw of its
+bf16 bytes.
 The dense decode attention kernel (row 3) is held against its plain version at
 the shapes of ``chip_smoke.py`` phase 15 (the eval shape, the S and
 valid_len of ``tests/test_kernels.py``, ragged S, head dim 128), against
@@ -49,6 +53,8 @@ sync, the counter-based sampling noise has the CPU's bits, and a prefix-cache
 admission whose copy-on-write and pad rows write to the pool's sink page
 runs without a device assert and keeps the prefix-off engine's tokens.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -173,6 +179,40 @@ def test_decode_groups_over_16_heads(cuda_device, hmap, dtype):
     assert _bits_equal(ops.decode_attention(q, kd, vd, vl, hm), paged)
 
 
+# qwen2.5-32b's map (40 q heads padded to 48 on 8 kv heads: 5 a kv head,
+# 13 on kv head 7), 48 and 64 heads on one kv head (three and four blocks),
+# and chatglm3-6b's 32 q heads on 2 kv heads
+WIDE_GROUPS = {"qwen2.5-32b": np.minimum(np.arange(48) // 5, 7),
+               "48-one-kv-head": np.zeros(48, int),
+               "64-interleaved": np.arange(64) % 2,
+               "64-one-kv-head": np.zeros(64, int),
+               "chatglm3-6b": np.arange(32) // 16}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", list(WIDE_GROUPS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_up_to_64_heads(cuda_device, group, dtype):
+    """Rows 1 and 3 past 32 q heads (the map read as two 32-head words) at
+    head dim 128: against their plain versions, bit-equal to each other on
+    one pool, and bit-identical over two launches."""
+    hmap = WIDE_GROUPS[group]
+    q, k, v, tbl, vl, hm = _paged_inputs(cuda_device, dtype, 16,
+                                         [1, 19, 300, 512], 32,
+                                         h=len(hmap), kvh=int(hmap.max()) + 1,
+                                         d=128, hmap=hmap)
+    paged = ops.paged_decode_attention(q, k, v, tbl, vl, hm)
+    again = ops.paged_decode_attention(q, k, v, tbl, vl, hm)
+    assert _bits_equal(paged, again)
+    _close(paged[:, 0], ref.paged_decode_attention(q[:, 0], k, v, tbl, vl,
+                                                   hm), dtype)
+    kd, vd = _gathered(k, tbl, q.shape[0]), _gathered(v, tbl, q.shape[0])
+    dense = ops.decode_attention(q, kd, vd, vl, hm)
+    _close(dense[:, 0], ref.decode_attention_cache(q[:, 0], kd, vd, vl, hm),
+           dtype)
+    assert _bits_equal(dense, paged)
+
+
 def _gathered(pool, tbl, b):
     """The dense [B, max_pages * page_size, KVH, D] view of a pool that its
     tables gather (sentinels clamped), as the plain paged version reads
@@ -227,9 +267,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         ops.paged_decode_attention(q, k, v, tbl.long(), vl, hm)
     with pytest.raises(ValueError, match="dtype"):
         ops.paged_decode_attention(q.bfloat16(), k, v, tbl, vl, hm)
-    with pytest.raises(ValueError, match="at most 32 q heads"):
-        ops.paged_decode_attention(torch.cat([q] * 4, 2), k, v, tbl, vl,
-                                   torch.cat([hm] * 4))
+    with pytest.raises(ValueError, match="at most 64 q heads"):
+        ops.paged_decode_attention(torch.cat([q] * 5, 2), k, v, tbl, vl,
+                                   torch.cat([hm] * 5))
     with pytest.raises(ValueError, match="head dim"):
         ops.paged_decode_attention(q[..., :32].contiguous(),
                                    k[..., :32].contiguous(),
@@ -387,7 +427,7 @@ def _wide_rows(dev, n, d, dtype, seed):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rmsnorm_wide_rows(cuda_device, n, d, dtype):
     """Rows 2 and 2b at llama3.2-1b's and phi4-mini's widths (2048, 3072)
-    and at ``MAX_D``: the forward, the backward and its dx-only mode within
+    and at ``MAX_D_BWD``: the forward, the backward and its dx-only mode within
     the tolerance of their plain versions, dx and dscale bit-identical over
     two launches, dx-only's dx the full mode's bits, and no compiled kernel
     spilling registers."""
@@ -416,17 +456,72 @@ def test_rmsnorm_wide_rows(cuda_device, n, d, dtype):
 
 
 @pytest.mark.cuda
-def test_rmsnorm_refuses_rows_wider_than_max_d(cuda_device):
+@pytest.mark.parametrize("n", [4, 1024])
+@pytest.mark.parametrize("d", [5120, 8192])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_forward_past_4096(cuda_device, n, d, dtype):
+    """Row 2 at qwen2.5-32b's D 5120 and at ``MAX_D_FWD`` (8192, 32 warps):
+    within the tolerance of its plain version, bit-identical over two
+    launches, one launch counted, no register spills."""
     from repro_torch.kernels import rmsnorm as rn
-    x, s, dy = _wide_rows(cuda_device, 2, rn.MAX_D + 1, torch.float32, 1)
+    x, s, _ = _wide_rows(cuda_device, n, d, dtype, seed=d + n)
+    n0 = ops.LAUNCHES["rmsnorm"]
+    y = ops.rmsnorm(x, s, 1e-6)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["rmsnorm"] == n0 + 1
+    _close(y, ref.rmsnorm(x, s, 1e-6), dtype)
+    assert _bits_equal(y, ops.rmsnorm(x, s, 1e-6))
+    k = rn.launch(x, s, 1e-6, torch.empty_like(x))
+    assert k.n_spills == 0, (k.name, k.n_regs, k.n_spills)
+
+
+@pytest.mark.cuda
+def test_rmsnorm_refuses_rows_wider_than_max_d(cuda_device):
+    """The forward refuses D past ``MAX_D_FWD`` (8192); the backward, both
+    modes, past ``MAX_D_BWD`` (4096), so qwen2.5-32b's 5120 too; no launch
+    is counted."""
+    from repro_torch.kernels import rmsnorm as rn
+    x, s, _ = _wide_rows(cuda_device, 2, rn.MAX_D_FWD + 1, torch.float32, 1)
     before = dict(ops.LAUNCHES)
-    with pytest.raises(ValueError, match=f"D <= {rn.MAX_D}"):
+    with pytest.raises(ValueError, match=f"D <= {rn.MAX_D_FWD}"):
         ops.rmsnorm(x, s)
-    with pytest.raises(ValueError, match=f"D <= {rn.MAX_D}"):
-        ops.rmsnorm_bwd(dy, x, s)
-    with pytest.raises(ValueError, match=f"D <= {rn.MAX_D}"):
-        ops.rmsnorm_bwd(dy, x, s, with_dscale=False)
+    for d in (5120, rn.MAX_D_BWD + 1):
+        x, s, dy = _wide_rows(cuda_device, 2, d, torch.float32, 1)
+        with pytest.raises(ValueError, match=f"D <= {rn.MAX_D_BWD}"):
+            ops.rmsnorm_bwd(dy, x, s)
+        with pytest.raises(ValueError, match=f"D <= {rn.MAX_D_BWD}"):
+            ops.rmsnorm_bwd(dy, x, s, with_dscale=False)
     assert ops.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_init_peak_within_one_f32_draw(cuda_device):
+    """``lm.init`` of qwen2.5-32b at full width with 2 layers (5.1 GB of
+    bf16) draws slice by slice: its peak is the bf16 bytes it returns plus
+    at most one f32 draw, one [d_model, d_ff] layer of ``mlp.wg`` (0.57
+    GB), never a whole leaf in f32."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    cfg = get_config("qwen2.5-32b").replace(num_layers=2)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init(cfg, torch.Generator(device=cuda_device).manual_seed(0),
+                     device="cuda")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    held = sum(t.numel() * t.element_size() for t in _tree_leaves(params))
+    draw = 4 * cfg.d_model * cfg.d_ff
+    assert held == 2 * sum(math.prod(sh) for sh in _tree_leaves(
+        lm.param_shapes(cfg)))
+    assert held <= peak <= held + draw + (8 << 20), (held, peak, draw)
+    del params
+    torch.cuda.empty_cache()
+
+
+def _tree_leaves(tree):
+    for v in tree.values():
+        yield from (_tree_leaves(v) if isinstance(v, dict) else (v,))
 
 
 # ------------------------------------------- banked residency (row 9) and repairs

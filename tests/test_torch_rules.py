@@ -167,7 +167,7 @@ def test_training_features_not_ported_raise(call, item):
         call()
 
 
-@pytest.mark.parametrize("arch", ["yi-9b", "mamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "mamba2-2.7b"])
 def test_unknown_arch_names_its_items(arch):
     """An arch the port has not registered raises with the Queue A item
     that ports it."""
@@ -175,10 +175,12 @@ def test_unknown_arch_names_its_items(arch):
         get_smoke_config(arch)
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "phi4-mini-3.8b"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "phi4-mini-3.8b",
+                                  "chatglm3-6b", "yi-9b", "qwen2.5-32b"])
 def test_launchers_take_the_papers_other_models(arch, capsys):
-    """``--arch`` takes the paper's other two models: their SMOKE configs
-    train and serve on the CPU through the plain versions."""
+    """``--arch`` takes the paper's other two models and the reference's
+    other three dense archs: their SMOKE configs train and serve on the
+    CPU through the plain versions."""
     assert launch_train.main(["--arch", arch, "--smoke", "--device", "cpu",
                               "--steps", "2", "--seq-len", "48",
                               "--global-batch", "2"]) == 0
@@ -273,11 +275,18 @@ def test_wrappers_raise_for_cuda_tensors_without_a_build(missing_builds):
 @pytest.mark.parametrize("fn", ["rmsnorm", "rmsnorm_bwd", "rmsnorm_bwd_dx"])
 def test_rmsnorm_refuses_d_above_max_d(fn):
     """A CUDA row wider than the RMSNorm kernels take raises before any
-    launch, and never gives way to the plain version."""
-    d = rn.MAX_D + 8
+    launch, and never gives way to the plain version: the forward takes D
+    up to ``MAX_D_FWD`` (8192), the backward, both modes, up to
+    ``MAX_D_BWD`` (4096), so it refuses qwen2.5-32b's 5120."""
+    limit = rn.MAX_D_FWD if fn == "rmsnorm" else rn.MAX_D_BWD
+    d = limit + 8
     x, s = _fake(torch.zeros(2, d)), _fake(torch.ones(d))
     before = dict(ops.LAUNCHES)
-    with pytest.raises(ValueError, match=f"D <= {rn.MAX_D}"):
+    if fn != "rmsnorm":
+        x5, s5 = _fake(torch.zeros(2, 5120)), _fake(torch.ones(5120))
+        with pytest.raises(ValueError, match=f"D <= {limit}, got 5120"):
+            ops.rmsnorm_bwd(x5, x5, s5, with_dscale=fn == "rmsnorm_bwd")
+    with pytest.raises(ValueError, match=f"D <= {limit}"):
         if fn == "rmsnorm":
             ops.rmsnorm(x, s)
         else:
@@ -293,11 +302,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
            _fake(torch.zeros(16, dtype=torch.int32))]
     with pytest.raises(ValueError, match="head dim"):
         ops.paged_decode_attention(q, pool, pool, *i32)
-    q64 = _fake(torch.zeros(2, 1, 64, 64))   # 64 q heads: kernel takes 32
+    q80 = _fake(torch.zeros(2, 1, 80, 64))   # 80 q heads: kernel takes 64
     pool64 = _fake(torch.zeros(8, 4, 2, 64))
-    with pytest.raises(ValueError, match="at most 32 q heads"):
-        ops.paged_decode_attention(q64, pool64, pool64, *i32[:2],
-                                   _fake(torch.zeros(64, dtype=torch.int32)))
+    with pytest.raises(ValueError, match="at most 64 q heads"):
+        ops.paged_decode_attention(q80, pool64, pool64, *i32[:2],
+                                   _fake(torch.zeros(80, dtype=torch.int32)))
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         ops.rmsnorm(_fake(torch.zeros(3, 8, dtype=torch.float16)),
                     _fake(torch.ones(8, dtype=torch.float16)))
@@ -458,7 +467,7 @@ def test_dense_decode_has_one_plain_version(hmap, dtype):
 
 def test_dense_decode_wrapper_raises_and_rejects(missing_builds):
     """Row 3 on CUDA tensors: no build raises and counts nothing; int64
-    operands, a head dim other than 64 or 128, more than 32 q heads, a
+    operands, a head dim other than 64 or 128, more than 64 q heads, a
     softcap and a scalar valid_len are refused by name."""
     before = dict(ops.LAUNCHES)
     q, kv = _fake(torch.zeros(2, 1, 16, 64)), _fake(torch.zeros(2, 8, 2, 64))
@@ -475,9 +484,9 @@ def test_dense_decode_wrapper_raises_and_rejects(missing_builds):
                                                                    32))
     with pytest.raises(ValueError, match="head dim"):
         ops.decode_attention(q32, kv32, kv32, vl, hm)
-    with pytest.raises(ValueError, match="at most 32 q heads"):
-        ops.decode_attention(_fake(torch.zeros(2, 1, 64, 64)), kv, kv, vl,
-                             _fake(torch.zeros(64, dtype=torch.int32)))
+    with pytest.raises(ValueError, match="at most 64 q heads"):
+        ops.decode_attention(_fake(torch.zeros(2, 1, 80, 64)), kv, kv, vl,
+                             _fake(torch.zeros(80, dtype=torch.int32)))
     with pytest.raises(ValueError, match="softcap"):
         ops.decode_attention(q, kv, kv, vl, hm, softcap=30.0)
     with pytest.raises(ValueError, match="softcap"):   # on the CPU as well
