@@ -15,10 +15,13 @@ Phases, each of which makes the run exit non-zero if it fails:
    max_len 512, page 16) and a larger one (32 rows, valid_len 2048), with
    32 q heads on 8 kv heads at head dim 64 and 128 and pages of 4 and 16,
    and forced to each split 1-4 at 32 x 2048 (bit-identical over two
-   launches, timed); RMSNorm
-   (Triton) on [N, D] at the three models' widths (D 896, 2048 and 3072;
-   N 4, and the training path's 8192 or 4096 rows); bf16 and f32; max error
-   against the tolerance,
+   launches, timed); the RMSNorm forward (CUDA C++, ``csrc/rmsnorm.cu``)
+   on [N, D] at the three models' widths (D 896, 2048 and 3072; N 4, and
+   the training path's 8192 or 4096 rows), bit-identical over two
+   launches, with each compiled instance's registers and spills as ptxas
+   reports them (a spill fails) and the host microseconds that an
+   ``ops.rmsnorm`` call takes to enqueue at [4, 896]; bf16 and f32; max
+   error against the tolerance,
    on inputs whose outputs are large beside it (a peaked softmax: the
    comparison fails a kernel that returns zeros or a flat average); times from CUDA events with L2 flushed before each launch, and each
    kernel's bound (bytes over 3.35 TB/s, operations over the peak rate of
@@ -44,7 +47,7 @@ Phases, each of which makes the run exit non-zero if it fails:
    phi4-mini's wg [16, 2048*8192] and [32, 3072*8192] with 5 rows
    selected, and the RMSNorm backward (Triton) on [4, D] and [8*512, D] at
    D 896, 2048 and 3072, with the registers and spills Triton reports for
-   the compiled RMSNorm kernels (a spill fails); rows with sel = 0 come back
+   its compiled kernels (a spill fails); rows with sel = 0 come back
    bit-identical, two launches of the norms and of the RMSNorm backward
    give the same bits; the RMSNorm backward's dx-only mode (a frozen
    layer's norm) at both shapes: one launch, dx within the tolerance of
@@ -277,7 +280,8 @@ Phases, each of which makes the run exit non-zero if it fails:
    128, bf16 and f32, against their plain versions, bit-identical over two
    launches and row 3 on the gathered view bit-equal to row 1; row 2 at
    [4, 5120], [1024, 5120], [4, 8192] and [1024, 8192] against its plain
-   version with its registers (a spill fails); times as in phase 3 (row 1
+   version, bit-identical over two launches, with the plan's warps a row
+   and the instance's registers (a spill fails); times as in phase 3 (row 1
    at B 4, row 3 at [16, 48 heads, 512] beside SDPA, row 2 beside
    ``F.rms_norm``);
 34. chatglm3-6b at full width (28 layers, d_model 4096, 32 q / 2 kv heads,
@@ -323,7 +327,6 @@ import dataclasses
 import gc
 import json
 import math
-import re
 import shutil
 import statistics
 import subprocess
@@ -384,6 +387,8 @@ NORM_SHAPES = ((4, 896), (8192, 896), (4, 2048), (4, 3072), (4096, 2048),
 NORM_BWD_SHAPES = ((4, 896), (4096, 896), (4, 2048), (4, 3072),
                    (4096, 2048), (4096, 3072))
 NORM_MAIN = (4096, 3072)   # the summary line's rows 2 and 2b (phi4-mini)
+NORM_HOST = (4, 896)   # row 2's decode row block, whose enqueue is timed
+HOST_BATCHES, HOST_CALLS = 20, 200   # host-timed calls
 NORM_DX_MAIN = (4096, 896)  # 2b's dx-only mode: its path is qwen2.5-0.5b's
 # rows 7 and 8 on the new models' largest stacked leaves (mlp.wg)
 WIDE_LEAVES = {"llama wg": (16, 2048 * 8192), "phi4 wg": (32, 3072 * 8192)}
@@ -473,33 +478,8 @@ def phase_build(_build) -> None:
     dt = time.perf_counter() - t0
     print(f"build: nvcc {dt:.2f} s for {libs} (sm_90a, in parallel)")
     for name, log in _build.BUILD_LOG.items():
-        for fn, regs, spills in _ptxas_usage(log):
-            print(f"  {name}: {fn}: {regs}; {spills}")
-
-
-def _ptxas_usage(log: str) -> list:
-    """(kernel, registers line, spills line) of each entry function in
-    ptxas's -v output, the kernel's name demangled where c++filt is on the
-    PATH (templates and all, without the argument list)."""
-    out, fn, spills = [], "?", ""
-    for ln in log.splitlines():
-        m = re.search(r"Function properties for (\S+)", ln)
-        if m:
-            fn = m.group(1)
-        elif "spill" in ln:
-            spills = ln.strip()
-        elif "Used" in ln and "registers" in ln:
-            out.append([fn, ln.split(":", 1)[-1].strip(), spills])
-            spills = ""
-    if shutil.which("c++filt") and out:
-        names = subprocess.run(["c++filt"], input="\n".join(
-            f for f, _, _ in out), capture_output=True, text=True,
-            timeout=60).stdout.splitlines()
-        if len(names) == len(out):
-            for row, nm in zip(out, names):
-                row[0] = nm.replace("(anonymous namespace)::", "").split(
-                    "(")[0].removeprefix("void ")
-    return out
+        for u in _build.ptxas_usage(log):
+            print(f"  {name}: {u.kernel}: {u.text}")
 
 
 def _paged_inputs(torch, dtype, b, vlens, ps=16, maxp=32, h=16, kvh=2, d=64,
@@ -594,13 +574,7 @@ def phase_kernels(torch, ops, ref, timer) -> dict:
             dt = getattr(torch, dtype)
             x = torch.randn(n, d, generator=g, device="cuda").to(dt)
             s = (1 + 0.1 * torch.randn(d, generator=g, device="cuda")).to(dt)
-            n0 = ops.LAUNCHES["rmsnorm"]
-            out = ops.rmsnorm(x, s, 1e-6)
-            torch.cuda.synchronize()
-            check(ops.LAUNCHES["rmsnorm"] == n0 + 1,
-                  "rmsnorm did not count its launch")
-            err = _check_close(torch, out, ref.rmsnorm(x, s, 1e-6), dtype,
-                               f"rmsnorm [{n}, {d}]")
+            err = _norm_fwd_check(torch, ops, ref, x, s, dtype)
             es = x.element_size()
             bms, by = bound_ms(2 * n * d * es + d * es, 4 * n * d, dtype)
             row = dict(kernel="rmsnorm", case=f"N={n}", dtype=dtype,
@@ -622,11 +596,66 @@ def phase_kernels(torch, ops, ref, timer) -> dict:
         print(f"  {r['kernel']:<23} {r['case']:<8} {r['dtype']:<9} "
               f"err {r['max_abs_err']:.2e} (rtol=atol {r['tol']:.0e})  "
               f"kernel {r['ms']:.4f}  plain {r['plain_ms']:.4f}  "
-              f"library {lib}  bound {r['bound_ms']:.5f} ({r['bound_by']})"
+              f"library {lib}  bound {r['bound_ms']:.4g} ({r['bound_by']})"
               f"  {r['shape']}")
     print("  paged_decode_attention has no single-call PyTorch yardstick; "
           "rmsnorm's is torch.nn.functional.rms_norm (timed only)")
+    print(f"  rmsnorm forward instances: {_norm_fwd_usage()}")
+    x = torch.ones(NORM_HOST, dtype=torch.bfloat16, device="cuda")
+    s = torch.ones(NORM_HOST[1], dtype=torch.bfloat16, device="cuda")
+    least, median = _host_us(torch, lambda: ops.rmsnorm(x, s, 1e-6))
+    print(f"  rmsnorm host time: least {least:.2f} us, median {median:.2f} "
+          f"us a call at {list(NORM_HOST)} bf16 ({HOST_BATCHES} x "
+          f"{HOST_CALLS} calls, enqueue only)")
     return main
+
+
+def _norm_fwd_check(torch, ops, ref, x, s, dtype: str) -> float:
+    """Row 2 on x [N, D]: two counted launches with the same bits, within
+    the tolerance of the plain version; returns the max error."""
+    n, d = x.shape
+    n0 = ops.LAUNCHES["rmsnorm"]
+    out = ops.rmsnorm(x, s, 1e-6)
+    again = ops.rmsnorm(x, s, 1e-6)
+    torch.cuda.synchronize()
+    check(ops.LAUNCHES["rmsnorm"] == n0 + 2,
+          "rmsnorm did not count its launches")
+    check(_bits_equal(torch, out, again),
+          f"rmsnorm [{n}, {d}] {dtype}: two launches gave different bits")
+    return _check_close(torch, out, ref.rmsnorm(x, s, 1e-6), dtype,
+                        f"rmsnorm [{n}, {d}]")
+
+
+def _norm_fwd_usage() -> str:
+    """Registers of each compiled instance of the RMSNorm forward
+    (``csrc/rmsnorm.cu``: x, scale, vector width) as ptxas reports them;
+    fails on a spill or unless all 8 instances are reported."""
+    from repro_torch.kernels import _build
+    fwd = [u for u in _build.usage("rmsnorm.cu")
+           if "rmsnorm_fwd_kernel" in u.kernel]
+    check(len(fwd) == 8, f"ptxas reported {len(fwd)} instances of the "
+          f"RMSNorm forward, not 8")
+    for u in fwd:
+        check(u.spill_bytes == 0, f"{u.kernel}: {u.spill_bytes} bytes "
+              f"spilled ({u.registers} registers)")
+    return ", ".join(f"{u.kernel.removeprefix('rmsnorm_fwd_kernel')} "
+                     f"{u.registers}" for u in fwd) + " registers, no spills"
+
+
+def _host_us(torch, fn) -> tuple:
+    """(least, median) host microseconds a call of fn takes to enqueue:
+    ``HOST_BATCHES`` batches of ``HOST_CALLS`` calls, each made with no
+    sync and followed by one."""
+    per_call = []
+    for _ in range(HOST_BATCHES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HOST_CALLS):
+            fn()
+        per_call.append((time.perf_counter() - t0) / HOST_CALLS * 1e6)
+        torch.cuda.synchronize()
+    per_call.sort()
+    return per_call[0], per_call[len(per_call) // 2]
 
 
 # 32 q heads on 8 kv heads (two blocks a kv head): llama3.2-1b's map at head
@@ -1098,17 +1127,16 @@ def _norm_inputs(torch, dt, n, d, seed=5):
 
 
 def _norm_usage(torch, x, s, dy) -> str:
-    """Registers a thread and spills of the compiled forward, row pass (full
-    and dx-only) and column pass of rows 2 and 2b at this shape, as Triton
-    reports them (launched outside the counted wrappers); fails on a spill
-    or when Triton reports neither."""
+    """Registers a thread and spills of the compiled row pass (full and
+    dx-only) and column pass of row 2b at this shape, as Triton reports
+    them (launched outside the counted wrappers); fails on a spill or when
+    Triton reports neither. (Row 2's are ptxas's: ``_norm_fwd_usage``.)"""
     from repro_torch.kernels import rmsnorm as rn
-    kernels = [("fwd", rn.launch(x, s, 1e-6, torch.empty_like(x)))]
     row, col = rn.launch_bwd(x, s, dy, 1e-6, torch.empty_like(x),
                              torch.empty_like(s))
     dx_only, _ = rn.launch_bwd(x, s, dy, 1e-6, torch.empty_like(x), None)
-    kernels += [("row pass", row), ("col sums", col),
-                ("row pass dx-only", dx_only)]
+    kernels = [("row pass", row), ("col sums", col),
+               ("row pass dx-only", dx_only)]
     out = []
     for name, k in kernels:
         regs = getattr(k, "n_regs", None)
@@ -1388,11 +1416,14 @@ def _profile_training(torch, tr, steps=2, top=15, host_ops=True) -> dict:
               f"{e.key[:90]}")
     ours = {}
     for e in events:   # the port's kernels, by their function names
-        for fn in ("_rmsnorm_fwd", "_rmsnorm_bwd", "_col_sums", "_partials",
+        for fn in ("_rmsnorm_bwd", "_col_sums", "_partials",
                    "_row_sums", "_masked_adamw", "_banked_masked_adamw"):
             if e.key.startswith(fn):      # Triton: the name comes first
                 ours[fn] = ours.get(fn, 0.0) + e.device_time_total / 1e3
-        for fn in FLASH_NAMES:            # CUDA C++: inside the signature
+        if "rmsnorm_fwd_kernel" in e.key:   # CUDA C++: inside the signature
+            ours["rmsnorm_fwd_kernel"] = (ours.get("rmsnorm_fwd_kernel", 0.0)
+                                          + e.device_time_total / 1e3)
+        for fn in FLASH_NAMES:
             if any(name in e.key for name in FLASH_PARTS[fn]):
                 ours[fn] = ours.get(fn, 0.0) + e.device_time_total / 1e3
     flash = sum(ours.get(fn, 0.0) for fn in FLASH_NAMES)
@@ -4159,28 +4190,21 @@ def phase_arch_kernels(torch, ops, ref, timer) -> None:
         del q, k, v, out
         for n, d in ARCH_NORM_SHAPES:
             x, s, _ = _norm_inputs(torch, dt, n, d, seed=n + d)
-            n0 = ops.LAUNCHES["rmsnorm"]
-            out = ops.rmsnorm(x, s, 1e-6)
-            torch.cuda.synchronize()
-            check(ops.LAUNCHES["rmsnorm"] == n0 + 1,
-                  "rmsnorm did not count its launch")
-            err = _check_close(torch, out, ref.rmsnorm(x, s, 1e-6), dtype,
-                               f"rmsnorm [{n}, {d}]")
-            kern = rn.launch(x, s, 1e-6, torch.empty_like(x))
-            check(kern.n_spills == 0, f"rmsnorm [{n}, {d}] {dtype}: "
-                  f"{kern.n_spills} spills ({kern.n_regs} registers)")
+            err = _norm_fwd_check(torch, ops, ref, x, s, dtype)
+            plan = rn.launch(x, s, 1e-6, torch.empty_like(x))
             es = x.element_size()
             bms, by = bound_ms(2 * n * d * es + d * es, 4 * n * d, dtype)
             rows.append(dict(
                 kernel="rmsnorm", dtype=dtype,
-                shape=f"[{n}, {d}], {rn.warps(1 << (d - 1).bit_length())} "
-                f"warps, "
-                f"{kern.n_regs} registers, no spills", max_abs_err=err,
+                shape=f"[{n}, {d}], {plan.warps} warps a row, "
+                f"{plan.rows} rows a block, {plan.stages} stages, "
+                f"{plan.blocks} blocks", max_abs_err=err,
                 ms=timer.ms(lambda: ops.rmsnorm(x, s, 1e-6)),
                 plain_ms=timer.ms(lambda: ref.rmsnorm(x, s, 1e-6)),
                 library_ms=timer.ms(lambda: F.rms_norm(x, (d,), weight=s,
                                                        eps=1e-6)),
                 bound_ms=bms, bound_by=by))
+    print(f"  rmsnorm forward instances: {_norm_fwd_usage()}")
     print("the widened rows at the new archs' shapes (CUDA events, L2 "
           "flushed, ms per call; row 1 has no single-call library "
           "yardstick, row 3's is SDPA with enable_gqa, row 2's "
@@ -4190,7 +4214,7 @@ def phase_arch_kernels(torch, ops, ref, timer) -> None:
         print(f"  {r['kernel']:<23} {r['dtype']:<9} err "
               f"{r['max_abs_err']:.2e}  kernel {r['ms']:.4f}  plain "
               f"{r['plain_ms']:.4f}  library {lib}  bound "
-              f"{r['bound_ms']:.5f} ({r['bound_by']})  {r['shape']}")
+              f"{r['bound_ms']:.4g} ({r['bound_by']})  {r['shape']}")
 
 
 def _host_available() -> tuple:
@@ -4606,7 +4630,7 @@ def main() -> int:
         "decode_attention": (
             "cuda", "src/repro_torch/csrc/decode_attention.cu",
             "src/repro/kernels/decode_attention.py:24"),
-        "rmsnorm": ("triton", "src/repro_torch/kernels/rmsnorm.py",
+        "rmsnorm": ("cuda", "src/repro_torch/csrc/rmsnorm.cu",
                     "src/repro/kernels/rmsnorm.py:13"),
         # no TPU kernel: the JAX package differentiates norms.apply in XLA;
         # this is the TPU kernel whose forward it completes

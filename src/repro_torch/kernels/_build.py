@@ -6,16 +6,19 @@ repository root (listed in ``.gitignore``). The library's file name carries a
 hash of the source, of the shared headers (``csrc/*.cuh``) and of the flags,
 so an edited source or header is rebuilt and a stale library is never
 loaded. A failed build raises ``KernelBuildFailure``;
-nothing falls back.
+nothing falls back. ptxas's report (``-Xptxas -v``) is kept beside the
+library; ``usage`` reads each kernel's registers and spills from it.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
+from typing import NamedTuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -29,6 +32,13 @@ BUILD_LOG: dict[str, str] = {}   # source name -> nvcc/ptxas output
 
 class KernelBuildFailure(RuntimeError):
     """A kernel source did not compile or its library did not load."""
+
+
+class Usage(NamedTuple):
+    kernel: str        # demangled where c++filt is on the PATH
+    registers: int     # a thread
+    spill_bytes: int   # spill stores + spill loads
+    text: str          # ptxas's registers and spills lines
 
 
 def sources() -> list[str]:
@@ -73,6 +83,7 @@ def build(name: str) -> Path:
         if proc.returncode != 0:
             raise KernelBuildFailure(f"nvcc failed on {name} (exit "
                                      f"{proc.returncode}):\n{BUILD_LOG[name]}")
+        out.with_suffix(".log").write_text(BUILD_LOG[name])
         os.replace(tmp, out)
     except subprocess.TimeoutExpired as e:
         raise KernelBuildFailure(
@@ -93,3 +104,42 @@ def load(name: str) -> ctypes.CDLL:
             raise KernelBuildFailure(f"could not load {path}: {e}") from e
         _LIBS[name] = lib
     return lib
+
+
+def ptxas_usage(log: str) -> list[Usage]:
+    """Each entry function's registers and spills in ptxas's -v output,
+    its name demangled where c++filt is on the PATH (templates and all,
+    without the argument list)."""
+    out, fn, spills = [], "?", ""
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            fn = m.group(1)
+        elif "spill" in ln:
+            spills = ln.strip()
+        elif "Used" in ln and "registers" in ln:
+            regs = int(re.search(r"Used (\d+) registers", ln)[1])
+            spilled = sum(int(b) for b in re.findall(
+                r"(\d+) bytes spill (?:stores|loads)", spills))
+            out.append([fn, regs, spilled,
+                        f"{ln.split(':', 1)[-1].strip()}; {spills}"])
+            spills = ""
+    if shutil.which("c++filt") and out:
+        names = subprocess.run(["c++filt"], input="\n".join(
+            row[0] for row in out), capture_output=True, text=True,
+            timeout=60).stdout.splitlines()
+        if len(names) == len(out):
+            for row, nm in zip(out, names):
+                row[0] = nm.replace("(anonymous namespace)::", "").split(
+                    "(")[0].removeprefix("void ")
+    return [Usage(*row) for row in out]
+
+
+def usage(name: str) -> list[Usage]:
+    """``ptxas_usage`` of ``csrc/<name>``'s build: this process's, or the
+    report kept beside the library (built first if needed)."""
+    log = BUILD_LOG.get(name)
+    if log is None:
+        kept = build(name).with_suffix(".log")
+        log = kept.read_text() if kept.exists() else ""
+    return ptxas_usage(log)

@@ -193,7 +193,7 @@ def rmsnorm(x, scale, eps=1e-5):
         _fail(name, "x and scale must be contiguous")
     if not 0 < d <= _rn.MAX_D_FWD:
         _fail(name, f"the kernel takes 0 < D <= {_rn.MAX_D_FWD}, got {d}")
-    _rn.load()
+    _rn.load_fwd()   # a missing build raises here, before any allocation
     x2d = x.view(-1, d)
     out = torch.empty_like(x2d)
     if x2d.shape[0]:

@@ -1,10 +1,10 @@
 """RMSNorm (f32 statistics, cast back to the input dtype).
 
 ``apply`` is the JAX package's ``norms.apply``. Its forward goes through
-``ops.rmsnorm`` and its backward through ``ops.rmsnorm_bwd`` (the Triton
-kernels on the card, the plain versions on the CPU), joined by a
-``torch.autograd.Function`` when a gradient is wanted; the JAX package
-lets XLA differentiate it. The backward asks for dx only when the scale
+``ops.rmsnorm`` and its backward through ``ops.rmsnorm_bwd`` (on the card
+the CUDA C++ forward and the Triton backward, on the CPU the plain
+versions), joined by a ``torch.autograd.Function`` when a gradient is
+wanted; the JAX package lets XLA differentiate it. The backward asks for dx only when the scale
 needs no gradient."""
 from __future__ import annotations
 

@@ -35,7 +35,9 @@ call, dense or banked, and obs adds one a step (its selection read); the
 copy stream's batches are bit-equal to the synchronous upload.
 Rows 2 and 2b are also held at llama3.2-1b's and phi4-mini's widths (D
 2048 and 3072) and at ``MAX_D_BWD`` (4096), without register spills; row 2
-at qwen2.5-32b's 5120 and at ``MAX_D_FWD`` (8192), without spills; each
+at qwen2.5-32b's 5120 and at ``MAX_D_FWD`` (8192), without spills (its
+CUDA instances as ptxas reports them), at odd widths, one row and 65536,
+on an offset view of a flat buffer and in every x / scale dtype pair; each
 refuses a wider row (the backward 5120). Rows 1 and 3 are held at 48 and 64
 q heads (qwen2.5-32b's padded map, three and four blocks a kv head), and
 ``lm.init`` of a qwen2.5-32b-width stack peaks within one f32 draw of its
@@ -421,6 +423,16 @@ def _wide_rows(dev, n, d, dtype, seed):
     return x, s, dy
 
 
+def _forward_spills_nothing():
+    """Every instance of the CUDA forward (``csrc/rmsnorm.cu``) compiled
+    without spills, as ptxas reports them in its build."""
+    from repro_torch.kernels import _build
+    fwd = [u for u in _build.usage("rmsnorm.cu")
+           if "rmsnorm_fwd_kernel" in u.kernel]
+    assert len(fwd) == 8, fwd   # x and scale each f32 or bf16, vec 16 B or 1
+    assert all(u.spill_bytes == 0 for u in fwd), fwd
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [4, 4096])
 @pytest.mark.parametrize("d", [2048, 3072, 4096])
@@ -448,11 +460,11 @@ def test_rmsnorm_wide_rows(cuda_device, n, d, dtype):
     torch.testing.assert_close(ds.float(), pds.float(), **TOL[dtype])
     assert _bits_equal(dx, dx2) and _bits_equal(ds, ds2)
     assert dso is None and _bits_equal(dxo, dx)
-    out = torch.empty_like(x)
-    kernels = [rn.launch(x, s, 1e-6, out), *rn.launch_bwd(
-        x, s, dy, 1e-6, torch.empty_like(x), torch.empty_like(s))]
+    kernels = rn.launch_bwd(x, s, dy, 1e-6, torch.empty_like(x),
+                            torch.empty_like(s))
     for k in kernels:
         assert k.n_spills == 0, (k.name, k.n_regs, k.n_spills)
+    _forward_spills_nothing()
 
 
 @pytest.mark.cuda
@@ -460,10 +472,9 @@ def test_rmsnorm_wide_rows(cuda_device, n, d, dtype):
 @pytest.mark.parametrize("d", [5120, 8192])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rmsnorm_forward_past_4096(cuda_device, n, d, dtype):
-    """Row 2 at qwen2.5-32b's D 5120 and at ``MAX_D_FWD`` (8192, 32 warps):
-    within the tolerance of its plain version, bit-identical over two
-    launches, one launch counted, no register spills."""
-    from repro_torch.kernels import rmsnorm as rn
+    """Row 2 at qwen2.5-32b's D 5120 and at ``MAX_D_FWD`` (8192): within
+    the tolerance of its plain version, bit-identical over two launches,
+    one launch counted, no register spills."""
     x, s, _ = _wide_rows(cuda_device, n, d, dtype, seed=d + n)
     n0 = ops.LAUNCHES["rmsnorm"]
     y = ops.rmsnorm(x, s, 1e-6)
@@ -471,8 +482,41 @@ def test_rmsnorm_forward_past_4096(cuda_device, n, d, dtype):
     assert ops.LAUNCHES["rmsnorm"] == n0 + 1
     _close(y, ref.rmsnorm(x, s, 1e-6), dtype)
     assert _bits_equal(y, ops.rmsnorm(x, s, 1e-6))
-    k = rn.launch(x, s, 1e-6, torch.empty_like(x))
-    assert k.n_spills == 0, (k.name, k.n_regs, k.n_spills)
+    _forward_spills_nothing()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n, d, offset", [
+    (3, 1, 0), (5, 7, 0), (4, 8, 0), (33, 895, 0), (9, 4097, 0),
+    (1, 896, 0), (65536, 896, 0), (64, 896, 1), (16, 5120, 1)])
+def test_rmsnorm_forward_odd_rows(cuda_device, x_dtype, s_dtype, n, d,
+                                  offset):
+    """Row 2 at odd widths (1, 7, 895, 4097: the vector-width-1 instance),
+    at one row and at 65536, and on an offset view ``buf[1:].view(n, d)``
+    of a flat buffer, whose base is not 16-byte aligned (the vector-width-1
+    instance too), in each x / scale dtype pair: within the tolerance of
+    the plain version, bit-identical over two launches, a launch counted
+    each."""
+    from repro_torch.kernels import rmsnorm as rn
+    g = torch.Generator(device=cuda_device).manual_seed(n + d)
+    buf = (1 + 0.5 * torch.randn(n * d + offset, generator=g,
+                                 device=cuda_device)).to(x_dtype)
+    x = buf[offset:].view(n, d)
+    s = (1 + 0.1 * torch.randn(d, generator=g, device=cuda_device)).to(
+        s_dtype)
+    n0 = ops.LAUNCHES["rmsnorm"]
+    y = ops.rmsnorm(x, s, 1e-6)
+    y2 = ops.rmsnorm(x, s, 1e-6)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["rmsnorm"] == n0 + 2
+    _close(y, ref.rmsnorm(x, s, 1e-6), x_dtype)
+    assert _bits_equal(y, y2)
+    out = torch.empty_like(x)
+    plan = rn.launch(x, s, 1e-6, out)
+    assert (plan.vec == 1) == bool(offset or d % (16 // x.element_size()))
+    assert _bits_equal(out, y)
 
 
 @pytest.mark.cuda

@@ -3,10 +3,13 @@ one, alternated, so that their numbers come from the same card in one run.
 
     python3 tools/phase_ab.py --phase decode OTHER [OTHER ...] [--rounds 2]
 
-``--phase`` is ``kernels`` (phase 3: rows 1 and 2), ``serve`` (phase 4,
-serving at full width on the paged layout), ``train_kernels`` (phase 6:
-rows 7, 8 and 2b), ``flash`` (phase 12), ``decode`` (phase 15) or ``eval``
-(phase 16, the greedy eval at full width). For ``eval`` this checkout's
+``--phase`` is ``kernels`` (phase 3: rows 1 and 2, then the host time an
+``ops.rmsnorm`` call takes to enqueue at [4, 896]), ``arch_kernels``
+(phase 33: rows 1, 3 and 2 at the other dense archs' shapes), ``packed``
+(phase 14: f32 packed training, the card against the CPU), ``serve``
+(phase 4, serving at full width on the paged layout), ``train_kernels``
+(phase 6: rows 7, 8 and 2b), ``flash`` (phase 12), ``decode`` (phase 15)
+or ``eval`` (phase 16, the greedy eval at full width). For ``eval`` this checkout's
 phase 7 trains once first and its params, saved under ``build/phase_ab/``,
 are the ones every checkout evaluates. Each round runs the phase of every
 OTHER and then of this checkout, each in a process of its own that first
@@ -46,7 +49,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 WORK = ROOT / "build" / "phase_ab"
-PHASES = {"kernels": "phase_kernels", "serve": "phase_serving",
+PHASES = {"kernels": "phase_kernels", "arch_kernels": "phase_arch_kernels",
+          "packed": "phase_packed_consistency", "serve": "phase_serving",
           "train_kernels": "phase_train_kernels",
           "flash": "phase_flash_kernels", "decode": "phase_decode_kernel",
           "eval": "phase_eval"}
@@ -84,6 +88,13 @@ def _run_phase(checkout: Path, phase: str, params: Path) -> None:
                     "task": training["task"]}, params)
     elif phase == "serve":
         _serve(cs, torch, ops, cfg)
+    elif phase == "packed":
+        from repro_torch.data import loader
+        from repro_torch.models import lm
+        from repro_torch.train import step
+        from repro_torch.train.trainer import Trainer
+        cs.phase_packed_consistency(torch, ops, cfg, Trainer, loader, lm,
+                                    step)
     elif phase == "eval":
         from repro_torch.train import evaluate
         cs.phase_eval(torch, ops, cfg, evaluate,
@@ -93,6 +104,8 @@ def _run_phase(checkout: Path, phase: str, params: Path) -> None:
         mods = {"_dec": _dec, "_fa": _fa}
         fn(torch, ops, ref, *(mods[p] for p in inspect.signature(fn)
                               .parameters if p in mods), cs.Timer(torch))
+        if phase == "kernels":
+            _norm_host_us(torch, ops)
         if phase == "decode":
             _row3_bits(cs, torch, ops)
         if phase == "flash":
@@ -118,25 +131,39 @@ def _serve(cs, torch, ops, cfg) -> None:
     _paged_host_us(cs, torch, ops)
 
 
-def _paged_host_us(cs, torch, ops) -> None:
-    """Host microseconds that a call of ``ops.paged_decode_attention`` at
-    phase 3's serving shape (bf16, B 4, valid_len 1/17/300/512) takes to
-    enqueue: ``HOST_BATCHES`` batches of ``HOST_CALLS`` calls, each made
-    with no sync and followed by one; the least and the median batch. The
-    serving path is host-bound, so this is the launcher's share of it."""
-    args = cs._paged_inputs(torch, "bfloat16", 4, [1, 17, 300, 512])
+def _host_us(torch, what: str, fn) -> None:
+    """Prints the host microseconds that a call of fn takes to enqueue:
+    ``HOST_BATCHES`` batches of ``HOST_CALLS`` calls, each made with no
+    sync and followed by one; the least and the median batch."""
     per_call = []
     for _ in range(HOST_BATCHES):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(HOST_CALLS):
-            ops.paged_decode_attention(*args)
+            fn()
         per_call.append((time.perf_counter() - t0) / HOST_CALLS * 1e6)
         torch.cuda.synchronize()
     per_call.sort()
-    print(f"paged decode host time: least {per_call[0]:.2f} us, median "
+    print(f"{what} host time: least {per_call[0]:.2f} us, median "
           f"{per_call[len(per_call) // 2]:.2f} us a call ({HOST_BATCHES} x "
           f"{HOST_CALLS} calls)")
+
+
+def _paged_host_us(cs, torch, ops) -> None:
+    """The host time of ``ops.paged_decode_attention`` at phase 3's serving
+    shape (bf16, B 4, valid_len 1/17/300/512). The serving path is
+    host-bound, so this is the launcher's share of it."""
+    args = cs._paged_inputs(torch, "bfloat16", 4, [1, 17, 300, 512])
+    _host_us(torch, "paged decode",
+             lambda: ops.paged_decode_attention(*args))
+
+
+def _norm_host_us(torch, ops) -> None:
+    """The host time of ``ops.rmsnorm`` at [4, 896] bf16, a decode step's
+    row block."""
+    x = torch.ones(4, 896, dtype=torch.bfloat16, device="cuda")
+    s = torch.ones(896, dtype=torch.bfloat16, device="cuda")
+    _host_us(torch, "rmsnorm", lambda: ops.rmsnorm(x, s, 1e-6))
 
 
 def _row3_bits(cs, torch, ops) -> None:
@@ -269,12 +296,16 @@ def _summary(phase: str, text: str) -> dict:
         # the summary tables' kernel rows, phase 15's times by split and
         # row 1's by split
         bits = re.search(r"^row 3 bits: (.*)$", text, re.M)
+        host = re.search(r"^rmsnorm host time: least ([\d.]+) us, median "
+                         r"([\d.]+) us", text, re.M)
         fbits = re.search(r"^flash bits: (.*)$", text, re.M)
         return {"rows": [" ".join(m.split()) for m in re.findall(
             r"^ +(?:[a-z_]+ .*kernel [\d.]+ .*plain"
             r"|(?:bfloat16|float32) +\w+ +B=\d+ +S="
             r"|row 1 .*splits 1-4).*$", text, re.M)],
                 "row3_bits": json.loads(bits[1]) if bits else None,
+                "rmsnorm_host_us": ([float(host[1]), float(host[2])]
+                                    if host else None),
                 "flash_bits": json.loads(fbits[1]) if fbits else None}
     first = re.search(r"generated in ([\d.]+) s = ([\d.]+) tok/s", text)
     second = re.search(r"second call: .*?, ([\d.]+) s = ([\d.]+) tok/s",
