@@ -161,7 +161,9 @@ def fwd_plan(n: int, d: int, x_itemsize: int, aligned: bool,
       5120, 4 at 8192; vec 1: one per 256 elements), but for f32 vectors
       max(1, B / 1024), B the least power of two >= d (1 at 896, 2 at
       2048, 4 at 3072 and 4096, 8 at 5120 and 8192): the layout through
-      which the f32 path keeps the earlier forward's arithmetic;
+      which the f32 path keeps the earlier forward's arithmetic, a
+      temporary compatibility fork for ``chip_smoke.py`` phase 14(b)
+      (``csrc/rmsnorm.cu`` ``f32_inv_rms``; ROADMAP Queue C 12);
     - rows: row groups a block, ~``BLOCK_THREADS`` threads, but no more
       than the rows an SM would get, so that few rows spread over the SMs;
     - stages: ring slots of a row group, ``FWD_STAGES`` (0 for vec 1):

@@ -2,6 +2,7 @@
 one, alternated, so that their numbers come from the same card in one run.
 
     python3 tools/phase_ab.py --phase decode OTHER [OTHER ...] [--rounds 2]
+        [--flush clean]
 
 ``--phase`` is ``kernels`` (phase 3: rows 1 and 2, then the host time an
 ``ops.rmsnorm`` call takes to enqueue at [4, 896]), ``arch_kernels``
@@ -9,7 +10,11 @@ one, alternated, so that their numbers come from the same card in one run.
 (phase 14: f32 packed training, the card against the CPU), ``serve``
 (phase 4, serving at full width on the paged layout), ``train_kernels``
 (phase 6: rows 7, 8 and 2b), ``flash`` (phase 12), ``decode`` (phase 15)
-or ``eval`` (phase 16, the greedy eval at full width). For ``eval`` this checkout's
+or ``eval`` (phase 16, the greedy eval at full width). ``--flush clean``
+has the timed phases' ``Timer`` read a 64 MiB buffer before each launch in
+place of its 64 MiB write, so that L2 holds clean lines only and a timed
+kernel's misses write nothing back (the default, ``write``, is the
+``Timer``'s own). For ``eval`` this checkout's
 phase 7 trains once first and its params, saved under ``build/phase_ab/``,
 are the ones every checkout evaluates. Each round runs the phase of every
 OTHER and then of this checkout, each in a process of its own that first
@@ -57,6 +62,21 @@ PHASES = {"kernels": "phase_kernels", "arch_kernels": "phase_arch_kernels",
 HOST_BATCHES, HOST_CALLS = 20, 200   # paged decode calls timed on the host
 
 
+class _CleanFlush:
+    """Stands in for a ``Timer``'s flush buffer under ``--flush clean``: its
+    ``zero_`` reads 64 MiB (more than the 50 MB L2; the largest byte into
+    one) instead of writing them, which evicts what L2 held, dirty lines
+    included, and leaves it holding clean lines only."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.buf = torch.ones(64 << 20, dtype=torch.uint8, device="cuda")
+        self.out = torch.empty((), dtype=torch.uint8, device="cuda")
+
+    def zero_(self):
+        self.torch.amax(self.buf, dim=0, out=self.out)
+
+
 def _chip_smoke(checkout: Path):
     """That checkout's chip_smoke.py as a module (it puts its own src/ first
     on sys.path when imported)."""
@@ -67,7 +87,8 @@ def _chip_smoke(checkout: Path):
     return cs
 
 
-def _run_phase(checkout: Path, phase: str, params: Path) -> None:
+def _run_phase(checkout: Path, phase: str, params: Path,
+               flush: str = "write") -> None:
     """In a worker process: build that checkout's kernels and run its
     phase; ``eval`` reads the params that ``train`` (phase 7) saved."""
     cs = _chip_smoke(checkout)
@@ -102,8 +123,11 @@ def _run_phase(checkout: Path, phase: str, params: Path) -> None:
     else:   # an older checkout's phase may take fewer modules
         fn = getattr(cs, PHASES[phase])
         mods = {"_dec": _dec, "_fa": _fa}
+        timer = cs.Timer(torch)
+        if flush == "clean":
+            timer.flush = _CleanFlush(torch)
         fn(torch, ops, ref, *(mods[p] for p in inspect.signature(fn)
-                              .parameters if p in mods), cs.Timer(torch))
+                              .parameters if p in mods), timer)
         if phase == "kernels":
             _norm_host_us(torch, ops)
         if phase == "decode":
@@ -203,12 +227,13 @@ def _flash_bits(cs, torch, ops) -> None:
     print(f"flash bits: {json.dumps(bits)}")
 
 
-def _worker(checkout: Path, phase: str, params: Path, log: Path) -> int:
+def _worker(checkout: Path, phase: str, params: Path, log: Path,
+            flush: str = "write") -> int:
     with open(log, "w") as f:
         return subprocess.run(
             [sys.executable, __file__, "--worker", str(checkout), phase,
-             str(params)], stdout=f, stderr=subprocess.STDOUT,
-            cwd=ROOT).returncode
+             str(params), "--flush", flush], stdout=f,
+            stderr=subprocess.STDOUT, cwd=ROOT).returncode
 
 
 def _serve_summary(text: str) -> dict:
@@ -326,12 +351,15 @@ def main() -> int:
     ap.add_argument("--phase", choices=sorted(PHASES), default="decode")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--logs", type=Path, default=WORK)
+    ap.add_argument("--flush", choices=("write", "clean"), default="write",
+                    help="L2 before each timed launch: the Timer's 64 MiB "
+                    "write, or a 64 MiB read that leaves it clean")
     ap.add_argument("--worker", nargs=3, help=argparse.SUPPRESS)
     a = ap.parse_args()
     if a.worker:
         checkout, phase, params = a.worker
         try:
-            _run_phase(Path(checkout), phase, Path(params))
+            _run_phase(Path(checkout), phase, Path(params), a.flush)
         except Exception:   # reported in the log; the caller goes on
             traceback.print_exc()
             return 1
@@ -354,8 +382,9 @@ def main() -> int:
         for checkout in checkouts:
             label = "this" if checkout == ROOT else checkout.name
             log = a.logs / f"{a.phase}_{i}_{label}.log"
-            rcs.append(_worker(checkout, a.phase, params, log))
+            rcs.append(_worker(checkout, a.phase, params, log, a.flush))
             print(json.dumps({"round": i, "checkout": label, "rc": rcs[-1],
+                              "flush": a.flush,
                               **_summary(a.phase, log.read_text())}),
                   flush=True)
     return max(rcs)
